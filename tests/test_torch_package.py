@@ -1,0 +1,85 @@
+"""Package rules of the port: imports, device policy, host copies."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mars_tpu_torch
+from mars_tpu import cli as jcli
+from mars_tpu.data.synthetic import SyntheticFSS as JSynthetic
+from mars_tpu.text import tokenizer as jtok
+from mars_tpu.utils import evaluation as jeval
+from mars_tpu_torch import cli as tcli, device as device_lib
+from mars_tpu_torch.data.synthetic import SyntheticFSS as TSynthetic
+from mars_tpu_torch.models import zoo
+from mars_tpu_torch.text import tokenizer as ttok
+from mars_tpu_torch.utils import evaluation as teval
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import pkgutil, sys
+sys.modules["jax"] = None
+import mars_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch.")]
+for n in names:
+    __import__(n)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m == "mars_tpu" or m.startswith(("mars_tpu.", "jax"))))
+print(len(names), bad)
+"""
+
+
+def test_imports_without_jax_or_mars_tpu():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    n, bad = r.stdout.split(maxsplit=1)
+    assert int(n) >= 20 and bad.strip() == "[]", r.stdout
+    for mod in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch."):
+        path = __import__(mod.name, fromlist=["_"]).__file__
+        with open(path) as f:
+            src = f.read()
+        assert "import mars_tpu." not in src and "from mars_tpu." not in src, path
+        assert "import mars_tpu\n" not in src and "import jax" not in src, path
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_lib.resolve(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.build_dinov2()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli.main(["--episodes", "1", "--gt-class-names"])
+    assert device_lib.resolve("cpu") == torch.device("cpu")
+
+
+def test_synthetic_episodes_and_proposals_match_jax_cli():
+    jds, tds = JSynthetic(seed=3, size=96), TSynthetic(seed=3, size=96)
+    jrng, trng = np.random.RandomState(3), np.random.RandomState(3)
+    for idx in range(2):
+        jr, tr = jds[idx], tds[idx]
+        np.testing.assert_array_equal(tr.query_img, jr.query_img)
+        np.testing.assert_array_equal(tr.support_masks[0], jr.support_masks[0])
+        assert tr.class_name == jr.class_name
+        want = jcli.synthetic_proposals(jr, 96, 16, jrng)
+        got = tcli.synthetic_proposals(tr, 96, 16, trng, "cpu")
+        np.testing.assert_array_equal(got.masks.numpy(), np.asarray(want.masks))
+        np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+
+
+def test_tokenizer_and_meter_copies_match():
+    texts = ["a photo of red square.", "a dog, a domesticated carnivorous mammal."]
+    np.testing.assert_array_equal(ttok.tokenize(texts), jtok.tokenize(texts))
+    rng = np.random.RandomState(0)
+    jm, tm = jeval.AverageMeter("synthetic", range(16)), teval.AverageMeter("synthetic", range(16))
+    for cls in (1, 5, 1):
+        pred, gt = rng.rand(2, 20, 20) > 0.5
+        for m, ev in ((jm, jeval), (tm, teval)):
+            m.update(*ev.classify_prediction(pred, gt), cls)
+    assert tm.compute_iou()[:2] == jm.compute_iou()[:2]
