@@ -4,19 +4,32 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. every kernel against its plain version at the main path's shapes,
-     in float32 and bfloat16, timed with CUDA events beside its bound and
-     a PyTorch yardstick;
-  3. the tiny golden episode (tests/fixtures) on the card: merged mask
-     equal to the fixture;
-  4. the main path at full width: ``mars_tpu_torch.cli.main`` over three
-     synthetic episodes (DINOv2-L/14 reg4 @518, CLIP-B/16 @528,
-     AlphaCLIP-L/14@336, seeded random weights, bucket 128), with the
-     kernels' launch counts read around it;
-  5. one more full-width episode under torch.profiler: device time by
-     stage and by kernel, and the device's idle share;
-  6. the kernels line.
+  1. the card (nvidia-smi name and power limit) and the kernel build (one
+     nvcc per source, all started together);
+  2. ``attention_with_tap`` against its plain version at the ranking path's
+     shapes, in float32 and bfloat16, timed with CUDA events beside its
+     bound and a PyTorch yardstick;
+  3. ``grid_attention`` the same way at SAM ViT-H's global-layer shape and
+     a ragged grid;
+  4. ``auction`` against its plain version, bit-exact, on the five test
+     instances and the full-width forward and reverse matching instances
+     of synthetic episode 0, with the round counts;
+  5. the tiny golden ranking episode (tests/fixtures) on the card: merged
+     mask equal to the fixture;
+  6. the tiny golden Matcher episode on the card: the fixture's content
+     checks;
+  7. the ranking path at full width: ``mars_tpu_torch.cli.main`` over three
+     synthetic episodes with synthetic proposals (DINOv2-L/14 reg4 @518,
+     CLIP-B/16 @528, AlphaCLIP-L/14@336, seeded random weights, bucket
+     128), the kernels' launch counts read around it;
+  8. the proposal path at full width: ``cli.main --generate-proposals`` over
+     two episodes (the Matcher on DINOv2-L and SAM ViT-H @1024, then the
+     ranking), launch counts read around it;
+  9. one full-width ``matcher.generate_proposals`` with zero selection
+     thresholds, so decode, NMS, EMD scoring and the bucket see live masks;
+ 10. one ranking episode, then one proposal-plus-ranking episode, under
+     torch.profiler: device time by stage and by kernel, idle share;
+ 11. the kernels line.
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 the repository, it exits non-zero and prints no result.  Imports nothing
 of JAX or of the JAX package.
@@ -30,13 +43,22 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EPISODES = 3
+PROPOSAL_EPISODES = 2
 TAPPED_BLOCKS = 24 + 7  # DINOv2-L query blocks + CLIP-B prefinal blocks 4..10
+SAM_GLOBAL_LAYERS = 4  # ViT-H blocks 7, 15, 23, 31
+AUCTIONS = 2  # forward + reverse matching per episode
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on CUDA cores, bf16 on
 # tensor cores, HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 GEOMETRIES = (("dinov2_l_518", 16, 1374, 64), ("clip_b16_528", 12, 1090, 64))
 TOL = {"float32": {"out": 1e-5, "tap": 1e-5}, "bfloat16": {"out": 3e-2, "tap": 1e-5}}
+# (name, heads, grid H, grid W, head dim): SAM ViT-H @1024 global layers, a ragged grid
+GRID_GEOMETRIES = (("sam_vit_h_global", 16, 64, 64, 80), ("ragged_5x7", 2, 5, 7, 24))
+GRID_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# tests/test_ops.py's Pallas-vs-XLA auction instances: (seed, T, N, phases)
+AUCTION_CASES = ((0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1), (5, 120, 120, 5),
+                 (6, 3, 700, 1))
 
 
 def emit(obj):
@@ -120,6 +142,131 @@ def phase_kernels(state):
     state["kernel_rows"] = rows
 
 
+def phase_grid_attention(state):
+    import torch
+    import torch.nn.functional as F
+
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, nh, h, w, d in GRID_GEOMETRIES:
+        dtypes = (torch.float32, torch.bfloat16) if name == GRID_GEOMETRIES[0][0] else (
+            torch.float32,)
+        for dtype in dtypes:
+            dt = str(dtype).split(".")[1]
+            l = h * w
+            args = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in
+                    ((nh, l, d), (nh, l, d), (nh, l, d), (nh, l, h), (nh, l, w))]
+            out = sa.grid_attention(*args, (h, w))
+            want = sa.grid_attention_plain(*args, (h, w))
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            # the yardstick's input: the decomposed bias expanded to (heads, L, L)
+            cols = torch.arange(l, device="cuda")
+            mask = (args[3][:, :, cols // w] + args[4][:, :, cols % w])[None]
+            q, k, v = (a[None] for a in args[:3])
+            size = args[0].element_size()
+            flops = 4.0 * nh * l * l * d
+            nbytes = (4 * nh * l * d + nh * l * (h + w)) * size
+            row = {"phase": "kernel", "kernel": "grid_attention", "geometry": name,
+                   "shape": [nh, l, d], "grid": [h, w], "dtype": dt, "max_abs_err": err,
+                   "tol": GRID_TOL[dt],
+                   "ms": cuda_ms(lambda: sa.grid_attention(*args, (h, w))),
+                   "plain_ms": cuda_ms(lambda: sa.grid_attention_plain(*args, (h, w)), iters=5),
+                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask)),
+                   "library_call": "F.scaled_dot_product_attention with the bias expanded "
+                                   "to (heads, L, L) outside the timing",
+                   "bound_ms": max(flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES) * 1e3,
+                   "bound_by": "operations" if flops / PEAK_FLOPS[dt] > nbytes / PEAK_BYTES
+                   else "bytes"}
+            emit(row)
+            rows.append(row)
+            if err > GRID_TOL[dt] or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"grid_attention disagrees with its plain version: {row}")
+    state["grid_rows"] = rows
+
+
+def _matching_instances():
+    """The forward and reverse matching auctions of synthetic episode 0 at
+    full width (DINOv2-L/14 reg4 @518, 37 × 37 patches)."""
+    import torch
+
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.ops import assignment as asg
+    from mars_tpu_torch.pipeline import matcher
+
+    dev = torch.device("cuda")
+    params, cfg = zoo.build_dinov2(0, dev)
+    ep = to_device_episode(SyntheticFSS(seed=0)[0], 518, 1, dev)
+    with torch.no_grad():
+        s_mat, _, fg = matcher._features_and_matrices(
+            params, ep.support_images, ep.support_masks, ep.support_valid, ep.query_image,
+            cfg, 37)
+    l = s_mat.shape[1]
+    cols = asg.auction_assignment(s_mat, fg, row_chunk=128)
+    pair_valid = torch.zeros((l,), dtype=torch.bool, device=dev)
+    pair_valid[cols[cols >= 0].long()] = True
+    return (("matching_forward", s_mat, fg), ("matching_reverse", s_mat.T.contiguous(),
+                                              pair_valid))
+
+
+def phase_auction(state):
+    """Each instance's phases on the wrapper's own inputs (``phase_inputs``):
+    the kernel and the plain version on the card, compared bit for bit."""
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch.ops import assignment as asg
+
+    cases = []
+    for seed, t, n, phases in AUCTION_CASES:
+        rng = np.random.RandomState(seed)
+        s = (rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0 if seed == 3
+             else rng.rand(t, n).astype(np.float32))
+        valid = rng.rand(t) < (0.3 if t != n else 1.1)
+        valid[0] |= not valid.any()
+        cases.append((f"test_ops_seed{seed}_{t}x{n}", torch.from_numpy(s).cuda(),
+                      torch.from_numpy(valid).cuda(), phases, None))
+    cases += [(name, s, v, 1, 128) for name, s, v in _matching_instances()]
+    rows = []
+    for name, s, v, phases, chunk in cases:
+        scores, valid, _, eps = asg.phase_inputs(s, v, phases, chunk)
+        n = scores.shape[1]
+
+        def run(phase):
+            prices = torch.zeros((n,), dtype=torch.float32, device="cuda")
+            col, counts = None, []
+            for e in eps:
+                col, prices, c = phase(scores, valid, prices, e, 20000)
+                counts.append(c)
+            return col, prices, counts
+
+        col_k, pr_k, st_k = run(asg._auction_phase_kernel)
+        t0 = time.perf_counter()
+        col_p, pr_p, st_p = run(asg._auction_phase_plain)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bidder_rows = sum(c[2] + c[3] for c in st_k)
+        row = {"phase": "kernel", "kernel": "auction", "instance": name,
+               "shape": list(scores.shape), "valid_rows": int(valid.sum()), "phases": phases,
+               "equal": bool(torch.equal(col_k, col_p) and torch.equal(pr_k, pr_p)
+                             and st_k == st_p),
+               "rounds": {"dense": sum(c[0] for c in st_k), "small": sum(c[1] for c in st_k)},
+               "bidder_rows": bidder_rows, "assigned": int((col_k >= 0).sum()),
+               "ms": cuda_ms(lambda: run(asg._auction_phase_kernel), iters=5, warmup=1),
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bidder_rows * n * 4.0 / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        emit(row)
+        rows.append(row)
+        if not row["equal"]:
+            raise AssertionError(f"auction kernel differs from its plain version: {row}")
+    state["auction_rows"] = rows
+
+
 def phase_golden(state):
     import numpy as np
     import torch
@@ -173,6 +320,113 @@ def phase_golden(state):
         raise AssertionError(f"golden merged mask differs from the fixture in {diff} pixels")
 
 
+def _mask_iou(a, b):
+    """(N, H, W) x (M, H, W) bool → (N, M) IoU; empty against empty = 1."""
+    import numpy as np
+
+    af = a.reshape(len(a), -1).astype(np.float64)
+    bf = b.reshape(len(b), -1).astype(np.float64)
+    inter = af @ bf.T
+    union = af.sum(1)[:, None] + bf.sum(1)[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1), 1.0)
+
+
+def _greedy_match(iou):
+    iou = iou.copy()
+    out = []
+    for _ in range(min(iou.shape)):
+        i, j = divmod(int(iou.argmax()), iou.shape[1])
+        out.append((i, j, float(iou[i, j])))
+        iou[i, :] = -1
+        iou[:, j] = -1
+    return out
+
+
+def phase_golden_matcher(state):
+    """tests/fixtures/golden_matcher_tiny.npz (made by the reference
+    Matcher) through the port's generate_proposals on the card, with the
+    content checks of tests/test_golden_matcher.py."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch.models import convert, dinov2, sam
+    from mars_tpu_torch.ops import assignment as asg
+    from mars_tpu_torch.pipeline import amg, matcher
+
+    data = np.load(os.path.join(ROOT, "tests", "fixtures", "golden_matcher_tiny.npz"))
+    sd = {k[3:]: data[k] for k in data.files if k.startswith("sd.")}
+    d = {k: data[k] for k in data.files if not k.startswith("sd.")}
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    dev = "cuda"
+    sam_sd = sub("sam.")
+    sam_params = {"encoder": convert.from_reference_state_dict(sam_sd, "sam_encoder", 3, device=dev),
+                  "prompt_encoder": convert.from_reference_state_dict(sam_sd, "sam_prompt_encoder",
+                                                                      device=dev),
+                  "decoder": convert.from_reference_state_dict(sam_sd, "sam_decoder", device=dev)}
+    mcfg = matcher.MatcherConfig(
+        input_size=64, grid=8, patch_size=8, sample_range=(2, 3), max_sample_iterations=4,
+        purity_filter=0.02, deep_score_filter=0.6, deep_score_norm_filter=0.4,
+        num_merging_mask=10, emd_row_bucket=16, emd_col_bucket=64)
+    launches = asg.auction_assignment.launches
+    with torch.no_grad():
+        out = matcher.generate_proposals(
+            convert.from_reference_state_dict(sub("dino."), "dinov2", 3, device=dev),
+            dinov2.DinoV2Config(patch_size=8, embed_dim=32, depth=3, num_heads=2,
+                                pos_embed_grid=8),
+            sam_params,
+            sam.SamConfig(img_size=64, patch_size=16, embed_dim=32, depth=3, num_heads=2,
+                          global_attn_indexes=(1,), window_size=2, out_chans=32,
+                          decoder_mlp_dim=64, decoder_heads=2),
+            amg.AmgConfig(sel_pred_iou_thresh=0.0, sel_stability_score_thresh=0.0,
+                          box_nms_thresh=0.5, sel_multimask_output=True, sel_output_layer=3,
+                          decode_batch=16),
+            mcfg,
+            torch.from_numpy(np.ascontiguousarray(d["support_images"][0].transpose(0, 2, 3, 1))).to(dev),
+            torch.from_numpy(d["support_masks"][0]).to(dev), torch.ones((1,), dtype=torch.bool,
+                                                                     device=dev),
+            torch.from_numpy(np.ascontiguousarray(d["query_image"][0].transpose(1, 2, 0))).to(dev),
+            generator=torch.Generator(device=dev).manual_seed(0))
+    o = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
+    valid = o["proposal_valid"]
+    ours, ref = o["proposal_masks"][valid], d["proposals"] > 0
+    matches = _greedy_match(_mask_iou(ref, ours)) if len(ours) == len(ref) else []
+    merged_tk, final_tk, _ = matcher.filter_and_merge(
+        out["proposal_masks"], out["proposal_valid"], out["emd_score"], out["purity"],
+        out["coverage"], replace(mcfg, use_score_filter=False, topk_scores_threshold=0.2))
+    checks = {
+        "cost_matrix": bool(np.allclose(o["cost_matrix"], d["cost_matrix"], atol=3e-5,
+                                        rtol=1e-4)),
+        "support_fg": bool((o["support_fg"] == (d["ref_masks_pool"] > 0)).all()),
+        "matched_points": {tuple(map(int, p)) for p in o["points"][o["point_valid"]]}
+        == {tuple(map(int, p)) for p in d["points"]},
+        "proposal_count": len(ours) == len(ref),
+        "proposal_iou": bool(matches) and min(m[2] for m in matches) >= 0.99,
+        "scores": bool(matches) and all(
+            abs(o["purity"][valid][j] - d["purity"][i]) <= 1e-5
+            and abs(o["coverage"][valid][j] - d["coverage"][i]) <= 1e-5
+            and abs(o["emd_score"][valid][j] - d["emd"][i]) <= 3e-3
+            and abs(o["iou"][valid][j] - d["iou_preds"][i]) <= 1e-3
+            and abs(o["stability"][valid][j] - d["stability"][i]) <= 1e-3
+            for i, j, _ in matches),
+        "merged": _mask_iou((d["merged"][0] > 0)[None], (o["merged"] > 0)[None])[0, 0] >= 0.99
+        and abs(float(o["final_score"]) - float(d["final_score"])) <= 3e-3,
+        "merged_topk": _mask_iou((d["merged_topk"][0] > 0)[None],
+                                 (merged_tk.cpu().numpy() > 0)[None])[0, 0] >= 0.99
+        and abs(float(final_tk) - float(d["final_topk"])) <= 3e-3,
+    }
+    row = {"phase": "golden_matcher", "proposals": int(valid.sum()),
+           "fixture_proposals": len(ref), "min_iou": min((m[2] for m in matches), default=None),
+           "auction_launches": asg.auction_assignment.launches - launches, "checks": checks}
+    emit(row)
+    if not all(checks.values()) or row["auction_launches"] != AUCTIONS:
+        raise AssertionError(f"golden Matcher episode failed on the card: {row}")
+
+
 def phase_main_path(state):
     import math
 
@@ -201,13 +455,149 @@ def phase_main_path(state):
         raise AssertionError("main path produced a non-binary mask or a non-finite mIoU")
 
 
+def phase_proposal_path(state):
+    """``cli.main --generate-proposals`` at full width, every kernel's count
+    set to 0 just before and read just after."""
+    import math
+
+    import torch
+
+    from mars_tpu_torch import cli
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in cli.KERNELS.values():
+        fn.launches = 0
+    res = cli.main(["--benchmark", "synthetic", "--episodes", str(PROPOSAL_EPISODES),
+                    "--gt-class-names", "--generate-proposals", "--proposal-bucket", "128",
+                    "--input-size", "518", "--seed", "0"])
+    launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+    want = {"attention_with_tap": TAPPED_BLOCKS * PROPOSAL_EPISODES,
+            "grid_attention": SAM_GLOBAL_LAYERS * PROPOSAL_EPISODES,
+            "auction": AUCTIONS * PROPOSAL_EPISODES}
+    state["proposal_launches"] = launches
+    row = {"phase": "proposal_path", "episodes": PROPOSAL_EPISODES,
+           "proposal_ms": res["proposal_ms"], "ranking_ms": res["episode_ms"],
+           "live_proposals": res["live_proposals"],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "miou": res["miou"], "masks_binary": res["masks_binary"], "launches": launches,
+           "launches_expected": want}
+    emit(row)
+    if launches != want:
+        raise AssertionError(f"proposal path launches {launches}, expected {want}")
+    if not res["masks_binary"] or not math.isfinite(res["miou"]):
+        raise AssertionError("proposal path produced a non-binary mask or a non-finite mIoU")
+
+
+def phase_zero_thresholds(state):
+    """One full-width generate_proposals with the selection thresholds at 0
+    (the AMG config of tests/test_golden_matcher.py): with random weights
+    the default 0.88 / 0.95 reject every mask, so only this way do decode,
+    NMS, EMD scoring and the bucket see live masks."""
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.pipeline import amg, matcher
+
+    dev = torch.device("cuda")
+    dino, dino_cfg = zoo.build_dinov2(0, dev)
+    sam_params, sam_cfg = zoo.build_sam("vit_h", 3, dev)
+    ep = to_device_episode(SyntheticFSS(seed=0)[0], 518, 1, dev)
+    acfg = amg.AmgConfig(sel_pred_iou_thresh=0.0, sel_stability_score_thresh=0.0,
+                         box_nms_thresh=0.5, sel_multimask_output=True, sel_output_layer=3,
+                         decode_batch=16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = matcher.generate_proposals(
+            dino, dino_cfg, sam_params, sam_cfg, acfg, matcher.MatcherConfig(),
+            ep.support_images, ep.support_masks, ep.support_valid, ep.query_image,
+            generator=cli.episode_generator(0, 0, dev), bucket=128)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    live = int(out["proposal_valid"].sum())
+    bucket_valid = out["bucket_valid"].cpu()
+    k = min(live, 128)
+    masks = out["bucket_masks"]
+    row = {"phase": "zero_thresholds", "ms": ms, "live_proposals": live,
+           "decoded_sets": int(out["telemetry"]["n_prompt_sets"]),
+           "live_before_nms": int(out["telemetry"]["n_decoded"]),
+           "matched_points": int(out["telemetry"]["n_matched_points"]),
+           "chosen": int(out["chosen"].sum()), "final_score": float(out["final_score"]),
+           "bucket_live": int(bucket_valid.sum()),
+           "emd_score_range": [float(out["emd_score"][out["proposal_valid"]].min()),
+                               float(out["emd_score"][out["proposal_valid"]].max())]
+           if live else None}
+    emit(row)
+    ok = (live > 0 and bool(bucket_valid[:k].all()) and not bool(bucket_valid[k:].any())
+          and bool(((masks == 0) | (masks == 1)).all())
+          and bool(torch.isfinite(out["emd_score"]).all()))
+    if not ok:
+        raise AssertionError(f"zero-threshold proposals failed: {row}")
+
+
+def _profile_summary(prof, span_prefixes):
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return next((getattr(e, n) for n in ("self_device_time_total", "self_cuda_time_total")
+                     if hasattr(e, n)), 0)
+
+    # stage spans also appear as device-side annotations: they are spans
+    # (first to last kernel of the stage), not kernels
+    avg = prof.key_averages()
+    device = [e for e in avg if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    kernels = [e for e in device if not e.key.startswith(span_prefixes)]
+    top = sorted(kernels, key=lambda e: -dev_us(e))[:15]
+    return (sum(dev_us(e) for e in kernels) / 1e3, sum(e.count for e in kernels),
+            {e.key: dev_us(e) / 1e3 for e in device if e.key.startswith(span_prefixes)},
+            [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count} for e in top])
+
+
+def phase_profile_proposals(state):
+    """One proposal-plus-ranking episode (after a warm-up one) under
+    torch.profiler: device time by ``matcher.*`` and ``mars.*`` span and by
+    kernel, and the device's idle share of the episode's wall time."""
+    from argparse import Namespace
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+
+    dev = torch.device("cuda")
+    model = cli.build_model(518, dev)
+    generate = cli.make_inline_generator(
+        Namespace(input_size=518, proposal_bucket=128, sam_size="vit_h"),
+        (model.dino_params, model.dino_cfg), dev)
+    rec = SyntheticFSS(seed=0)[0]
+    ep = to_device_episode(rec, 518, 1, dev)
+
+    def episode():
+        props = generate(ep, cli.episode_generator(0, 0, dev))
+        return model.predict(ep, props, class_name=rec.class_name).cpu()
+
+    episode()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        episode()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, launches, spans, top = _profile_summary(prof, ("matcher.", "mars."))
+    emit({"phase": "profile_proposals", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+          "stage_device_span_ms": spans, "top_kernels": top})
+
+
 def phase_profile(state):
     """One full-width episode (after a warm-up one) under torch.profiler:
     device time by stage span (``mars.*``) and by kernel, and the device's
     idle share of the episode's wall time (profiler on)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mars_tpu_torch import cli
@@ -224,26 +614,10 @@ def phase_profile(state):
         t0 = time.perf_counter()
         model.predict(ep, props, class_name=rec.class_name)
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e, self_only):
-        names = (("self_device_time_total", "self_cuda_time_total") if self_only
-                 else ("device_time_total", "cuda_time_total"))
-        return next((getattr(e, n) for n in names if hasattr(e, n)), 0)
-
-    # the mars.* spans also appear as device-side annotations: they are
-    # stage spans (first to last kernel of the stage), not kernels
-    avg = prof.key_averages()
-    device = [e for e in avg if e.device_type == DeviceType.CUDA and dev_us(e, True) > 0]
-    kernels = [e for e in device if not e.key.startswith("mars.")]
-    busy_ms = sum(dev_us(e, True) for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -dev_us(e, True))[:12]
+    busy_ms, launches, spans, top = _profile_summary(prof, ("mars.",))
     emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "kernel_launches": sum(e.count for e in kernels),
-          "stage_device_span_ms": {e.key: dev_us(e, True) / 1e3 for e in device
-                                   if e.key.startswith("mars.")},
-          "top_kernels": [{"name": e.key[:90], "device_ms": dev_us(e, True) / 1e3,
-                           "count": e.count} for e in top]})
+          "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+          "stage_device_span_ms": spans, "top_kernels": top})
 
 
 def kernels_line(state):
@@ -251,17 +625,52 @@ def kernels_line(state):
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
                   and r["dtype"] == "float32"), {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    ranking = state.get("launches", {})
+    proposal = state.get("proposal_launches", {})
+
+    def launches(name):
+        return ranking.get(name, 0) + proposal.get(name, 0)
+
+    def by_path(name):
+        return {"ranking": ranking.get(name, 0), "proposal": proposal.get(name, 0)}
+
+    grid = state.get("grid_rows", [])
+    grid_first = next((r for r in grid if r["geometry"] == GRID_GEOMETRIES[0][0]
+                       and r["dtype"] == "float32"), {})
+    auc = state.get("auction_rows", [])
+    auc_first = next((r for r in auc if r["instance"] == "matching_forward"), {})
     return {"kernels": [{
         "name": "attention_with_tap", "route": "cuda",
         "source": "mars_tpu_torch/csrc/attention_tap.cu",
         "replaces": "mars_tpu/ops/flash_attention.py:69",
-        "launches": state.get("launches", {}).get("attention_with_tap", 0),
+        "launches": launches("attention_with_tap"),
+        "launches_by_path": by_path("attention_with_tap"),
         "max_abs_err": max((max(r["max_abs_err_out"], r["max_abs_err_tap"])
                             for r in rows if r["dtype"] == "float32"), default=None),
         **{k: first.get(k) for k in keys},
         "shape": first.get("shape"), "dtype": "float32",
         "geometries": [{k: r[k] for k in ("geometry", "dtype", "max_abs_err_out",
                                           "max_abs_err_tap") + keys} for r in rows],
+    }, {
+        "name": "grid_attention", "route": "cuda",
+        "source": "mars_tpu_torch/csrc/sam_grid_attention.cu",
+        "replaces": "mars_tpu/ops/sam_attention.py:82",
+        "launches": launches("grid_attention"), "launches_by_path": by_path("grid_attention"),
+        "max_abs_err": max((r["max_abs_err"] for r in grid if r["dtype"] == "float32"),
+                           default=None),
+        **{k: grid_first.get(k) for k in keys},
+        "shape": grid_first.get("shape"), "dtype": "float32",
+        "geometries": [{k: r[k] for k in ("geometry", "dtype", "max_abs_err") + keys}
+                       for r in grid],
+    }, {
+        "name": "auction", "route": "cuda", "source": "mars_tpu_torch/csrc/auction.cu",
+        "replaces": "mars_tpu/ops/assignment.py:330",
+        "launches": launches("auction"), "launches_by_path": by_path("auction"),
+        "max_abs_err": 0.0 if auc and all(r["equal"] for r in auc) else None,
+        **{k: auc_first.get(k) for k in keys},
+        "shape": auc_first.get("shape"), "dtype": "float32",
+        "instances": [{k: r[k] for k in ("instance", "shape", "equal", "rounds", "bidder_rows")
+                       + keys} for r in auc],
     }]}
 
 
@@ -281,7 +690,9 @@ def main():
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     state, failed = {}, []
-    for phase in (phase_build, phase_kernels, phase_golden, phase_main_path, phase_profile):
+    for phase in (phase_build, phase_kernels, phase_grid_attention, phase_auction, phase_golden,
+                  phase_golden_matcher, phase_main_path, phase_proposal_path,
+                  phase_zero_thresholds, phase_profile, phase_profile_proposals):
         t0 = time.perf_counter()
         try:
             phase(state)

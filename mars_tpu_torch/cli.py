@@ -1,15 +1,21 @@
-"""Evaluation CLI, ranking subset (port of ``mars_tpu/cli.py``).
+"""Evaluation CLI (port of ``mars_tpu/cli.py``, a subset of its flags).
 
-Per episode: synthetic proposals (the ground truth plus six random boxes,
-as ``mars_tpu.cli.synthetic_proposals`` draws them from the same seed),
-``Mars.predict`` with the dataset's class name, and the meter update.
-Towers are full width with seeded random weights.  Prints each episode's
-ranking time and the running mIoU.
+Per episode: proposals, ``Mars.predict`` with the dataset's class name,
+and the meter update.  Proposals are synthetic (the ground truth plus six
+random boxes, as ``mars_tpu.cli.synthetic_proposals`` draws them from the
+same seed) or, with ``--generate-proposals``, the Matcher's (DINOv2-L
+matching shared with the VVA tower, SAM ``--sam-size`` @1024, AMG, bucketed
+best mask score first).  Towers are full width with seeded random weights.
+Prints each episode's proposal and ranking times, its live proposals and
+the running mIoU.
 
     python -m mars_tpu_torch.cli --benchmark synthetic --episodes 3 --gt-class-names
+    python -m mars_tpu_torch.cli --episodes 2 --gt-class-names --generate-proposals
 
-The VLM retriever, precomputed proposal dumps, real datasets and the other
-flags of the JAX CLI are not ported yet.
+With random weights the AMG's default thresholds (predicted IoU > 0.88,
+stability >= 0.95) usually reject every mask: an episode then ranks an
+empty bucket.  The VLM retriever, precomputed proposal dumps, real datasets
+and the other flags of the JAX CLI are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +31,14 @@ from mars_tpu_torch.core.episode import Proposals, pad_proposals
 from mars_tpu_torch.data.base import resized_gt, to_device_episode
 from mars_tpu_torch.data.synthetic import SyntheticFSS
 from mars_tpu_torch.models import zoo
-from mars_tpu_torch.pipeline import filtering, mars as mars_lib, vta, vva
+from mars_tpu_torch.ops import assignment, flash_attention, sam_attention
+from mars_tpu_torch.pipeline import amg, filtering, mars as mars_lib, matcher, vta, vva
 from mars_tpu_torch.utils import evaluation
+
+# the hand-written kernels of the main path, by the name their counters carry
+KERNELS = {"attention_with_tap": flash_attention.attention_with_tap,
+           "grid_attention": sam_attention.grid_attention,
+           "auction": assignment.auction_assignment}
 
 
 def build_mars_config(input_size: int) -> mars_lib.MarsConfig:
@@ -61,6 +73,41 @@ def synthetic_proposals(rec, size: int, bucket: int, rng: np.random.RandomState,
     return pad_proposals(torch.from_numpy(np.stack(props)).to(device), bucket)
 
 
+def bucket_generated_proposals(out: dict) -> Proposals:
+    """The ranking bucket the Matcher compacted in its flow
+    (``generate_proposals(bucket=...)``: live rows first, best mask score
+    first)."""
+    return Proposals(masks=out["bucket_masks"], valid=out["bucket_valid"])
+
+
+def make_inline_generator(args, dino_bundle, device):
+    """Per-episode Matcher proposals inside the eval loop (the reference's
+    mask_generator slot, mars/MARS.py:21,46-51), SAM backend, sharing the
+    VVA stage's DINOv2 tower.  Returns generate(episode, generator) →
+    Proposals."""
+    dino_params, dino_cfg = dino_bundle
+    mcfg = matcher.MatcherConfig(input_size=args.input_size,
+                                 grid=args.input_size // dino_cfg.patch_size,
+                                 patch_size=dino_cfg.patch_size)
+    sam_params, sam_cfg = zoo.build_sam(args.sam_size, device=device)
+    acfg = amg.AmgConfig()
+
+    def generate(ep, generator):
+        out = matcher.generate_proposals(
+            dino_params, dino_cfg, sam_params, sam_cfg, acfg, mcfg, ep.support_images,
+            ep.support_masks, ep.support_valid, ep.query_image, generator=generator,
+            bucket=args.proposal_bucket)
+        return bucket_generated_proposals(out)
+
+    return generate
+
+
+def episode_generator(seed: int, idx: int, device) -> torch.Generator:
+    """The prompt sampler's per-episode stream (JAX folds idx into its key;
+    torch cannot reproduce those draws, only their role)."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + idx)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser("mars_tpu_torch evaluation")
     p.add_argument("--benchmark", default="synthetic", choices=["synthetic"])
@@ -71,11 +118,21 @@ def parse_args(argv=None):
     p.add_argument("--input-size", type=int, default=518)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+    p.add_argument("--generate-proposals", action="store_true",
+                   help="run the Matcher per episode instead of synthetic proposals")
+    p.add_argument("--sam-size", default="vit_h", choices=["vit_b", "vit_l", "vit_h"])
     return p.parse_args(argv)
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def main(argv=None) -> dict:
-    """Runs the episode loop; returns {miou, fb_iou, episode_ms, masks_binary}."""
+    """Runs the episode loop; returns {miou, fb_iou, episode_ms (ranking),
+    proposal_ms, live_proposals, masks_binary, launches (per kernel, this
+    run)}."""
     args = parse_args(argv)
     if not args.gt_class_names:
         raise SystemExit("--gt-class-names is required: the VLM retriever is not ported yet")
@@ -83,25 +140,38 @@ def main(argv=None) -> dict:
     np.random.seed(args.seed)
     ds = SyntheticFSS(fold=0, split="test", shot=1, seed=args.seed)
     model = build_model(args.input_size, dev)
+    generate = (make_inline_generator(args, (model.dino_params, model.dino_cfg), dev)
+                if args.generate_proposals else None)
     meter = evaluation.AverageMeter(ds.benchmark, list(ds.class_ids))
     rng = np.random.RandomState(args.seed)
-    episode_ms, masks_binary = [], True
+    launches0 = {name: fn.launches for name, fn in KERNELS.items()}
+    episode_ms, proposal_ms, live, masks_binary = [], [], [], True
     for idx in range(args.episodes or len(ds)):
         rec = ds[idx]
         ep = to_device_episode(rec, args.input_size, 1, dev)
-        props = synthetic_proposals(rec, args.input_size, args.proposal_bucket, rng, dev)
+        if generate is not None:
+            t0 = time.perf_counter()
+            props = generate(ep, episode_generator(args.seed, idx, dev))
+            _sync(dev)
+            proposal_ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            props = synthetic_proposals(rec, args.input_size, args.proposal_bucket, rng, dev)
         t0 = time.perf_counter()
         pred = model.predict(ep, props, class_name=rec.class_name).cpu().numpy()
         episode_ms.append((time.perf_counter() - t0) * 1e3)
+        live.append(int(props.valid.sum()))
         masks_binary &= bool(np.isin(pred, (0.0, 1.0)).all())
         gt, ig = resized_gt(rec, args.input_size)
         meter.update(*evaluation.classify_prediction(pred, gt, ig), rec.class_id)
         miou, _, _ = meter.compute_iou()
-        print(f"[{idx + 1}] {rec.class_name}: {episode_ms[-1]:.1f} ms  mIoU {miou:.2f}",
-              flush=True)
+        prop = f"proposals {proposal_ms[-1]:.1f} ms, " if generate is not None else ""
+        print(f"[{idx + 1}] {rec.class_name}: {prop}ranking {episode_ms[-1]:.1f} ms, "
+              f"{live[-1]} live proposals  mIoU {miou:.2f}", flush=True)
     miou, fb, _ = meter.compute_iou()
     print(f"*** mIoU: {miou:.2f}  FB-IoU: {fb:.2f} ***", flush=True)
-    return {"miou": miou, "fb_iou": fb, "episode_ms": episode_ms, "masks_binary": masks_binary}
+    return {"miou": miou, "fb_iou": fb, "episode_ms": episode_ms, "proposal_ms": proposal_ms,
+            "live_proposals": live, "masks_binary": masks_binary,
+            "launches": {name: fn.launches - launches0[name] for name, fn in KERNELS.items()}}
 
 
 if __name__ == "__main__":

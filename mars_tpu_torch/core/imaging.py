@@ -79,6 +79,16 @@ def resize(img: torch.Tensor, size: Tuple[int, int], method: str = "bilinear",
     return _resize_axis(img, img.ndim - 2, size[1], method, antialias)
 
 
+def resize_2d(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear",
+              antialias: bool = True) -> torch.Tensor:
+    """Resize the last two axes of a (..., H, W) map with ``jax.image.resize``
+    semantics.  Without a trailing channel axis each pass is one plain
+    matrix product over all rows (a size-1 channel axis makes it a batch
+    of matrix-vector products)."""
+    x = _resize_axis(x, x.ndim - 2, size[0], method, antialias)
+    return _resize_axis(x, x.ndim - 1, size[1], method, antialias)
+
+
 def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
     """jax.image's nearest source index floor((i + 0.5) * in / out), f32."""
     pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in / n_out
@@ -99,7 +109,7 @@ def interpolate_2d(x: torch.Tensor, size: Tuple[int, int], method: str = "neares
     """Resize a (..., H, W) map.  "nearest" uses torch's F.interpolate
     indexing, floor(i * in / out), written out in integers."""
     if method != "nearest":
-        return resize(x[..., None], size, method)[..., 0]
+        return resize_2d(x, size, method)
     h, w = x.shape[-2:]
     ri = (torch.arange(size[0], device=x.device) * h) // size[0]
     ci = (torch.arange(size[1], device=x.device) * w) // size[1]

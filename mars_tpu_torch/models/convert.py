@@ -1,7 +1,8 @@
-"""Parameter converters (port of ``mars_tpu/models/convert.py:24-190``).
+"""Parameter converters (port of ``mars_tpu/models/convert.py:24-298``).
 
 Two sources, one layout: the port's towers take the JAX package's nested
-parameter dicts (dense kernels (in, out), conv kernels HWIO).
+parameter dicts (dense kernels (in, out), conv kernels HWIO, transposed-conv
+kernels (kh, kw, O, I)).
 
   - ``from_jax_params(tree)``: a JAX parameter tree materialized to numpy
     (``jax.tree.map(np.asarray, params)``) → the same tree of tensors, so
@@ -34,7 +35,10 @@ def _t(w):
 
 
 def _conv(w):
-    """torch Conv2d weight (O, I, kh, kw) → HWIO kernel (kh, kw, I, O)."""
+    """torch Conv2d weight (O, I, kh, kw) → HWIO kernel (kh, kw, I, O).
+    The same axis order takes a ConvTranspose2d weight (I, O, kh, kw) to
+    (kh, kw, O, I), the layout of the JAX package's
+    ``conv_transpose(transpose_kernel=True)`` and ``models.sam._conv_transpose``."""
     return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
 
 
@@ -125,11 +129,110 @@ def clip_text_tree(sd: StateDict, depth: int) -> dict:
     return params
 
 
-def from_reference_state_dict(sd: StateDict, tower: str, depth: int,
+def _prefixed(sd: StateDict, prefix: str) -> StateDict:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def sam_encoder_tree(sd: StateDict, depth: int) -> dict:
+    """SAM checkpoint names under ``image_encoder.`` (segment_anything/modeling)."""
+    e = _prefixed(sd, "image_encoder.")
+    params = {
+        "patch_embed": {"kernel": _conv(e["patch_embed.proj.weight"]),
+                        "bias": e["patch_embed.proj.bias"]},
+        "pos_embed": e["pos_embed"],
+        "neck_conv1": {"kernel": _conv(e["neck.0.weight"])},
+        "neck_ln1": _ln(e, "neck.1"),
+        "neck_conv2": {"kernel": _conv(e["neck.2.weight"])},
+        "neck_ln2": _ln(e, "neck.3"),
+    }
+    for i in range(depth):
+        b = f"blocks.{i}"
+        attn = {"qkv": _dense(e, f"{b}.attn.qkv"), "proj": _dense(e, f"{b}.attn.proj")}
+        if f"{b}.attn.rel_pos_h" in e:
+            attn["rel_pos_h"] = e[f"{b}.attn.rel_pos_h"]
+            attn["rel_pos_w"] = e[f"{b}.attn.rel_pos_w"]
+        params[f"block{i}"] = {
+            "ln1": _ln(e, f"{b}.norm1"), "ln2": _ln(e, f"{b}.norm2"), "attn": attn,
+            "mlp": {"fc1": _dense(e, f"{b}.mlp.lin1"), "fc2": _dense(e, f"{b}.mlp.lin2")},
+        }
+    return params
+
+
+def sam_prompt_encoder_tree(sd: StateDict) -> dict:
+    p = _prefixed(sd, "prompt_encoder.")
+
+    def conv(i):
+        return {"kernel": _conv(p[f"mask_downscaling.{i}.weight"]),
+                "bias": p[f"mask_downscaling.{i}.bias"]}
+
+    return {
+        "pe_gaussian": p["pe_layer.positional_encoding_gaussian_matrix"],
+        "not_a_point_embed": p["not_a_point_embed.weight"],
+        "no_mask_embed": p["no_mask_embed.weight"],
+        # neg, pos, box top-left, box bottom-right
+        "point_embeddings": np.stack([np.asarray(p[f"point_embeddings.{i}.weight"])[0]
+                                      for i in range(4)]),
+        "mask_downscale": {"conv1": conv(0), "ln1": _ln(p, "mask_downscaling.1"),
+                           "conv2": conv(3), "ln2": _ln(p, "mask_downscaling.4"),
+                           "conv3": conv(6)},
+    }
+
+
+def _sam_attn(sd: StateDict, b: str) -> dict:
+    return {"q": _dense(sd, f"{b}.q_proj"), "k": _dense(sd, f"{b}.k_proj"),
+            "v": _dense(sd, f"{b}.v_proj"), "out": _dense(sd, f"{b}.out_proj")}
+
+
+def sam_decoder_tree(sd: StateDict, depth: int = 2) -> dict:
+    d = _prefixed(sd, "mask_decoder.")
+    t = {}
+    for i in range(depth):
+        b = f"transformer.layers.{i}"
+        t[f"layer{i}"] = {
+            "self_attn": _sam_attn(d, f"{b}.self_attn"),
+            "norm1": _ln(d, f"{b}.norm1"),
+            "cross_attn_t2i": _sam_attn(d, f"{b}.cross_attn_token_to_image"),
+            "norm2": _ln(d, f"{b}.norm2"),
+            "mlp": {"fc1": _dense(d, f"{b}.mlp.lin1"), "fc2": _dense(d, f"{b}.mlp.lin2")},
+            "norm3": _ln(d, f"{b}.norm3"),
+            "cross_attn_i2t": _sam_attn(d, f"{b}.cross_attn_image_to_token"),
+            "norm4": _ln(d, f"{b}.norm4"),
+        }
+    t["final_attn"] = _sam_attn(d, "transformer.final_attn_token_to_image")
+    t["norm_final"] = _ln(d, "transformer.norm_final_attn")
+    n_masks = np.asarray(d["mask_tokens.weight"]).shape[0]
+    iou_layers = sorted({int(k.split(".")[2]) for k in d
+                         if k.startswith("iou_prediction_head.layers.")})
+    return {
+        "iou_token": d["iou_token.weight"],
+        "mask_tokens": d["mask_tokens.weight"],
+        "transformer": t,
+        "upscale_conv1": {"kernel": _conv(d["output_upscaling.0.weight"]),
+                          "bias": d["output_upscaling.0.bias"]},
+        "upscale_ln": _ln(d, "output_upscaling.1"),
+        "upscale_conv2": {"kernel": _conv(d["output_upscaling.3.weight"]),
+                          "bias": d["output_upscaling.3.bias"]},
+        "hypernetworks": {f"mlp{i}": {f"layer{j}": _dense(d, f"output_hypernetworks_mlps.{i}"
+                                                          f".layers.{j}") for j in range(3)}
+                          for i in range(n_masks)},
+        "iou_head": {f"layer{j}": _dense(d, f"iou_prediction_head.layers.{j}")
+                     for j in iou_layers},
+    }
+
+
+def from_reference_state_dict(sd: StateDict, tower: str, depth: int = 0,
                               num_register_tokens: int = 4, device="cpu"):
     """Reference-format state dict → parameter tree of tensors for
-    ``tower`` in {dinov2, clip_visual, alpha_clip_visual, clip_text}."""
-    if tower == "dinov2":
+    ``tower`` in {dinov2, clip_visual, alpha_clip_visual, clip_text,
+    sam_encoder, sam_prompt_encoder, sam_decoder} (``depth``: blocks of the
+    tower; the SAM decoder's two-way layers, default 2)."""
+    if tower == "sam_encoder":
+        tree = sam_encoder_tree(sd, depth)
+    elif tower == "sam_prompt_encoder":
+        tree = sam_prompt_encoder_tree(sd)
+    elif tower == "sam_decoder":
+        tree = sam_decoder_tree(sd, depth or 2)
+    elif tower == "dinov2":
         tree = dinov2_tree(sd, depth, num_register_tokens)
     elif tower in ("clip_visual", "alpha_clip_visual"):
         tree = clip_visual_tree(sd, depth, alpha=tower == "alpha_clip_visual")

@@ -4,7 +4,9 @@ branch of ``mars_tpu/models/zoo.py``).
 As the JAX package does without checkpoints, norm scales and layerscale
 gammas are ones, biases zeros, and every other leaf is uniform in
 [-0.035, 0.035]; here the draws come from a ``torch.Generator`` on the
-target device, so the numbers differ from JAX's threefry draws.
+target device, so the numbers differ from JAX's threefry draws.  SAM's
+relative-position tables are drawn like any other leaf (JAX's init zeroes
+them), so the bias path of the grid attention is exercised.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from mars_tpu_torch import device as device_lib
 from mars_tpu_torch.models import clip as clip_m
 from mars_tpu_torch.models import dinov2
+from mars_tpu_torch.models import sam
 
 
 def random_params(shapes: dict, gen: torch.Generator, device: torch.device) -> dict:
@@ -60,3 +63,17 @@ def build_alpha_clip(seed: int = 2, device=None):
     """→ (visual, text, logit_scale, vcfg, tcfg): AlphaCLIP ViT-L/14@336."""
     return _build_clip_pair(clip_m.ALPHA_CLIP_L14_336_VISUAL, clip_m.ALPHA_CLIP_L14_TEXT,
                             seed, device)
+
+
+def build_sam(variant: str = "vit_h", seed: int = 3, device=None):
+    """→ (params {"encoder", "prompt_encoder", "decoder"}, SamConfig):
+    full width.  The random-Fourier matrix ``pe_gaussian`` is standard
+    normal, as the JAX init and the reference draw it: at ±0.035 every
+    prompt point would get nearly the same encoding."""
+    dev = device_lib.resolve(device)
+    cfg = sam.SAM_VARIANTS[variant]
+    gen = _generator(seed, dev)
+    params = random_params(sam.param_shapes(cfg), gen, dev)
+    pe = params["prompt_encoder"]
+    pe["pe_gaussian"] = torch.randn(pe["pe_gaussian"].shape, generator=gen, device=dev)
+    return params, cfg

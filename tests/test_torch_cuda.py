@@ -68,3 +68,80 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     q, k, v = _qkv(2, 64, 64, torch.float16, dev)
     with pytest.raises(TypeError):
         fa.attention_with_tap(q, k, v)
+
+
+def _grid_inputs(nh, h, w, d, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    l = h * w
+    arrays = [rng.randn(nh, l, d), rng.randn(nh, l, d), rng.randn(nh, l, d),
+              rng.randn(nh, l, h), rng.randn(nh, l, w)]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("nh,h,w,d", [(16, 64, 64, 80), (2, 5, 7, 24), (2, 16, 16, 16),
+                                      (3, 33, 31, 128)])
+def test_grid_attention_matches_plain_f32(dev, nh, h, w, d):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _grid_inputs(nh, h, w, d, torch.float32, dev)
+    before = sa.grid_attention.launches
+    out = sa.grid_attention(*args, (h, w))
+    torch.cuda.synchronize()
+    assert sa.grid_attention.launches == before + 1
+    want = sa.grid_attention_plain(*args, (h, w))
+    assert out.dtype == torch.float32 and out.shape == (nh, h * w, d)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+
+
+def test_grid_attention_matches_plain_bf16(dev):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _grid_inputs(16, 64, 64, 80, torch.bfloat16, dev)
+    out = sa.grid_attention(*args, (64, 64))
+    want = sa.grid_attention_plain(*args, (64, 64))
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=0)
+
+
+def _auction_instance(seed, t, n):
+    """The instances of tests/test_ops.py's Pallas-vs-XLA auction test."""
+    rng = np.random.RandomState(seed)
+    if seed == 3:
+        s = rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0
+    else:
+        s = rng.rand(t, n).astype(np.float32)
+    valid = rng.rand(t) < (0.3 if t != n else 1.1)
+    if not valid.any():
+        valid[0] = True
+    return s, valid
+
+
+@pytest.mark.parametrize("seed,t,n,phases", [(0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1),
+                                             (5, 120, 120, 5), (6, 3, 700, 1)])
+def test_auction_kernel_equals_plain(dev, seed, t, n, phases):
+    from mars_tpu_torch.ops import assignment as asg
+
+    s, valid = _auction_instance(seed, t, n)
+    want_stats, got_stats = [], []
+    want = asg.auction_assignment(torch.from_numpy(s), torch.from_numpy(valid),
+                                  n_phases=phases, stats=want_stats)
+    before = asg.auction_assignment.launches
+    got = asg.auction_assignment(torch.from_numpy(s).to(dev), torch.from_numpy(valid).to(dev),
+                                 n_phases=phases, stats=got_stats)
+    assert asg.auction_assignment.launches == before + phases
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert got_stats == want_stats
+
+
+def test_auction_phase_kernel_equals_plain_on_card(dev):
+    """A matching-sized instance (1369², sparse valid rows), one phase with
+    carried prices, both versions on the card."""
+    from mars_tpu_torch.ops import assignment as asg
+
+    rng = np.random.RandomState(7)
+    s = torch.from_numpy(rng.rand(1369, 1369).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(1369) < 0.15).to(dev)
+    prices = torch.from_numpy(rng.rand(1369).astype(np.float32) * 1e-3).to(dev)
+    col_k, pr_k, st_k = asg._auction_phase_kernel(s, valid, prices, 2e-4, 20000)
+    col_p, pr_p, st_p = asg._auction_phase_plain(s, valid, prices, 2e-4, 20000)
+    assert torch.equal(col_k, col_p) and torch.equal(pr_k, pr_p) and st_k == st_p

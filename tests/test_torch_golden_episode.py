@@ -86,18 +86,18 @@ def golden():
                   torch.from_numpy(d["support_masks"][0]), torch.ones((2,), dtype=torch.bool),
                   torch.from_numpy(np.ascontiguousarray(qry)), -1)
     tprops = pad_proposals(torch.from_numpy(d["proposals"]), BUCKET)
-    return d, j_merged, np.asarray(j_scores), j_debug, tm, tep, tprops
+    return d, j_merged, np.asarray(j_scores), j_debug, tm, tep, tprops, jm, jep
 
 
 def test_merged_mask_bit_exact(golden):
-    d, j_merged, _, _, tm, tep, tprops = golden
+    d, j_merged, _, _, tm, tep, tprops, _, _ = golden
     merged = tm.predict(tep, tprops, class_name="dog", class_description=DESC).numpy()
     np.testing.assert_array_equal(merged, d["merged"])
     np.testing.assert_array_equal(merged, j_merged)
 
 
 def test_debug_state_and_final_scores(golden):
-    d, _, j_scores, j_debug, tm, tep, tprops = golden
+    d, _, j_scores, j_debug, tm, tep, tprops, _, _ = golden
     out = tm.predict_debug(tep, tprops, class_name="dog", class_description=DESC)
     np.testing.assert_array_equal(out["merged"], d["merged"])
     np.testing.assert_allclose(out["scores"], j_scores, atol=1e-4, rtol=0)
@@ -107,3 +107,17 @@ def test_debug_state_and_final_scores(golden):
     np.testing.assert_allclose(out["vva_prior"], d["vva"], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(out["vta_prior"], d["vta_resized"], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(out["ac_scores"][:6], d["ac_raw"], atol=3e-4, rtol=1e-3)
+
+
+def test_empty_bucket_matches_jax(golden):
+    """A bucket with no live proposal (what the proposal path usually hands
+    the ranker under random weights and the default AMG thresholds) gives
+    what mars_tpu's Mars gives on the same all-invalid bucket."""
+    _, _, _, _, tm, tep, _, jm, jep = golden
+    masks = np.zeros((3, 112, 112), np.float32)
+    jprops = jpad(jnp.asarray(masks), BUCKET, valid=jnp.zeros((3,), bool))
+    want = np.asarray(jm.predict(jep, jprops, class_name="dog", class_description=DESC))
+    tprops = pad_proposals(torch.from_numpy(masks), BUCKET,
+                           valid=torch.zeros((3,), dtype=torch.bool))
+    got = tm.predict(tep, tprops, class_name="dog", class_description=DESC).numpy()
+    np.testing.assert_array_equal(got, want)
