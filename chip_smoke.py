@@ -29,7 +29,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
      thresholds, so decode, NMS, EMD scoring and the bucket see live masks;
  10. one ranking episode, then one proposal-plus-ranking episode, under
      torch.profiler: device time by stage and by kernel, idle share;
- 11. the kernels line.
+ 11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
+     7B's shapes (decode rows 1 and 4, prefill rows ~2330) and a ragged
+     one, in bfloat16, beside their bound and cuBLAS on the dense weight;
+ 12. the text path at full width: ViP-LLaVA-7B (seeded random weights,
+     hybrid int4, then NF4) answering one BlockTextStage-shaped block
+     through ``TorchVipLlava.generate_batch`` (4 name rows, then 4
+     definition rows on the same images), the 4-bit kernels' launches
+     checked against the count the decode's token trace implies; the
+     first forward's logits, kernel path against plain path;
+ 13. one int4 text block under torch.profiler;
+ 14. the kernels line.
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 the repository, it exits non-zero and prints no result.  Imports nothing
 of JAX or of the JAX package.
@@ -59,6 +69,21 @@ GRID_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # tests/test_ops.py's Pallas-vs-XLA auction instances: (seed, T, N, phases)
 AUCTION_CASES = ((0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1), (5, 120, 120, 5),
                  (6, 3, 700, 1))
+# ViP-LLaVA-7B's dense shapes (IN, OUT) and a ragged one; rows: decode at
+# batch 1 and 4, prefill of 4 rows x ~582 positions
+QUANT_SHAPES = (("llama_qkvo", 4096, 4096), ("llama_gate_up", 4096, 11008),
+                ("llama_down", 11008, 4096), ("projector_1", 5120, 4096),
+                ("clip_fc1", 1024, 4096), ("ragged", 1984, 999))
+QUANT_ROWS = (1, 4, 2330)
+QUANT_REL_TOL = 2 ** -7  # bf16 output: one rounding of the largest output
+# quantized denses per image prefill (CLIP-L: 24 layers x q, k, v, out,
+# fc1, fc2, then the projector's two) and per LLaMA forward (32 x 7)
+VISION_DENSES = 24 * 6 + 2
+LLAMA_DENSES = 32 * 7
+TEXT_ROWS = 4
+TEXT_PREFIX = "Human: <image>\n"
+LOGITS_PROMPT = ("Human: <image>\nWhat is the name of the object inside the red mask contour?"
+                 "\nAssistant:")
 
 
 def emit(obj):
@@ -620,6 +645,251 @@ def phase_profile(state):
           "stage_device_span_ms": spans, "top_kernels": top})
 
 
+def _bound_ms(nbytes, flops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_4bit_kernels(state):
+    """Both 4-bit kernels against their plain versions at the 7B's shapes,
+    bfloat16 activations, timed with CUDA events beside the bound and the
+    dense GEMM they replace (cuBLAS on the pre-dequantized bf16 weight)."""
+    import torch
+
+    from mars_tpu_torch.models import quantization as Q
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for fmt in ("int4", "nf4"):
+        fn, plain = ((im.matmul_int4, im.matmul_int4_plain) if fmt == "int4"
+                     else (im.matmul_nf4, im.matmul_nf4_plain))
+        for name, din, dout in QUANT_SHAPES:
+            if fmt == "int4":
+                q = torch.randint(-7, 8, (din, dout), generator=gen, device="cuda",
+                                  dtype=torch.int8)
+                leaf = {"q4": im.pack_int4(q), "scale": torch.rand(
+                    (dout,), generator=gen, device="cuda") * 0.1 + 0.01}
+                packed, scale = leaf["q4"], leaf["scale"]
+            else:
+                leaf = Q.quantize_kernel_nf4(torch.randn((din, dout), generator=gen,
+                                                         device="cuda"))
+                packed, scale = leaf["nf4"], leaf["bscale"]
+            dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
+            for m in QUANT_ROWS:
+                x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+                got, want = fn(x, packed, scale), plain(x, packed, scale)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = QUANT_REL_TOL * want.float().abs().max().item()
+                nbytes = (x.numel() * 2 + packed.numel() + scale.numel() * 4 + m * dout * 2)
+                bound, by = _bound_ms(nbytes, 2.0 * m * din * dout)
+                row = {"phase": "kernel", "kernel": f"matmul_{fmt}", "geometry": name,
+                       "shape": [m, din, dout], "dtype": "bfloat16", "max_abs_err": err,
+                       "tol": tol, "finite": bool(torch.isfinite(got.float()).all()),
+                       "ms": cuda_ms(lambda: fn(x, packed, scale)),
+                       "plain_ms": cuda_ms(lambda: plain(x, packed, scale), iters=5),
+                       "library_ms": cuda_ms(lambda: x @ dense),
+                       "library_call": "cuBLAS x @ W, W the pre-dequantized bf16 weight (the "
+                                       "dense GEMM the kernel replaces)",
+                       "bound_ms": bound, "bound_by": by}
+                emit(row)
+                rows.append(row)
+                if err > tol or not row["finite"]:
+                    raise AssertionError(f"matmul_{fmt} disagrees with its plain version: {row}")
+            del dense
+    state["quant_rows"] = rows
+
+
+class StandInTokenizer:
+    """eos 2; ``decode`` records every row it is handed (the retriever cuts
+    each row at its first EOS), from which the decode's steps follow."""
+    eos_token_id = 2
+
+    def __init__(self):
+        self.rows = []
+
+    def decode(self, toks, skip_special_tokens=True):
+        self.rows.append([int(t) for t in toks])
+        return " ".join(str(t) for t in self.rows[-1])
+
+
+class StandInProcessor:
+    """The processor's place in the script (the LLaMA tokenizer and the HF
+    image processor are not in the repository): ``<image>`` becomes the
+    tower's 576 image slots, text one id per 4 characters (a newline its own
+    id, so "Human: <image>\\n" is a token prefix of every prompt), pixels
+    the image over 255."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.tokenizer = StandInTokenizer()
+
+    @staticmethod
+    def _ids(text):
+        import re
+
+        out = []
+        for piece in re.split(r"(\n)", text):
+            for i in range(0, len(piece), 4):
+                out.append(3 + int.from_bytes(piece[i:i + 4].encode(), "little") % 31990)
+        return out
+
+    def __call__(self, text, images, return_tensors="np"):
+        import numpy as np
+
+        g = (self.cfg.image_size // self.cfg.patch_size) ** 2
+        left, _, right = text.partition("<image>")
+        ids = [1] + self._ids(left) + [self.cfg.image_token_index] * g + self._ids(right)
+        pix = np.asarray(images, np.float32)[None].transpose(0, 3, 1, 2) / 255.0
+        return {"input_ids": np.asarray([ids], np.int64), "pixel_values": pix}
+
+
+def _decode_forwards(rows, budget):
+    """LLaMA forwards of one EOS-path decode: the suffix forward, then one
+    step per slot until every row has emitted EOS or the budget is spent
+    (a row cut shorter than the budget ended at EOS)."""
+    last = max((len(r) if len(r) < budget else budget - 1) for r in rows)
+    return 1 + min(last, budget - 1)
+
+
+def _text_block(vlm, images):
+    """One BlockTextStage-shaped block: names (max 20), then definitions
+    (max 50, min 20) of the named objects on the same images."""
+    from mars_tpu_torch.text.prompts import (VISUAL_PROMPTS, VISUAL_PROMPTS_DESCRIPTIONS,
+                                             VLM_SYSTEM_TEMPLATE)
+
+    q = VLM_SYSTEM_TEMPLATE.format(VISUAL_PROMPTS["contour"].format("red"))
+    names = vlm.generate_batch(images, [q] * len(images), max_new_tokens=20,
+                               shared_prefix=TEXT_PREFIX)
+    defs = vlm.generate_batch(
+        images, [VLM_SYSTEM_TEMPLATE.format(VISUAL_PROMPTS_DESCRIPTIONS["contour"].format(n, "red"))
+                 for n in names], max_new_tokens=50, min_new_tokens=20, shared_prefix=TEXT_PREFIX)
+    return names, defs
+
+
+def phase_text_path(state):
+    """ViP-LLaVA-7B at full width, int4 then NF4: one text block through
+    ``TorchVipLlava.generate_batch`` with the kernels' counts set to 0 just
+    before and read just after, checked against the count the decode's
+    token trace implies; then the first forward's logits, kernel path
+    against the plain path (the wrappers swapped for their plain versions
+    in this script only)."""
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl, zoo
+    from mars_tpu_torch.ops import int4_matmul as im
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(0)
+    launches_by_fmt = {}
+    for fmt in ("affine", "nf4"):
+        params, cfg = zoo.build_vip_llava(0, 4, fmt)
+        proc = StandInProcessor(cfg)
+        vlm = TorchVipLlava(params=params, cfg=cfg, processor=proc)
+        images = [(rs.rand(cfg.image_size, cfg.image_size, 3) * 255).astype(np.uint8)
+                  for _ in range(TEXT_ROWS)]
+        real_prefill, prefill_ms = vl.prefill_prefix, []
+
+        def timed_prefill(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_prefill(*a, **k)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        vl.prefill_prefix = timed_prefill
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        im.matmul_int4.launches = im.matmul_nf4.launches = 0
+        try:
+            t0 = time.perf_counter()
+            names, defs = _text_block(vlm, images)
+            torch.cuda.synchronize()
+            block_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            vl.prefill_prefix = real_prefill
+        launches = {"matmul_int4": im.matmul_int4.launches, "matmul_nf4": im.matmul_nf4.launches}
+        name_rows, def_rows = proc.tokenizer.rows[:TEXT_ROWS], proc.tokenizer.rows[TEXT_ROWS:]
+        forwards = 1 + _decode_forwards(name_rows, 20) + _decode_forwards(def_rows, 50)
+        want = VISION_DENSES + LLAMA_DENSES * forwards
+        kernel = "matmul_int4" if fmt == "affine" else "matmul_nf4"
+        tokens = sum(len(r) for r in name_rows + def_rows)
+        decode_ms = block_ms - sum(prefill_ms)
+        row = {"phase": "text_path", "format": fmt, "rows": TEXT_ROWS,
+               "prefill_calls": len(prefill_ms), "prefill_ms": prefill_ms,
+               "block_ms": block_ms, "llama_forwards": forwards,
+               "decode_ms_per_step": decode_ms / (forwards - 1),
+               "tokens": tokens, "tokens_per_s": tokens / block_ms * 1e3,
+               "decode_tokens_per_s": tokens / decode_ms * 1e3,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": launches, "launches_expected": {kernel: want},
+               "name_lengths": [len(r) for r in name_rows],
+               "definition_lengths": [len(r) for r in def_rows],
+               "first_name": names[0][:60]}
+        launches_by_fmt[kernel] = launches[kernel]
+
+        # first forward's logits, kernel path against plain path
+        inputs = proc(LOGITS_PROMPT, images[0])
+        ids_t = torch.from_numpy(inputs["input_ids"]).cuda()
+        pix_t = torch.from_numpy(np.ascontiguousarray(
+            inputs["pixel_values"].transpose(0, 2, 3, 1))).cuda()
+        got = vl.forward_logits(params, ids_t, pix_t, cfg)[0, -1].float()
+        swapped = im.matmul_int4, im.matmul_nf4
+        im.matmul_int4, im.matmul_nf4 = im.matmul_int4_plain, im.matmul_nf4_plain
+        try:
+            plain = vl.forward_logits(params, ids_t, pix_t, cfg)[0, -1].float()
+        finally:
+            im.matmul_int4, im.matmul_nf4 = swapped
+        err = (got - plain).abs().max().item()
+        top = plain.abs().max().item()
+        row.update({"first_logits_max_abs_err": err, "first_logits_max_abs": top,
+                    "first_logits_tol": 0.1 * top,
+                    "first_argmax_equal": int(got.argmax()) == int(plain.argmax())})
+        emit(row)
+        ok = (launches[kernel] == want and sum(launches.values()) == want
+              and len(prefill_ms) == 1 and err <= 0.1 * top
+              and bool(torch.isfinite(got).all()) and len(names) == len(defs) == TEXT_ROWS)
+        del vlm, params
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"text path ({fmt}) failed: {row}")
+    state["text_launches"] = launches_by_fmt
+
+
+
+def phase_profile_text(state):
+    """One int4 text block (fresh images, so the prefix is prefilled) under
+    torch.profiler: device time by kernel and the idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    params, cfg = zoo.build_vip_llava(0, 4, "affine")
+    vlm = TorchVipLlava(params=params, cfg=cfg, processor=StandInProcessor(cfg))
+    rs = np.random.RandomState(1)
+    images = [(rs.rand(cfg.image_size, cfg.image_size, 3) * 255).astype(np.uint8)
+              for _ in range(TEXT_ROWS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _text_block(vlm, images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, launches, _, top = _profile_summary(prof, ())
+    emit({"phase": "profile_text", "format": "affine", "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+          "kernel_launches": launches, "top_kernels": top})
+    del vlm, params
+    torch.cuda.empty_cache()
+
+
 def kernels_line(state):
     rows = state.get("kernel_rows", [])
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
@@ -671,7 +941,25 @@ def kernels_line(state):
         "shape": auc_first.get("shape"), "dtype": "float32",
         "instances": [{k: r[k] for k in ("instance", "shape", "equal", "rounds", "bidder_rows")
                        + keys} for r in auc],
-    }]}
+    }] + [_quant_entry(state, fmt, line) for fmt, line in (("int4", 229), ("nf4", 139))]}
+
+
+def _quant_entry(state, fmt, line):
+    """The decode GEMV of the LLaMA MLP (4 rows x 4096 x 11008) stands for
+    the kernel; every measured shape is listed."""
+    rows = [r for r in state.get("quant_rows", []) if r["kernel"] == f"matmul_{fmt}"]
+    first = next((r for r in rows if r["geometry"] == "llama_gate_up" and r["shape"][0] == 4),
+                 {})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": f"matmul_{fmt}", "route": "cuda",
+            "source": "mars_tpu_torch/csrc/int4_matmul.cu",
+            "replaces": f"mars_tpu/ops/int4_matmul.py:{line}",
+            "launches": state.get("text_launches", {}).get(f"matmul_{fmt}", 0),
+            "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
+            **{k: first.get(k) for k in keys}, "shape": first.get("shape"),
+            "dtype": "bfloat16",
+            "geometries": [{k: r[k] for k in ("geometry", "shape", "max_abs_err", "tol") + keys}
+                           for r in rows]}
 
 
 def main():
@@ -692,7 +980,8 @@ def main():
     state, failed = {}, []
     for phase in (phase_build, phase_kernels, phase_grid_attention, phase_auction, phase_golden,
                   phase_golden_matcher, phase_main_path, phase_proposal_path,
-                  phase_zero_thresholds, phase_profile, phase_profile_proposals):
+                  phase_zero_thresholds, phase_profile, phase_profile_proposals,
+                  phase_4bit_kernels, phase_text_path, phase_profile_text):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -9,6 +9,9 @@ kernels (kh, kw, O, I)).
     both packages compute with the same numbers in the tests.
   - ``from_reference_state_dict(sd, tower, depth)``: reference-format torch
     key names (flat name → array) → the tree for one tower, without JAX.
+  - ``vip_llava_tree(sd, v_layers, layers)``: an HF ViP-LLaVA state dict →
+    the VLM's tree (numpy), which ``models.vip_llava.convert_hf`` makes
+    tensors of.
 """
 from __future__ import annotations
 
@@ -20,10 +23,17 @@ import torch
 StateDict = Dict[str, np.ndarray]
 
 
+_QUANTIZED = ("q", "q4", "nf4")
+
+
 def from_jax_params(tree, device="cpu", dtype=torch.float32):
-    """Nested dict of arrays → the same nested dict of tensors."""
+    """Nested dict of arrays → the same nested dict of tensors, floating
+    leaves at ``dtype``.  A weight-only quantized kernel (a dict holding
+    ``q``, ``q4`` or ``nf4``) keeps its int8 codes and float32 scales
+    whatever ``dtype`` is, as the kernels' contract requires."""
     if isinstance(tree, dict):
-        return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
+        sub = torch.float32 if any(k in tree for k in _QUANTIZED) else dtype
+        return {k: from_jax_params(v, device, sub) for k, v in tree.items()}
     a = np.asarray(tree)
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.to(device=device, dtype=dtype if a.dtype.kind == "f" else t.dtype)
@@ -218,6 +228,41 @@ def sam_decoder_tree(sd: StateDict, depth: int = 2) -> dict:
         "iou_head": {f"layer{j}": _dense(d, f"iou_prediction_head.layers.{j}")
                      for j in iou_layers},
     }
+
+
+def vip_llava_tree(sd: StateDict, v_layers: int, layers: int) -> dict:
+    """HF ``VipLlavaForConditionalGeneration`` state dict (numpy) → the
+    parameter tree of ``models.vip_llava`` (the JAX package's ``convert_hf``
+    layout): HF-CLIP vision tower, the multi-layer projector, LLaMA."""
+    v = "model.vision_tower.vision_model."
+    vision = {
+        "patch_embed": {"kernel": _conv(sd[v + "embeddings.patch_embedding.weight"])},
+        "class_embedding": sd[v + "embeddings.class_embedding"],
+        "position_embedding": sd[v + "embeddings.position_embedding.weight"],
+        "pre_layernorm": _ln(sd, v + "pre_layrnorm"),
+    }
+    for i in range(v_layers):
+        b = f"{v}encoder.layers.{i}."
+        vision[f"layer{i}"] = {
+            "ln1": _ln(sd, b + "layer_norm1"), "ln2": _ln(sd, b + "layer_norm2"),
+            "attn": {n: _dense(sd, f"{b}self_attn.{n}_proj") for n in ("q", "k", "v", "out")},
+            "mlp": {"fc1": _dense(sd, b + "mlp.fc1"), "fc2": _dense(sd, b + "mlp.fc2")},
+        }
+    mp = "model.multi_modal_projector."
+    projector = {"ln": _ln(sd, mp + "projector_layernorm"),
+                 "linear_1": _dense(sd, mp + "linear_1"), "linear_2": _dense(sd, mp + "linear_2")}
+    lm = "model.language_model."
+    language = {"embed_tokens": sd[lm + "embed_tokens.weight"], "norm": sd[lm + "norm.weight"],
+                "lm_head": _t(sd["lm_head.weight"])}
+    for i in range(layers):
+        b = f"{lm}layers.{i}."
+        language[f"layer{i}"] = {
+            "input_ln": sd[b + "input_layernorm.weight"],
+            "post_ln": sd[b + "post_attention_layernorm.weight"],
+            "attn": {n: _dense(sd, f"{b}self_attn.{n}_proj") for n in ("q", "k", "v", "o")},
+            "mlp": {n: _dense(sd, f"{b}mlp.{n}_proj") for n in ("gate", "up", "down")},
+        }
+    return {"vision": vision, "projector": projector, "language": language}
 
 
 def from_reference_state_dict(sd: StateDict, tower: str, depth: int = 0,

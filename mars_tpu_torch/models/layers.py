@@ -10,6 +10,8 @@ Tapped blocks (``mha(return_attn=True)``) go through
 ``ops.flash_attention.mha_tap``: the hand-written kernel on a CUDA tensor,
 its plain version on a CPU tensor.  Untapped and masked blocks take the
 plain einsum/softmax path, as the JAX package's default XLA path does.
+A dense whose ``kernel`` is a dict is weight-only quantized and goes to
+``models.quantization.quantized_dense``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,10 @@ def layer_norm(p, x, eps: float = 1e-5):
 
 
 def dense(p, x):
+    if isinstance(p["kernel"], dict):  # weight-only quantized (models.quantization)
+        from mars_tpu_torch.models.quantization import quantized_dense
+
+        return quantized_dense(p, x)
     y = x @ p["kernel"]
     if "bias" in p:
         y = y + p["bias"]

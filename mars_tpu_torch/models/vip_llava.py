@@ -1,0 +1,471 @@
+"""ViP-LLaVA (the retriever's vision-language model) in PyTorch (port of
+``mars_tpu/models/vip_llava.py``, mirroring transformers'
+``VipLlavaForConditionalGeneration``):
+
+  - HF-CLIP vision tower (pre-LayerNorm, separate q/k/v/out projections,
+    quick-GELU MLP) with per-layer hidden-state taps;
+  - ViP-LLaVA feature selection (hidden states of ``vision_feature_layers``
+    without CLS, concatenated over channels) and the LayerNorm → Linear →
+    GELU → Linear projector;
+  - LLaMA decoder: RMSNorm, half-rotation RoPE, grouped-query attention,
+    SwiGLU MLP, a bf16 KV cache written in place;
+  - greedy decoding: a fixed-trip loop, or HF ``generate``'s EOS semantics
+    (rows freeze at EOS, the loop stops once every row has), with per-row
+    prompt lengths and EOS floors, shared-prefix resume and the in-place
+    chained name → definition flow.
+
+Parameters are nested dicts in the JAX package's layout (dense kernels
+(in, out)); a dense kernel that is a dict is weight-only quantized and its
+products run through ``ops.int4_matmul`` (``layers.dense``).  Every entry
+point runs on the device its parameters lie on and holds no state.
+
+Not ported yet (ROADMAP Queue 1 item 13): prompt-lookup speculative
+decoding (``draft_tokens > 0``; it is exact greedy, so ``draft_tokens=0``
+gives the same tokens) and the int8 KV cache (``kv_bits=8``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mars_tpu_torch import device as device_lib
+from mars_tpu_torch.models import convert
+from mars_tpu_torch.models import layers as L
+from mars_tpu_torch.models import quantization as Q
+from mars_tpu_torch.ops import int4_matmul
+
+_NOT_PORTED = "ROADMAP Queue 1 item 13"
+
+
+@dataclass(frozen=True)
+class VipLlavaConfig:
+    # vision (CLIP-L/14@336 for the real model)
+    v_hidden: int = 1024
+    v_intermediate: int = 4096
+    v_layers: int = 24
+    v_heads: int = 16
+    image_size: int = 336
+    patch_size: int = 14
+    vision_feature_layers: Tuple[int, ...] = (-2, -5, -8, -11, 6)
+    # text (LLaMA-7B)
+    hidden: int = 4096
+    intermediate: int = 11008
+    layers: int = 32
+    heads: int = 32
+    kv_heads: int = 32
+    vocab: int = 32064
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    image_token_index: int = 32000
+
+
+TINY = VipLlavaConfig(
+    v_hidden=32, v_intermediate=64, v_layers=4, v_heads=2, image_size=56,
+    patch_size=14, vision_feature_layers=(-2, -4),
+    hidden=32, intermediate=64, layers=2, heads=4, kv_heads=2, vocab=128,
+    image_token_index=100,
+)
+
+
+# --------------------------------------------------------------------------
+# vision tower (HF CLIP dialect)
+# --------------------------------------------------------------------------
+
+def vision_hidden_states(p, pixel_values, cfg: VipLlavaConfig):
+    """(B, H, W, 3) → list of (B, 1+P, D) hidden states: the embeddings'
+    output, then each encoder layer's."""
+    b = pixel_values.shape[0]
+    x = L.conv_patch_embed(p["patch_embed"], pixel_values, cfg.patch_size)
+    cls = p["class_embedding"].reshape(1, 1, -1).expand(b, 1, cfg.v_hidden).to(x.dtype)
+    x = torch.cat([cls, x], dim=1) + p["position_embedding"][None]
+    x = L.layer_norm(p["pre_layernorm"], x)
+    states = [x]
+    for i in range(cfg.v_layers):
+        lp = p[f"layer{i}"]
+        x = x + _hf_attn(lp["attn"], L.layer_norm(lp["ln1"], x), cfg.v_heads)
+        h = L.layer_norm(lp["ln2"], x)
+        x = x + L.dense(lp["mlp"]["fc2"], L.quick_gelu(L.dense(lp["mlp"]["fc1"], h)))
+        states.append(x)
+    return states
+
+
+def _hf_attn(p, x, num_heads: int):
+    b, l, d = x.shape
+    hd = d // num_heads
+    q = L.dense(p["q"], x).reshape(b, l, num_heads, hd)
+    k = L.dense(p["k"], x).reshape(b, l, num_heads, hd)
+    v = L.dense(p["v"], x).reshape(b, l, num_heads, hd)
+    logits = torch.einsum("blhd,bmhd->bhlm", q * hd ** -0.5, k)
+    probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, d)
+    return L.dense(p["out"], out)
+
+
+def image_features(p, pixel_values, cfg: VipLlavaConfig):
+    """Multi-layer feature selection + projector → (B, P, hidden)."""
+    states = vision_hidden_states(p["vision"], pixel_values, cfg)
+    feats = torch.cat([states[i][:, 1:] for i in cfg.vision_feature_layers], dim=-1)
+    mp = p["projector"]
+    h = L.dense(mp["linear_1"], L.layer_norm(mp["ln"], feats))
+    return L.dense(mp["linear_2"], F.gelu(h))
+
+
+# --------------------------------------------------------------------------
+# LLaMA decoder
+# --------------------------------------------------------------------------
+
+def _rms_norm(w, x, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * w).to(x.dtype)
+
+
+def _rope(x, positions, theta: float):
+    """HF half-rotation RoPE: x (B, L, H, hd), positions (B, L)."""
+    hd = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
+    ang = positions[..., None].float() * inv  # (B, L, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_pos=None):
+    """Self-attention with RoPE and GQA.  With ``kv_cache`` = (K, V), each
+    (B, MAX, KVH, hd), the new keys and values are written IN PLACE at
+    ``cache_pos`` (an int, or a (B,) tensor for per-row positions, which
+    scatters only the written slots) and attention runs over the whole
+    cache, masked beyond each query's position."""
+    b, l, d = x.shape
+    hd = d // cfg.heads
+    q = _rope(L.dense(p["q"], x).reshape(b, l, cfg.heads, hd), positions, cfg.rope_theta)
+    k = _rope(L.dense(p["k"], x).reshape(b, l, cfg.kv_heads, hd), positions, cfg.rope_theta)
+    v = L.dense(p["v"], x).reshape(b, l, cfg.kv_heads, hd)
+
+    if kv_cache is None:
+        keys, values, kv_positions = k, v, positions
+    else:
+        if len(kv_cache) != 2:
+            raise NotImplementedError(f"the int8 KV cache is not ported yet: {_NOT_PORTED}")
+        ck, cv = kv_cache
+        if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+            rows = torch.arange(b, device=x.device)[:, None]
+            cols = cache_pos[:, None] + torch.arange(l, device=x.device)[None]
+            ck[rows, cols] = k.to(ck.dtype)
+            cv[rows, cols] = v.to(cv.dtype)
+        else:
+            ck[:, cache_pos:cache_pos + l] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + l] = v.to(cv.dtype)
+        keys, values = ck, cv
+        kv_positions = torch.arange(ck.shape[1], device=x.device)[None]
+
+    rep = cfg.heads // cfg.kv_heads
+    if rep > 1:
+        keys = keys.repeat_interleave(rep, dim=2)
+        values = values.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("blhd,bmhd->bhlm", q * hd ** -0.5, keys)
+    valid = kv_positions[:, None, None, :] <= positions[:, None, :, None]
+    if kv_cache is not None:
+        cp = cache_pos.reshape(-1, 1, 1, 1) if isinstance(cache_pos, torch.Tensor) else cache_pos
+        valid = valid & (kv_positions[:, None, None, :] <= cp + l - 1)
+    logits = logits.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, values).reshape(b, l, d)
+    return L.dense(p["o"], out), kv_cache
+
+
+def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None):
+    h, kv_cache = _llama_attention(p["attn"], _rms_norm(p["input_ln"], x, cfg.rms_eps),
+                                   positions, cfg, kv_cache, cache_pos)
+    x = x + h
+    h = _rms_norm(p["post_ln"], x, cfg.rms_eps)
+    gate = F.silu(L.dense(p["mlp"]["gate"], h))
+    x = x + L.dense(p["mlp"]["down"], gate * L.dense(p["mlp"]["up"], h))
+    return x, kv_cache
+
+
+def llama_forward(p, embeds, positions, cfg: VipLlavaConfig, kv_caches=None, cache_pos=None):
+    """embeds (B, L, D) → (logits (B, L, V), the caches, written in place)."""
+    x = embeds
+    for i in range(cfg.layers):
+        cache = None if kv_caches is None else kv_caches[i]
+        x, _ = _llama_layer(p[f"layer{i}"], x, positions, cfg, cache, cache_pos)
+    x = _rms_norm(p["norm"], x, cfg.rms_eps)
+    lm = p["lm_head"]
+    logits = L.dense({"kernel": lm}, x) if isinstance(lm, dict) else x @ lm
+    return logits, kv_caches
+
+
+# --------------------------------------------------------------------------
+# multimodal assembly + greedy decoding
+# --------------------------------------------------------------------------
+
+def embed_multimodal(p, input_ids, pixel_values, cfg: VipLlavaConfig):
+    """Token embeddings with the image-token slots replaced, in order, by
+    the projected image features; ``input_ids`` holds exactly
+    (image_size / patch)² image tokens per row."""
+    embeds = p["language"]["embed_tokens"][input_ids]
+    feats = image_features(p, pixel_values, cfg)  # (B, P, D)
+    is_img = input_ids == cfg.image_token_index
+    ordinal = (torch.cumsum(is_img.long(), dim=1) - 1).clamp(0, feats.shape[1] - 1)
+    gathered = torch.take_along_dim(feats, ordinal[..., None], dim=1)
+    return torch.where(is_img[..., None], gathered.to(embeds.dtype), embeds)
+
+
+def _alloc_cache(b: int, length: int, cfg: VipLlavaConfig, dtype, device, kv_bits=None):
+    """One layer's zeroed (K, V) cache."""
+    if kv_bits == 8:
+        raise NotImplementedError(f"the int8 KV cache (kv_bits=8) is not ported yet: "
+                                  f"{_NOT_PORTED}")
+    if kv_bits not in (None, 16):
+        raise ValueError(f"kv_bits must be None/16/8, got {kv_bits}")
+    shape = (b, length, cfg.kv_heads, cfg.hidden // cfg.heads)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def prefill_prefix(p, prefix_ids, pixel_values, cfg: VipLlavaConfig, max_len: int = 0,
+                   kv_bits: Optional[int] = None):
+    """KV caches of a shared multimodal prompt prefix.  ``max_len`` > the
+    prefix length allocates the caches at the full decode length with the
+    prefix at their head: the in-place flow (``generate_greedy(prefix_kv=…,
+    inplace_prefix=True)``) then chains the name and definition decodes
+    through this one buffer."""
+    b, lp = prefix_ids.shape
+    embeds = embed_multimodal(p, prefix_ids, pixel_values, cfg)
+    positions = torch.arange(lp, device=embeds.device)[None].expand(b, lp)
+    if max_len and max_len < lp:
+        raise ValueError(f"max_len {max_len} < prefix length {lp}")
+    caches = [_alloc_cache(b, max_len or lp, cfg, embeds.dtype, embeds.device, kv_bits)
+              for _ in range(cfg.layers)]
+    _, caches = llama_forward(p["language"], embeds, positions, cfg, caches, 0)
+    return caches
+
+
+def _argmax_first(x):
+    """Index of the first maximum along the last axis (``jnp.argmax``'s tie
+    rule, stated rather than left to the backend)."""
+    top = x.max(dim=-1, keepdim=True).values
+    idx = torch.arange(x.shape[-1], device=x.device).expand_as(x)
+    return torch.where(x == top, idx, x.shape[-1]).min(dim=-1).values
+
+
+@torch.no_grad()
+def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tokens: int = 20,
+                    true_length=None, eos_id: Optional[int] = None, min_new_tokens=0,
+                    draft_tokens: int = 0, prefix_kv=None, prefix_len: int = 0,
+                    inplace_prefix: bool = False, return_caches: bool = False,
+                    kv_bits: Optional[int] = None):
+    """Greedy decode → (B, max_new_tokens) token ids (and the caches when
+    ``return_caches``).
+
+    ``true_length``: the real prompt length (an int, or (B,) per row) when
+    ``input_ids`` is right-padded to a bucket; stale pad slots sit past each
+    query's position and are rewritten before they are attended.
+    ``eos_id``: a row that emits EOS is frozen and EOS-filled, and the loop
+    stops once every row is done; ``min_new_tokens`` (an int or a per-row
+    tuple) masks EOS for the first N emitted tokens.  ``eos_id=None`` runs a
+    fixed trip of ``max_new_tokens - 1`` decode steps.
+    ``prefix_kv`` + ``prefix_len``: resume from ``prefill_prefix``;
+    ``input_ids`` is then the text-only suffix.  Without ``inplace_prefix``
+    the prefix is COPIED into fresh decode caches and ``prefix_kv`` is left
+    as it was; with it, the decode writes into ``prefix_kv`` itself (sized by
+    ``prefill_prefix(max_len=…)``), which is returned with
+    ``return_caches=True`` and chains into the next query.
+
+    The EOS loop reads ``all(done)`` on the host after every step: one
+    small copy per step, and exactly the decode steps of the JAX package's
+    ``lax.while_loop`` (none past the step where the last row finishes)."""
+    if draft_tokens > 0:
+        raise NotImplementedError(f"speculative decoding (draft_tokens > 0) is not ported yet: "
+                                  f"{_NOT_PORTED}; draft_tokens=0 gives the same tokens")
+    if kv_bits == 8:
+        raise NotImplementedError(f"the int8 KV cache (kv_bits=8) is not ported yet: "
+                                  f"{_NOT_PORTED}")
+    lang = p["language"]
+    dev = lang["embed_tokens"].device
+    b, l0 = input_ids.shape
+    if prefix_kv is not None:
+        embeds = lang["embed_tokens"][input_ids]
+    else:
+        embeds = embed_multimodal(p, input_ids, pixel_values, cfg)
+    positions = (prefix_len + torch.arange(l0, device=dev))[None].expand(b, l0)
+    max_len = prefix_len + l0 + max_new_tokens
+    if inplace_prefix:
+        if prefix_kv is None:
+            raise ValueError("inplace_prefix needs prefix_kv")
+        if prefix_kv[0][0].shape[1] < max_len:
+            raise ValueError(f"inplace prefix_kv length {prefix_kv[0][0].shape[1]} < required "
+                             f"{max_len} (prefill with max_len >= this)")
+        caches = prefix_kv
+    else:
+        if prefix_kv is not None and len(prefix_kv[0]) != 2:
+            raise NotImplementedError(f"the int8 KV cache is not ported yet: {_NOT_PORTED}")
+        caches = [_alloc_cache(b, max_len, cfg, embeds.dtype, dev, kv_bits)
+                  for _ in range(cfg.layers)]
+        if prefix_kv is not None:
+            for cache, pcache in zip(caches, prefix_kv):
+                for buf, pbuf in zip(cache, pcache):
+                    buf[:, :prefix_len] = pbuf[:, :prefix_len].to(buf.dtype)
+    logits, caches = llama_forward(lang, embeds, positions, cfg, caches, prefix_len)
+
+    mins = (list(min_new_tokens) if isinstance(min_new_tokens, (tuple, list))
+            else [min_new_tokens] * b)
+
+    def pick_next(last, emit_idx):
+        # HF's MinNewTokensLengthLogitsProcessor: no EOS before the floor
+        low = [r for r, m in enumerate(mins) if emit_idx < m]
+        if eos_id is not None and low:
+            last = last.clone()
+            last[low, eos_id] = float("-inf")
+        return _argmax_first(last)
+
+    if true_length is None:
+        next_tok = pick_next(logits[:, -1], 0)
+        start = prefix_len + l0
+        per_row = False
+    else:
+        tl = torch.as_tensor(true_length, device=dev).long()
+        per_row = tl.dim() == 1
+        if per_row:
+            last = logits[torch.arange(b, device=dev), tl - 1]
+            start = prefix_len + tl
+        else:
+            last = logits[:, int(tl) - 1]
+            start = prefix_len + int(tl)
+        next_tok = pick_next(last, 0)
+
+    def advance(tok, i):
+        pos = start + i
+        emb = lang["embed_tokens"][tok][:, None]
+        pos_ids = pos[:, None] if per_row else torch.full((b, 1), pos, device=dev)
+        out, _ = llama_forward(lang, emb, pos_ids, cfg, caches, pos)
+        return pick_next(out[:, -1], i + 1)
+
+    if eos_id is None:
+        toks = [next_tok]
+        for i in range(max_new_tokens - 1):
+            toks.append(advance(toks[-1], i))
+        out = torch.stack(toks, dim=1)
+        return (out, caches) if return_caches else out
+
+    buf = torch.full((b, max_new_tokens), eos_id, dtype=next_tok.dtype, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    tok = next_tok
+    for i in range(max_new_tokens):
+        buf[:, i] = tok
+        done |= tok == eos_id
+        if i + 1 >= max_new_tokens or bool(done.all()):
+            break
+        # frozen rows keep streaming EOS; their KV writes are never read
+        tok = torch.where(done, eos_id, advance(tok, i))
+    return (buf, caches) if return_caches else buf
+
+
+@torch.no_grad()
+def forward_logits(p, input_ids, pixel_values, cfg: VipLlavaConfig):
+    """Full-sequence logits (parity testing)."""
+    embeds = embed_multimodal(p, input_ids, pixel_values, cfg)
+    b, l = input_ids.shape
+    positions = torch.arange(l, device=embeds.device)[None].expand(b, l)
+    logits, _ = llama_forward(p["language"], embeds, positions, cfg)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+def convert_hf(sd: dict, cfg: VipLlavaConfig, device="cpu", dtype=torch.float32) -> dict:
+    """HF ``VipLlavaForConditionalGeneration`` state dict (numpy) → params."""
+    return convert.from_jax_params(convert.vip_llava_tree(sd, cfg.v_layers, cfg.layers),
+                                   device, dtype)
+
+
+def init_random_params(seed: int, cfg: VipLlavaConfig, quantize_bits: Optional[int] = None,
+                       dtype=torch.bfloat16, int4_format: str = "affine", device=None) -> dict:
+    """Seeded random parameters with ``convert_hf``'s tree (smoke runs and
+    benchmarks without weights), drawn from a ``torch.Generator`` on the
+    target device in the JAX package's distributions: floating leaves
+    N(0, 0.02²), norm scales 1, biases 0; with ``quantize_bits`` the 2-D
+    kernels of at least 2^14 elements are drawn QUANTIZED, one kernel at a
+    time (int8/int4 codes uniform over their range, scales uniform in
+    [1e-4, 3e-4]; NF4 quantizes one N(0, 0.02²) kernel), so a full-width
+    float32 7B (27 GB) is never made.  ``lm_head`` stays floating."""
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+    def vec(*shape):
+        return normal(*shape).to(dtype)
+
+    def scales(n):
+        return torch.empty((n,), device=dev).uniform_(1e-4, 3e-4, generator=gen)
+
+    def kernel(din, dout):
+        if din * dout >= (1 << 14) and quantize_bits == 8:
+            q = torch.randint(-127, 128, (din, dout), generator=gen, device=dev,
+                              dtype=torch.int8)
+            return {"q": q, "scale": scales(dout)}
+        if din * dout >= (1 << 14) and quantize_bits == 4:
+            if int4_format == "nf4":
+                return Q.quantize_kernel_nf4(normal(din, dout))
+            q = torch.randint(-7, 8, (din, dout), generator=gen, device=dev, dtype=torch.int8)
+            return {"q4": int4_matmul.pack_int4(q), "scale": scales(dout)}
+        return vec(din, dout)
+
+    def ones(d):
+        return torch.ones((d,), dtype=dtype, device=dev)
+
+    def zeros(d):
+        return torch.zeros((d,), dtype=dtype, device=dev)
+
+    def ln(d):
+        return {"scale": ones(d), "bias": zeros(d)}
+
+    def dense(din, dout, bias=True):
+        out = {"kernel": kernel(din, dout)}
+        if bias:
+            out["bias"] = zeros(dout)
+        return out
+
+    c = cfg
+    g = c.image_size // c.patch_size
+    vision = {
+        "patch_embed": {"kernel": vec(c.patch_size, c.patch_size, 3, c.v_hidden)},
+        "class_embedding": vec(c.v_hidden),
+        "position_embedding": vec(g * g + 1, c.v_hidden),
+        "pre_layernorm": ln(c.v_hidden),
+    }
+    for i in range(c.v_layers):
+        vision[f"layer{i}"] = {
+            "ln1": ln(c.v_hidden), "ln2": ln(c.v_hidden),
+            "attn": {n: dense(c.v_hidden, c.v_hidden) for n in ("q", "k", "v", "out")},
+            "mlp": {"fc1": dense(c.v_hidden, c.v_intermediate),
+                    "fc2": dense(c.v_intermediate, c.v_hidden)},
+        }
+    n_feat = len(c.vision_feature_layers)
+    projector = {"ln": ln(c.v_hidden * n_feat),
+                 "linear_1": dense(c.v_hidden * n_feat, c.hidden),
+                 "linear_2": dense(c.hidden, c.hidden)}
+    hd = c.hidden // c.heads
+    language = {"embed_tokens": vec(c.vocab, c.hidden), "norm": ones(c.hidden),
+                "lm_head": vec(c.hidden, c.vocab)}
+    for i in range(c.layers):
+        language[f"layer{i}"] = {
+            "input_ln": ones(c.hidden), "post_ln": ones(c.hidden),
+            "attn": {"q": dense(c.hidden, c.hidden, False),
+                     "k": dense(c.hidden, c.kv_heads * hd, False),
+                     "v": dense(c.hidden, c.kv_heads * hd, False),
+                     "o": dense(c.hidden, c.hidden, False)},
+            "mlp": {"gate": dense(c.hidden, c.intermediate, False),
+                    "up": dense(c.hidden, c.intermediate, False),
+                    "down": dense(c.intermediate, c.hidden, False)},
+        }
+    return {"vision": vision, "projector": projector, "language": language}

@@ -6,7 +6,9 @@ gammas are ones, biases zeros, and every other leaf is uniform in
 [-0.035, 0.035]; here the draws come from a ``torch.Generator`` on the
 target device, so the numbers differ from JAX's threefry draws.  SAM's
 relative-position tables are drawn like any other leaf (JAX's init zeroes
-them), so the bias path of the grid attention is exercised.
+them), so the bias path of the grid attention is exercised.  ViP-LLaVA
+draws as the JAX package's ``vip_llava.init_random_params`` does (normal
+leaves, quantized kernels drawn quantized).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from mars_tpu_torch import device as device_lib
 from mars_tpu_torch.models import clip as clip_m
 from mars_tpu_torch.models import dinov2
 from mars_tpu_torch.models import sam
+from mars_tpu_torch.models import vip_llava
 
 
 def random_params(shapes: dict, gen: torch.Generator, device: torch.device) -> dict:
@@ -77,3 +80,14 @@ def build_sam(variant: str = "vit_h", seed: int = 3, device=None):
     pe = params["prompt_encoder"]
     pe["pe_gaussian"] = torch.randn(pe["pe_gaussian"].shape, generator=gen, device=dev)
     return params, cfg
+
+
+def build_vip_llava(seed: int = 0, quantize_bits=4, int4_format: str = "affine",
+                    dtype=torch.bfloat16, device=None):
+    """→ (params, VipLlavaConfig): ViP-LLaVA-7B at full width (CLIP-L/14@336
+    tower, LLaMA-7B), weights ``dtype`` and the dense kernels weight-only
+    quantized (``quantize_bits`` 8 or 4; 4 with ``int4_format`` "affine" or
+    "nf4"; None keeps them floating)."""
+    cfg = vip_llava.VipLlavaConfig()
+    return vip_llava.init_random_params(seed, cfg, quantize_bits, dtype, int4_format,
+                                        device), cfg

@@ -1,0 +1,147 @@
+"""Weight-only 4-bit matmuls: packed nibbles streamed from device memory and
+unpacked in the kernel (port of ``mars_tpu/ops/int4_matmul.py``).
+
+Two formats, both two nibbles per byte along the INPUT dimension of an
+(IN, OUT) kernel, stored (IN/2, OUT) as int8 bit patterns:
+
+  - hybrid int4 (``pack_int4``): ``byte = (q[2i+1] << 4) | ((q[2i] + 8) & 0xF)``,
+    so the low nibble minus 8 is the even row and an arithmetic shift of
+    the signed byte is the odd row; per-output-column float32 scales
+    multiply AFTER the float32 accumulation;
+  - NF4 (``models.quantization.quantize_kernel_nf4``): unsigned indices into
+    the 16-entry NormalFloat codebook, float32 absmax scales per 64-row
+    block, folded in BEFORE the product, the weight rounded to x's type.
+
+On a CUDA tensor ``matmul_int4`` / ``matmul_nf4`` launch the hand-written
+Hopper kernels of ``csrc/int4_matmul.cu`` or raise; on a CPU tensor they
+take ``matmul_int4_plain`` / ``matmul_nf4_plain``, which follow the JAX
+package's non-TPU branch of ``quantized_dense``: the weight unpacked to x's
+type, products and sums in float32, the result cast to x's type.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from mars_tpu_torch.ops import build
+
+_FMT_INT4, _FMT_NF4 = 0, 1
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
+_CODE: Dict[torch.device, torch.Tensor] = {}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(IN, OUT) int8 values in [-7, 7] → (IN/2, OUT) hybrid-packed int8."""
+    if q.shape[0] % 2:
+        raise ValueError("input dim must be even to pack nibbles")
+    lo, hi = q[0::2].to(torch.int16), q[1::2].to(torch.int16)
+    return (((lo + 8) & 0xF) | (hi << 4)).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(IN/2, OUT) hybrid-packed int8 → (IN, OUT) int8 in [-8, 7]."""
+    p = packed.to(torch.int32)
+    lo = (p & 0xF) - 8
+    hi = p >> 4  # arithmetic: sign-preserving
+    n, out = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(n * 2, out).to(torch.int8)
+
+
+def _nf4_code():
+    # one source of truth for the codebook, imported late to keep the
+    # ops → models import one-directional at load time
+    from mars_tpu_torch.models.quantization import NF4_CODE
+
+    return NF4_CODE
+
+
+def matmul_int4_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's contract in plain PyTorch: x (M, IN) @ unpack(packed)
+    in float32, times scale (OUT,), cast to x's type."""
+    w = unpack_int4(packed).to(x.dtype)
+    y = torch.matmul(x.float(), w.float())
+    return (y * scale.float()).to(x.dtype)
+
+
+def matmul_nf4_plain(x: torch.Tensor, packed: torch.Tensor, bscale: torch.Tensor) -> torch.Tensor:
+    """x (M, IN) @ nf4_dequant(packed, bscale) with the weight rounded to
+    x's type first, products and sums in float32, cast to x's type."""
+    from mars_tpu_torch.models.quantization import dequantize_nf4
+
+    w = dequantize_nf4({"nf4": packed, "bscale": bscale}, x.dtype)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("int4_matmul")
+    lib.mars_matmul_4bit.argtypes = _ARGTYPES
+    lib.mars_matmul_4bit.restype = ctypes.c_int
+    return lib
+
+
+def _code_on(device: torch.device) -> torch.Tensor:
+    if device not in _CODE:
+        _CODE[device] = torch.from_numpy(_nf4_code()).to(device)
+    return _CODE[device]
+
+
+def _launch(fmt: int, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if x.dim() != 2 or packed.dim() != 2:
+        raise ValueError(f"x must be (M, IN) and packed (IN/2, OUT): {x.shape} {packed.shape}")
+    m, d_in = x.shape
+    d_out = packed.shape[1]
+    if packed.shape[0] * 2 != d_in:
+        raise ValueError(f"packed rows {packed.shape[0]} != IN/2 = {d_in / 2}")
+    want = (d_out,) if fmt == _FMT_INT4 else (d_in // 64, d_out)
+    if fmt == _FMT_NF4 and d_in % 64:
+        raise ValueError(f"NF4 needs IN divisible by 64, got {d_in}")
+    if tuple(scale.shape) != want:
+        raise ValueError(f"scale shape {tuple(scale.shape)} != {want}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if packed.dtype not in (torch.int8, torch.uint8) or scale.dtype != torch.float32:
+        raise TypeError(f"packed must be int8/uint8 and scale float32: {packed.dtype} "
+                        f"{scale.dtype}")
+    if packed.device != x.device or scale.device != x.device:
+        raise ValueError("inputs must lie on one device")
+    if not (x.is_contiguous() and packed.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    code = _code_on(x.device) if fmt == _FMT_NF4 else None
+    err = _library().mars_matmul_4bit(
+        fmt, int(x.dtype == torch.bfloat16), x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+        None if code is None else code.data_ptr(), out.data_ptr(), m, d_in, d_out,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4_matmul kernel launch failed with CUDA error {err} "
+                           f"(x {tuple(x.shape)}, packed {tuple(packed.shape)})")
+    return out
+
+
+def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (M, IN) @ (unpack_int4(packed (IN/2, OUT)) * scale (OUT,)) → (M, OUT)
+    in x's type.  ``matmul_int4.launches`` counts the kernel's launches."""
+    if not x.is_cuda:
+        return matmul_int4_plain(x, packed, scale)
+    out = _launch(_FMT_INT4, x, packed, scale)
+    matmul_int4.launches += 1
+    return out
+
+
+def matmul_nf4(x: torch.Tensor, packed: torch.Tensor, bscale: torch.Tensor) -> torch.Tensor:
+    """x (M, IN) @ nf4_dequant(packed (IN/2, OUT), bscale (IN/64, OUT)) →
+    (M, OUT) in x's type.  ``matmul_nf4.launches`` counts the launches."""
+    if not x.is_cuda:
+        return matmul_nf4_plain(x, packed, bscale)
+    out = _launch(_FMT_NF4, x, packed, bscale)
+    matmul_nf4.launches += 1
+    return out
+
+
+matmul_int4.launches = 0
+matmul_nf4.launches = 0

@@ -145,3 +145,52 @@ def test_auction_phase_kernel_equals_plain_on_card(dev):
     col_k, pr_k, st_k = asg._auction_phase_kernel(s, valid, prices, 2e-4, 20000)
     col_p, pr_p, st_p = asg._auction_phase_plain(s, valid, prices, 2e-4, 20000)
     assert torch.equal(col_k, col_p) and torch.equal(pr_k, pr_p) and st_k == st_p
+
+
+def _quant_inputs(fmt, m, din, dout, dtype, dev, seed=0):
+    from mars_tpu_torch.models import quantization as TQ
+
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randn(din, dout).astype(np.float32))
+    leaf = TQ.quantize_kernel(w, 4) if fmt == "int4" else TQ.quantize_kernel_nf4(w)
+    x = torch.from_numpy(rng.randn(m, din).astype(np.float32)).to(dev, dtype)
+    keys = ("q4", "scale") if fmt == "int4" else ("nf4", "bscale")
+    return x, [leaf[k].to(dev) for k in keys]
+
+
+# (format, IN, OUT): even shapes, then a ragged OUT that is no multiple of 4
+# (the GEMV's byte-load path) and, for int4, a ragged IN
+@pytest.mark.parametrize("fmt,din,dout", [("int4", 512, 384), ("int4", 300, 199),
+                                          ("nf4", 512, 384), ("nf4", 320, 199)])
+@pytest.mark.parametrize("m", [1, 4, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_4bit_matmul_matches_plain(dev, fmt, din, dout, m, dtype):
+    """Float32: the kernel and the plain version differ in summation order
+    only.  bfloat16: the output is rounded to bf16 once in each, so they
+    may differ by one bf16 rounding of the largest output."""
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    x, (packed, scale) = _quant_inputs(fmt, m, din, dout, dtype, dev)
+    fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
+    plain = im.matmul_int4_plain if fmt == "int4" else im.matmul_nf4_plain
+    before = fn.launches
+    got = fn(x, packed, scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x, packed, scale)
+    assert got.dtype == dtype and got.shape == (m, dout)
+    top = want.float().abs().max().item()
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rel, atol=rel * top)
+
+
+def test_4bit_matmul_rejects_what_it_does_not_take(dev):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    x, (packed, scale) = _quant_inputs("nf4", 4, 128, 64, torch.float32, dev)
+    with pytest.raises(ValueError):
+        im.matmul_nf4(x[:, :64], packed, scale)
+    with pytest.raises(TypeError):
+        im.matmul_nf4(x.half(), packed, scale)
+    with pytest.raises(TypeError):
+        im.matmul_nf4(x, packed, scale.bfloat16())

@@ -23,13 +23,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import pkgutil, sys
-sys.modules["jax"] = None
+BLOCKED = ("jax", "mars_tpu", "triton", "transformers", "PIL", "cv2", "nltk")
+for b in BLOCKED:
+    sys.modules[b] = None  # importing any of them now raises
 import mars_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch.")]
 for n in names:
     __import__(n)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and (m == "mars_tpu" or m.startswith(("mars_tpu.", "jax"))))
+             and m.split(".")[0] in BLOCKED + ("jaxlib",))
 print(len(names), bad)
 """
 
