@@ -39,11 +39,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
      checked against the count the decode's token trace implies; the
      first forward's logits, kernel path against plain path;
  13. one int4 text block under torch.profiler;
- 14. the kernels line.
+ 14. ``attention_notap`` against its plain version at the untapped blocks'
+     shapes (AlphaCLIP-L chunk, DINOv2-L, CLIP-B), float32 and bfloat16,
+     beside its bound and F.scaled_dot_product_attention;
+ 15. ``windowed_attention`` the same way at SAM ViT-H's windowed layer
+     (400 window-heads of 196 tokens) and a ragged window;
+ 16. the production bf16 evaluation with both kernel switches on
+     (MARS_ATTENTION_NOTAP_IMPL=pallas, MARS_SAM_WINDOWED_IMPL=pallas, for
+     this phase only): ``cli_proposals.main --bf16`` over two episodes into
+     a temporary directory, ``cli.main --bf16 --mask-proposals-path`` over
+     its dumps, ``cli.main --bf16 --generate-proposals``; every kernel's
+     launches checked exactly, each merged mask's IoU with the float32
+     run's; then one zero-threshold Matcher call in bf16 and the ranking
+     of its bucket;
+ 17. one bf16 proposal-plus-ranking episode (switches on) under
+     torch.profiler;
+ 18. the kernels line.
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 the repository, it exits non-zero and prints no result.  Imports nothing
 of JAX or of the JAX package.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -57,15 +73,44 @@ PROPOSAL_EPISODES = 2
 TAPPED_BLOCKS = 24 + 7  # DINOv2-L query blocks + CLIP-B prefinal blocks 4..10
 SAM_GLOBAL_LAYERS = 4  # ViT-H blocks 7, 15, 23, 31
 AUCTIONS = 2  # forward + reverse matching per episode
+# untapped blocks behind MARS_ATTENTION_NOTAP_IMPL=pallas: per ranking episode
+# the DINOv2-L support pass (24) and CLIP-B prefinal blocks 0..3 (4), plus 24
+# per live AlphaCLIP chunk of 16 proposals; per Matcher call its two DINOv2-L
+# passes (support and query, 48)
+RANKING_UNTAPPED = 24 + 4
+ALPHACLIP_BLOCKS = 24
+ALPHACLIP_CHUNK = 16
+MATCHER_UNTAPPED = 2 * 24
+SAM_WINDOWED_LAYERS = 28  # ViT-H's other 28 blocks, behind MARS_SAM_WINDOWED_IMPL=pallas
+SWITCHES = {"MARS_ATTENTION_NOTAP_IMPL": "pallas", "MARS_SAM_WINDOWED_IMPL": "pallas"}
+BF16_EPISODES = 2
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on CUDA cores, bf16 on
 # tensor cores, HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 GEOMETRIES = (("dinov2_l_518", 16, 1374, 64), ("clip_b16_528", 12, 1090, 64))
-TOL = {"float32": {"out": 1e-5, "tap": 1e-5}, "bfloat16": {"out": 3e-2, "tap": 1e-5}}
+TAP_TOL = 1e-5  # the tap (float32 in both types) and the float32 output
 # (name, heads, grid H, grid W, head dim): SAM ViT-H @1024 global layers, a ragged grid
 GRID_GEOMETRIES = (("sam_vit_h_global", 16, 64, 64, 80), ("ragged_5x7", 2, 5, 7, 24))
-GRID_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+GRID_TOL = 2e-5
+# (name, B, H, L, D): an AlphaCLIP-L/14@336 chunk, DINOv2-L @518 and CLIP-B/16
+# @528 at B = 1
+NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518", 1, 16, 1374, 64),
+                    ("clip_b16_528", 1, 12, 1090, 64))
+NOTAP_TOL = 2e-5
+# (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer (64 x 64
+# grid padded to 70 x 70: 25 windows), a ragged window at ViT-B/L's head dim
+WINDOW_GEOMETRIES = (("sam_vit_h_window", 25, 16, 14, 14, 80), ("ragged_5x6", 2, 2, 5, 6, 64))
+WINDOW_TOL = 2e-5  # float32: the same sums in other orders
+# bfloat16 attention outputs, element by element.  Each side rounds P to
+# bf16 (the flash kernels the unnormalised exp(s - running max), whose
+# float32 row sum carries the same roundings: the weights end up at most
+# 1.5 x 2^-8 apart, relative) and rounds its output (half an ulp, at most
+# 2^-8 |out|), so |got - want| <= 2^-7 (|want| + P|v|), P|v| the plain
+# version on |v|.  With randn inputs at d = 64, P|v| ~ 0.8 and |out| ~ 0.04
+# (at most ~0.9), a limit of ~6.5e-3 at a typical element; a kernel that
+# skips one key tile moves elements 20-40 times past it.
+BF16_ATTN_REL = 2 ** -7
 # tests/test_ops.py's Pallas-vs-XLA auction instances: (seed, T, N, phases)
 AUCTION_CASES = ((0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1), (5, 120, 120, 5),
                  (6, 3, 700, 1))
@@ -111,6 +156,22 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def _agreement(got, want, f32_tol, plain_on_abs_v):
+    """max |got - want| and its ratio to the limit (at most 1 passes):
+    ``f32_tol`` for float32 outputs, ``BF16_ATTN_REL`` (|want| + P|v|)
+    element by element for bfloat16 ones, P|v| from ``plain_on_abs_v()``."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        limit, tol = f32_tol, f32_tol
+    else:
+        limit = BF16_ATTN_REL * (want.float().abs() + plain_on_abs_v().float())
+        tol = "2^-7 (|want| + P|v|) element by element"
+    return {"max_abs_err": diff.max().item(), "tol": tol,
+            "err_over_tol": (diff / limit).max().item()}
+
+
 def phase_build(state):
     from mars_tpu_torch.ops import build
 
@@ -140,7 +201,8 @@ def phase_kernels(state):
             out, tap = fa.attention_with_tap(q, k, v)
             want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
             torch.cuda.synchronize()
-            err_out = (out.float() - want_out.float()).abs().max().item()
+            agree = _agreement(out, want_out, TAP_TOL,
+                               lambda: fa.attention_with_tap_plain(q, k, v.abs())[0])
             err_tap = (tap - want_tap).abs().max().item()
             err_rows = (tap.sum(-1) - 1).abs().max().item()
             size = q.element_size()
@@ -148,9 +210,10 @@ def phase_kernels(state):
             nbytes = 4.0 * h * l * d * size + l * l * 4.0
             bound = max(flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES) * 1e3
             row = {"phase": "kernel", "kernel": "attention_with_tap", "geometry": name,
-                   "shape": [h, l, d], "dtype": dt, "max_abs_err_out": err_out,
+                   "shape": [h, l, d], "dtype": dt, "max_abs_err_out": agree["max_abs_err"],
                    "max_abs_err_tap": err_tap, "max_abs_err_tap_rowsum": err_rows,
-                   "tol": TOL[dt],
+                   "tol": {"out": agree["tol"], "tap": TAP_TOL},
+                   "out_err_over_tol": agree["err_over_tol"],
                    "ms": cuda_ms(lambda: fa.attention_with_tap(q, k, v)),
                    "plain_ms": cuda_ms(lambda: fa.attention_with_tap_plain(q, k, v)),
                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -161,8 +224,8 @@ def phase_kernels(state):
                    else "bytes"}
             emit(row)
             rows.append(row)
-            if (err_out > TOL[dt]["out"] or err_tap > TOL[dt]["tap"]
-                    or err_rows > TOL[dt]["tap"] or not torch.isfinite(out.float()).all()):
+            if (agree["err_over_tol"] > 1 or err_tap > TAP_TOL or err_rows > TAP_TOL
+                    or not torch.isfinite(out.float()).all()):
                 raise AssertionError(f"attention_with_tap disagrees with its plain version: {row}")
     state["kernel_rows"] = rows
 
@@ -186,7 +249,8 @@ def phase_grid_attention(state):
             out = sa.grid_attention(*args, (h, w))
             want = sa.grid_attention_plain(*args, (h, w))
             torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs().max().item()
+            agree = _agreement(out, want, GRID_TOL, lambda: sa.grid_attention_plain(
+                *args[:2], args[2].abs(), *args[3:], (h, w)))
             # the yardstick's input: the decomposed bias expanded to (heads, L, L)
             cols = torch.arange(l, device="cuda")
             mask = (args[3][:, :, cols // w] + args[4][:, :, cols % w])[None]
@@ -195,8 +259,7 @@ def phase_grid_attention(state):
             flops = 4.0 * nh * l * l * d
             nbytes = (4 * nh * l * d + nh * l * (h + w)) * size
             row = {"phase": "kernel", "kernel": "grid_attention", "geometry": name,
-                   "shape": [nh, l, d], "grid": [h, w], "dtype": dt, "max_abs_err": err,
-                   "tol": GRID_TOL[dt],
+                   "shape": [nh, l, d], "grid": [h, w], "dtype": dt, **agree,
                    "ms": cuda_ms(lambda: sa.grid_attention(*args, (h, w))),
                    "plain_ms": cuda_ms(lambda: sa.grid_attention_plain(*args, (h, w)), iters=5),
                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -208,9 +271,94 @@ def phase_grid_attention(state):
                    else "bytes"}
             emit(row)
             rows.append(row)
-            if err > GRID_TOL[dt] or not torch.isfinite(out.float()).all():
+            if agree["err_over_tol"] > 1 or not torch.isfinite(out.float()).all():
                 raise AssertionError(f"grid_attention disagrees with its plain version: {row}")
     state["grid_rows"] = rows
+
+
+def _bound(flops, nbytes, dt):
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def phase_notap(state):
+    """``attention_notap`` against its plain version at the untapped blocks'
+    shapes, float32 and bfloat16, beside its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from mars_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for name, b, h, l, d in NOTAP_GEOMETRIES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            out = fa.attention_notap(q, k, v)
+            want = fa.attention_notap_plain(q, k, v)
+            torch.cuda.synchronize()
+            agree = _agreement(out, want, NOTAP_TOL,
+                               lambda: fa.attention_notap_plain(q, k, v.abs()))
+            bound, by = _bound(4.0 * b * h * l * l * d, 4.0 * b * h * l * d * q.element_size(), dt)
+            row = {"phase": "kernel", "kernel": "attention_notap", "geometry": name,
+                   "shape": [b, h, l, d], "dtype": dt, **agree,
+                   "ms": cuda_ms(lambda: fa.attention_notap(q, k, v)),
+                   "plain_ms": cuda_ms(lambda: fa.attention_notap_plain(q, k, v), iters=5),
+                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   "library_call": "F.scaled_dot_product_attention",
+                   "bound_ms": bound, "bound_by": by}
+            emit(row)
+            rows.append(row)
+            if agree["err_over_tol"] > 1 or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"attention_notap disagrees with its plain version: {row}")
+    state["notap_rows"] = rows
+
+
+def phase_windowed(state):
+    """``windowed_attention`` against its plain version at SAM ViT-H's
+    windowed layer and a ragged window, float32 and bfloat16, beside its
+    bound and SDPA with the bias expanded."""
+    import torch
+    import torch.nn.functional as F
+
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for name, b, nh, h, w, d in WINDOW_GEOMETRIES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            l = h * w
+            args = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in
+                    ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, h), (b, nh, l, w))]
+            out = sa.windowed_attention(*args, (h, w))
+            want = sa.windowed_attention_plain(*args, (h, w))
+            torch.cuda.synchronize()
+            agree = _agreement(out, want, WINDOW_TOL, lambda: sa.windowed_attention_plain(
+                *args[:2], args[2].abs(), *args[3:], (h, w)))
+            # the yardstick's input: the decomposed bias expanded to (B, nh, L, L)
+            cols = torch.arange(l, device="cuda")
+            mask = args[3][..., cols // w] + args[4][..., cols % w]
+            bound, by = _bound(4.0 * b * nh * l * l * d,
+                               (4 * b * nh * l * d + b * nh * l * (h + w)) * args[0].element_size(),
+                               dt)
+            row = {"phase": "kernel", "kernel": "windowed_attention", "geometry": name,
+                   "shape": [b, nh, l, d], "window": [h, w], "dtype": dt, **agree,
+                   "ms": cuda_ms(lambda: sa.windowed_attention(*args, (h, w))),
+                   "plain_ms": cuda_ms(lambda: sa.windowed_attention_plain(*args, (h, w)),
+                                       iters=5),
+                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                       *args[:3], attn_mask=mask)),
+                   "library_call": "F.scaled_dot_product_attention with the bias expanded "
+                                   "to (B, heads, L, L) outside the timing",
+                   "bound_ms": bound, "bound_by": by}
+            emit(row)
+            rows.append(row)
+            if agree["err_over_tol"] > 1 or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"windowed_attention disagrees with its plain version: {row}")
+    state["window_rows"] = rows
 
 
 def _matching_instances():
@@ -455,12 +603,9 @@ def phase_golden_matcher(state):
 def phase_main_path(state):
     import math
 
-    import torch
-
     from mars_tpu_torch import cli
     from mars_tpu_torch.ops import flash_attention as fa
 
-    torch.cuda.reset_peak_memory_stats()
     fa.attention_with_tap.launches = 0
     res = cli.main(["--benchmark", "synthetic", "--episodes", str(EPISODES), "--gt-class-names",
                     "--proposal-bucket", "128", "--input-size", "518", "--seed", "0"])
@@ -469,7 +614,7 @@ def phase_main_path(state):
     ms = res["episode_ms"]
     row = {"phase": "main_path", "episodes": EPISODES, "episode_ms": ms,
            "ms_per_episode_after_first": sum(ms[1:]) / len(ms[1:]),
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "episode_peak_memory_gib": res["episode_peak_gib"],
            "miou": res["miou"], "fb_iou": res["fb_iou"], "masks_binary": res["masks_binary"],
            "launches": state["launches"], "launches_expected": TAPPED_BLOCKS * EPISODES}
     emit(row)
@@ -485,25 +630,23 @@ def phase_proposal_path(state):
     set to 0 just before and read just after."""
     import math
 
-    import torch
-
     from mars_tpu_torch import cli
 
-    torch.cuda.reset_peak_memory_stats()
     for fn in cli.KERNELS.values():
         fn.launches = 0
     res = cli.main(["--benchmark", "synthetic", "--episodes", str(PROPOSAL_EPISODES),
                     "--gt-class-names", "--generate-proposals", "--proposal-bucket", "128",
-                    "--input-size", "518", "--seed", "0"])
+                    "--input-size", "518", "--seed", "0"], keep_masks=True)
     launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
-    want = {"attention_with_tap": TAPPED_BLOCKS * PROPOSAL_EPISODES,
-            "grid_attention": SAM_GLOBAL_LAYERS * PROPOSAL_EPISODES,
+    want = {"attention_with_tap": TAPPED_BLOCKS * PROPOSAL_EPISODES, "attention_notap": 0,
+            "grid_attention": SAM_GLOBAL_LAYERS * PROPOSAL_EPISODES, "windowed_attention": 0,
             "auction": AUCTIONS * PROPOSAL_EPISODES}
     state["proposal_launches"] = launches
+    state["f32_masks"] = res["masks"]
     row = {"phase": "proposal_path", "episodes": PROPOSAL_EPISODES,
            "proposal_ms": res["proposal_ms"], "ranking_ms": res["episode_ms"],
            "live_proposals": res["live_proposals"],
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "episode_peak_memory_gib": res["episode_peak_gib"],
            "miou": res["miou"], "masks_binary": res["masks_binary"], "launches": launches,
            "launches_expected": want}
     emit(row)
@@ -513,22 +656,23 @@ def phase_proposal_path(state):
         raise AssertionError("proposal path produced a non-binary mask or a non-finite mIoU")
 
 
-def phase_zero_thresholds(state):
+def _zero_thresholds(bf16):
     """One full-width generate_proposals with the selection thresholds at 0
-    (the AMG config of tests/test_golden_matcher.py): with random weights
-    the default 0.88 / 0.95 reject every mask, so only this way do decode,
-    NMS, EMD scoring and the bucket see live masks."""
+    (the AMG config of tests/test_golden_matcher.py) → (row, output)."""
     import torch
 
     from mars_tpu_torch import cli
     from mars_tpu_torch.data.base import to_device_episode
     from mars_tpu_torch.data.synthetic import SyntheticFSS
     from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.models.precision import cast_floating
     from mars_tpu_torch.pipeline import amg, matcher
 
     dev = torch.device("cuda")
     dino, dino_cfg = zoo.build_dinov2(0, dev)
     sam_params, sam_cfg = zoo.build_sam("vit_h", 3, dev)
+    if bf16:
+        dino, sam_params = cast_floating(dino), cast_floating(sam_params)
     ep = to_device_episode(SyntheticFSS(seed=0)[0], 518, 1, dev)
     acfg = amg.AmgConfig(sel_pred_iou_thresh=0.0, sel_stability_score_thresh=0.0,
                          box_nms_thresh=0.5, sel_multimask_output=True, sel_output_layer=3,
@@ -546,21 +690,169 @@ def phase_zero_thresholds(state):
     bucket_valid = out["bucket_valid"].cpu()
     k = min(live, 128)
     masks = out["bucket_masks"]
-    row = {"phase": "zero_thresholds", "ms": ms, "live_proposals": live,
+    row = {"phase": "zero_thresholds", "bf16": bf16, "ms": ms, "live_proposals": live,
            "decoded_sets": int(out["telemetry"]["n_prompt_sets"]),
            "live_before_nms": int(out["telemetry"]["n_decoded"]),
            "matched_points": int(out["telemetry"]["n_matched_points"]),
            "chosen": int(out["chosen"].sum()), "final_score": float(out["final_score"]),
            "bucket_live": int(bucket_valid.sum()),
+           "embedding_dtype": str(out["embedding"].dtype),
            "emd_score_range": [float(out["emd_score"][out["proposal_valid"]].min()),
                                float(out["emd_score"][out["proposal_valid"]].max())]
            if live else None}
-    emit(row)
     ok = (live > 0 and bool(bucket_valid[:k].all()) and not bool(bucket_valid[k:].any())
           and bool(((masks == 0) | (masks == 1)).all())
           and bool(torch.isfinite(out["emd_score"]).all()))
     if not ok:
+        emit(row)
         raise AssertionError(f"zero-threshold proposals failed: {row}")
+    return row, out, ep
+
+
+def phase_zero_thresholds(state):
+    """With random weights the default 0.88 / 0.95 reject every mask, so
+    only with the thresholds at 0 do decode, NMS, EMD scoring and the
+    bucket see live masks."""
+    emit(_zero_thresholds(bf16=False)[0])
+
+
+@contextlib.contextmanager
+def kernel_switches():
+    """Both kernel switches on (``SWITCHES``), restored on the way out."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update(SWITCHES)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _alphaclip_chunks(live):
+    return -(-min(live, 128) // ALPHACLIP_CHUNK)
+
+
+def _ranking_launches(live):
+    """Per-kernel launches of ranking episodes with ``live`` proposals each,
+    both switches on."""
+    return {"attention_with_tap": TAPPED_BLOCKS * len(live),
+            "attention_notap": sum(RANKING_UNTAPPED + ALPHACLIP_BLOCKS * _alphaclip_chunks(n)
+                                   for n in live),
+            "grid_attention": 0, "windowed_attention": 0, "auction": 0}
+
+
+def _matcher_launches(calls):
+    return {"attention_with_tap": 0, "attention_notap": MATCHER_UNTAPPED * calls,
+            "grid_attention": SAM_GLOBAL_LAYERS * calls,
+            "windowed_attention": SAM_WINDOWED_LAYERS * calls, "auction": AUCTIONS * calls}
+
+
+def _add(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def phase_bf16_path(state):
+    """The production evaluation at production precision, both switches on
+    for this phase only: the two programs (``cli_proposals --bf16`` into a
+    temporary directory, then ``cli --bf16 --mask-proposals-path``), the
+    inline ``cli --bf16 --generate-proposals``, and one zero-threshold
+    Matcher call in bf16 with the ranking of its bucket.  Every kernel's
+    count is set to 0 just before each run and read just after."""
+    import math
+    import tempfile
+
+    import torch
+
+    from mars_tpu_torch import cli, cli_proposals
+    from mars_tpu_torch.core.episode import Proposals
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+
+    def start():
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in cli.KERNELS.items()}
+
+    f32 = state.get("f32_masks") or []
+
+    def iou_with_f32(preds):
+        return [float(_mask_iou(p[None], f32[i][None])[0, 0]) if i < len(f32) else None
+                for i, p in enumerate(preds)]
+
+    rank_args = ["--bf16", "--gt-class-names", "--episodes", str(BF16_EPISODES),
+                 "--proposal-bucket", "128", "--input-size", "518", "--seed", "0"]
+    failures, by_path = [], {}
+
+    def per_episode(run, res, want, **columns):
+        """One row per episode: its launches against ``want(i)``, exactly."""
+        for i, got in enumerate(res["episode_launches"]):
+            row = {"phase": "bf16_path", "run": run, "episode": i,
+                   **{k: v[i] for k, v in columns.items()}, "launches": got,
+                   "launches_expected": want(i), "masks_binary": res.get("masks_binary"),
+                   "peak_memory_gib": res["episode_peak_gib"][i]}
+            emit(row)
+            if got != row["launches_expected"]:
+                failures.append((run, i, got, row["launches_expected"]))
+        if not res.get("masks_binary", True) or not math.isfinite(res.get("miou", 0.0)):
+            failures.append((run, "non-binary mask or non-finite mIoU"))
+
+    with kernel_switches(), tempfile.TemporaryDirectory() as tmp:
+        start()
+        pres = cli_proposals.main(["--bf16", "--episodes", str(BF16_EPISODES), "--out", tmp,
+                                   "--seed", "0"])
+        per_episode("cli_proposals --bf16", pres, lambda i: _matcher_launches(1),
+                    proposal_ms=pres["proposal_ms"], live_proposals=pres["live_proposals"],
+                    file=sorted(os.listdir(tmp)))
+        two_program = pres["launches"]
+
+        start()
+        res = cli.main(rank_args + ["--mask-proposals-path", tmp], keep_masks=True)
+        live = res["live_proposals"]
+        per_episode("cli --bf16 --mask-proposals-path", res,
+                    lambda i: _ranking_launches([live[i]]), ranking_ms=res["episode_ms"],
+                    live_proposals=live, iou_with_f32=iou_with_f32(res["masks"]))
+        by_path["bf16_two_program"] = _add(two_program, res["launches"])
+
+        start()
+        res = cli.main(rank_args + ["--generate-proposals"], keep_masks=True)
+        live = res["live_proposals"]
+        per_episode("cli --bf16 --generate-proposals", res,
+                    lambda i: _add(_matcher_launches(1), _ranking_launches([live[i]])),
+                    proposal_ms=res["proposal_ms"], ranking_ms=res["episode_ms"],
+                    live_proposals=live, iou_with_f32=iou_with_f32(res["masks"]))
+        by_path["bf16_inline"] = res["launches"]
+
+        start()
+        row, out, ep = _zero_thresholds(bf16=True)
+        got, want = launches(), _matcher_launches(1)
+        failures += [] if got == want else [("zero_thresholds", got, want)]
+        model = cli.build_model(518, torch.device("cuda"), bf16=True)
+        rec = SyntheticFSS(seed=0)[0]
+        start()
+        t0 = time.perf_counter()
+        merged = model.predict(ep, Proposals(out["bucket_masks"], out["bucket_valid"]),
+                               class_name=rec.class_name).cpu()
+        rank_ms = (time.perf_counter() - t0) * 1e3
+        rank_got = launches()
+        rank_want = _ranking_launches([row["bucket_live"]])
+        row.update({"phase": "bf16_path", "run": "zero-threshold Matcher, then its ranking",
+                    "launches": got, "launches_expected": want, "ranking_ms": rank_ms,
+                    "ranking_launches": rank_got, "ranking_launches_expected": rank_want,
+                    "merged_fg_pixels": int(merged.sum()),
+                    "merged_binary": bool(((merged == 0) | (merged == 1)).all())})
+        emit(row)
+        failures += [] if rank_got == rank_want else [("zero_threshold_ranking", rank_got,
+                                                       rank_want)]
+        failures += [] if row["merged_binary"] else [("zero_threshold_ranking", "non-binary")]
+        by_path["bf16_zero_thresholds"] = _add(got, rank_got)
+    state["bf16_launches"] = by_path
+    if failures:
+        raise AssertionError(f"bf16 path failed: {failures}")
 
 
 def _profile_summary(prof, span_prefixes):
@@ -581,7 +873,7 @@ def _profile_summary(prof, span_prefixes):
             [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count} for e in top])
 
 
-def phase_profile_proposals(state):
+def _profile_proposals(bf16):
     """One proposal-plus-ranking episode (after a warm-up one) under
     torch.profiler: device time by ``matcher.*`` and ``mars.*`` span and by
     kernel, and the device's idle share of the episode's wall time."""
@@ -595,9 +887,9 @@ def phase_profile_proposals(state):
     from mars_tpu_torch.data.synthetic import SyntheticFSS
 
     dev = torch.device("cuda")
-    model = cli.build_model(518, dev)
+    model = cli.build_model(518, dev, bf16=bf16)
     generate = cli.make_inline_generator(
-        Namespace(input_size=518, proposal_bucket=128, sam_size="vit_h"),
+        Namespace(input_size=518, proposal_bucket=128, sam_size="vit_h", bf16=bf16),
         (model.dino_params, model.dino_cfg), dev)
     rec = SyntheticFSS(seed=0)[0]
     ep = to_device_episode(rec, 518, 1, dev)
@@ -612,9 +904,19 @@ def phase_profile_proposals(state):
         episode()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, launches, spans, top = _profile_summary(prof, ("matcher.", "mars."))
-    emit({"phase": "profile_proposals", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
-          "stage_device_span_ms": spans, "top_kernels": top})
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+            "stage_device_span_ms": spans, "top_kernels": top}
+
+
+def phase_profile_proposals(state):
+    emit({"phase": "profile_proposals", **_profile_proposals(bf16=False)})
+
+
+def phase_profile_bf16(state):
+    """The same in bf16 with both kernel switches on."""
+    with kernel_switches():
+        emit({"phase": "profile_bf16", "switches": SWITCHES, **_profile_proposals(bf16=True)})
 
 
 def phase_profile(state):
@@ -895,14 +1197,14 @@ def kernels_line(state):
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
                   and r["dtype"] == "float32"), {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    ranking = state.get("launches", {})
-    proposal = state.get("proposal_launches", {})
+    paths = {"ranking": state.get("launches", {}), "proposal": state.get("proposal_launches", {}),
+             **state.get("bf16_launches", {})}
 
     def launches(name):
-        return ranking.get(name, 0) + proposal.get(name, 0)
+        return sum(counts.get(name, 0) for counts in paths.values())
 
     def by_path(name):
-        return {"ranking": ranking.get(name, 0), "proposal": proposal.get(name, 0)}
+        return {path: counts.get(name, 0) for path, counts in paths.items()}
 
     grid = state.get("grid_rows", [])
     grid_first = next((r for r in grid if r["geometry"] == GRID_GEOMETRIES[0][0]
@@ -941,7 +1243,27 @@ def kernels_line(state):
         "shape": auc_first.get("shape"), "dtype": "float32",
         "instances": [{k: r[k] for k in ("instance", "shape", "equal", "rounds", "bidder_rows")
                        + keys} for r in auc],
-    }] + [_quant_entry(state, fmt, line) for fmt, line in (("int4", 229), ("nf4", 139))]}
+    }, _attention_entry(state, "attention_notap", "notap_rows", "dinov2_l_518",
+                        "mars_tpu_torch/csrc/attention_notap.cu",
+                        "mars_tpu/ops/flash_attention.py:187", launches, by_path),
+        _attention_entry(state, "windowed_attention", "window_rows", "sam_vit_h_window",
+                         "mars_tpu_torch/csrc/sam_windowed_attention.cu",
+                         "mars_tpu/ops/sam_attention.py:178", launches, by_path),
+    ] + [_quant_entry(state, fmt, line) for fmt, line in (("int4", 229), ("nf4", 139))]}
+
+
+def _attention_entry(state, name, rows_key, geometry, source, replaces, launches, by_path):
+    """The path's shape in bfloat16 (the type the switches' path runs)
+    stands for the kernel; every measured geometry and type is listed."""
+    rows = state.get(rows_key, [])
+    first = next((r for r in rows if r["geometry"] == geometry and r["dtype"] == "bfloat16"), {})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches(name), "launches_by_path": by_path(name),
+            "max_abs_err": first.get("max_abs_err"), **{k: first.get(k) for k in keys},
+            "shape": first.get("shape"), "dtype": "bfloat16",
+            "geometries": [{k: r[k] for k in ("geometry", "shape", "dtype", "max_abs_err", "tol",
+                                              "err_over_tol") + keys} for r in rows]}
 
 
 def _quant_entry(state, fmt, line):
@@ -978,10 +1300,11 @@ def main():
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     state, failed = {}, []
-    for phase in (phase_build, phase_kernels, phase_grid_attention, phase_auction, phase_golden,
-                  phase_golden_matcher, phase_main_path, phase_proposal_path,
-                  phase_zero_thresholds, phase_profile, phase_profile_proposals,
-                  phase_4bit_kernels, phase_text_path, phase_profile_text):
+    for phase in (phase_build, phase_kernels, phase_grid_attention, phase_notap, phase_windowed,
+                  phase_auction, phase_golden, phase_golden_matcher, phase_main_path,
+                  phase_proposal_path, phase_zero_thresholds, phase_bf16_path, phase_profile,
+                  phase_profile_proposals, phase_profile_bf16, phase_4bit_kernels,
+                  phase_text_path, phase_profile_text):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -100,7 +100,10 @@ def gradcam_last_block(params, x_prefinal, text_feats, logit_scale, cfg: ClipVis
         h = L.layer_norm(params["ln_post"], h)
         img = h[:, 1:, :].mean(dim=1) @ params["proj"]
         img = img / img.norm(dim=-1, keepdim=True)
-        logits = torch.exp(logit_scale) * img @ txt.T
+        # a bf16 tower's img meets the f32 scale and text features: JAX
+        # promotes the product to f32 (a 0-dim f32 array promotes too)
+        dt = torch.promote_types(torch.promote_types(logit_scale.dtype, img.dtype), txt.dtype)
+        logits = (torch.exp(logit_scale).to(dt) * img.to(dt)) @ txt.T.to(dt)
         probs = torch.softmax(logits, dim=-1)
         # target: softmaxed logit of the foreground label (ClipOutputTarget(0))
         (grads,) = torch.autograd.grad(probs[:, 0].sum(), a)

@@ -8,13 +8,17 @@ Layout: batch-first (B, L, D) tokens; images NHWC.
 
 Tapped blocks (``mha(return_attn=True)``) go through
 ``ops.flash_attention.mha_tap``: the hand-written kernel on a CUDA tensor,
-its plain version on a CPU tensor.  Untapped and masked blocks take the
-plain einsum/softmax path, as the JAX package's default XLA path does.
+its plain version on a CPU tensor.  Untapped blocks take the plain
+einsum/softmax path, as the JAX package's default XLA path does, unless
+``MARS_ATTENTION_NOTAP_IMPL=pallas`` (the JAX package's switch, read at each
+call) sends them through ``ops.flash_attention.mha_notap``.  Masked blocks
+and the Grad-CAM head stay plain.
 A dense whose ``kernel`` is a dict is weight-only quantized and goes to
 ``models.quantization.quantized_dense``.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Tuple
 
 import torch
@@ -69,18 +73,33 @@ def conv_patch_embed(p, images, patch_size: int):
     return y
 
 
+NOTAP_IMPL_ENV = "MARS_ATTENTION_NOTAP_IMPL"
+
+
+def kernel_switch(env: str) -> bool:
+    """One of the JAX package's kernel switches, read at call time: "xla"
+    (the default) keeps the plain path, "pallas" takes the kernel; any
+    other value raises."""
+    impl = os.environ.get(env, "xla")
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"{env}={impl!r}: expected 'xla' or 'pallas'")
+    return impl == "pallas"
+
+
 def mha(p, x, num_heads: int, return_attn: bool = False, mask=None,
         force_plain: bool = False):
     """Multi-head self-attention with an optional head-averaged prob tap
     (B, L, L).  ``force_plain``: the Grad-CAM head differentiates through
-    its attention, so it takes the plain path (the kernel has no backward),
-    as ``force_xla`` does in the JAX package."""
+    its attention, so it takes the plain path (the kernels have no
+    backward), as ``force_xla`` does in the JAX package."""
     b, l, d = x.shape
     head_dim = d // num_heads
     qkv = dense(p["qkv"], x).reshape(b, l, 3, num_heads, head_dim)
     if return_attn and mask is None and not force_plain:
         out, attn = flash_attention.mha_tap(qkv)
         return dense(p["proj"], out.to(x.dtype)), attn
+    if not return_attn and mask is None and not force_plain and kernel_switch(NOTAP_IMPL_ENV):
+        return dense(p["proj"], flash_attention.mha_notap(qkv).to(x.dtype)), None
     q, k, v = qkv.unbind(dim=2)  # (B, L, H, hd)
     q = q * head_dim ** -0.5
     logits = torch.einsum("blhd,bmhd->bhlm", q, k)

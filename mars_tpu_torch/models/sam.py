@@ -9,7 +9,9 @@ The encoder's global layers (a full grid of at least 1024 tokens, e.g. 64 ×
 64 at ViT-H @1024) go through ``ops.sam_attention.grid_attention``: the
 hand-written kernel on a CUDA tensor, its plain version on a CPU one.  The
 windowed layers take plain PyTorch, as the JAX package's default XLA path
-does.
+does, unless ``MARS_SAM_WINDOWED_IMPL=pallas`` (the JAX package's switch,
+read at each call) sends them through ``ops.sam_attention.windowed_attention``,
+every window-head of a layer in one launch.
 """
 from __future__ import annotations
 
@@ -94,19 +96,30 @@ def _rel_pos_table(rel_pos, q_size: int, k_size: int):
     return r[rel.long()]
 
 
-def _grid_attention(p, x, num_heads: int, use_rel_pos: bool = True,
-                    allow_kernel: bool = False):
+WINDOWED_IMPL_ENV = "MARS_SAM_WINDOWED_IMPL"
+
+
+def _grid_attention(p, x, num_heads: int, use_rel_pos: bool = True, route: str = "plain"):
     """Attention over a (B, H, W, C) token grid with decomposed rel pos
     (reference image_encoder.py:224-241, add_decomposed_rel_pos :325-366).
-    ``allow_kernel``: a global layer of at least 1024 tokens routes through
+    ``route="global"``: a grid of at least 1024 tokens goes through
     ``sam_attention.grid_attention``, the same size route as the JAX
-    package's ``allow_pallas``."""
+    package's ``allow_pallas``.  ``route="window"``: the batch of windows
+    goes through ``sam_attention.windowed_attention`` when
+    ``MARS_SAM_WINDOWED_IMPL=pallas``, as ``windowed_pallas`` does there."""
     b, h, w, c = x.shape
     hd = c // num_heads
     qkv = L.dense(p["qkv"], x).reshape(b, h * w, 3, num_heads, hd)
     q, k, v = qkv.unbind(dim=2)  # (B, HW, nh, hd)
-    if allow_kernel and use_rel_pos and h * w >= 1024:
-        return _grid_attention_kernel(p, q, k, v, x)
+    if use_rel_pos and route == "global" and h * w >= 1024:
+        qt, kt, vt, bias_h, bias_w = _kernel_inputs(p, q, k, v, h, w)
+        out = torch.stack([sam_attention.grid_attention(qt[i], kt[i], vt[i], bias_h[i],
+                                                        bias_w[i], (h, w))
+                           for i in range(b)])  # (B, nh, HW, hd)
+        return L.dense(p["proj"], out.permute(0, 2, 1, 3).reshape(b, h, w, c))
+    if use_rel_pos and route == "window" and L.kernel_switch(WINDOWED_IMPL_ENV):
+        out = sam_attention.windowed_attention(*_kernel_inputs(p, q, k, v, h, w), (h, w))
+        return L.dense(p["proj"], out.permute(0, 2, 1, 3).reshape(b, h, w, c))
     logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
     if use_rel_pos:
         bias_h, bias_w = _rel_pos_bias(p, q, h, w)
@@ -129,21 +142,15 @@ def _rel_pos_bias(p, q, h: int, w: int):
             torch.einsum("bywhd,wWd->bhywW", rq, rw))
 
 
-def _grid_attention_kernel(p, q, k, v, x):
-    """Global-layer attention through ``sam_attention.grid_attention``: the
-    rel-pos bias stays as its two per-query tables and is expanded inside
-    the kernel."""
-    b, h, w, c = x.shape
-    num_heads = q.shape[2]
+def _kernel_inputs(p, q, k, v, h: int, w: int):
+    """The attention kernels' inputs: q, k, v (B, HW, nh, hd) as contiguous
+    (B, nh, HW, hd), and the rel-pos bias as its two per-query tables
+    (B, nh, HW, h) and (B, nh, HW, w), expanded inside the kernels."""
+    b, _, num_heads, _ = q.shape
     bias_h, bias_w = _rel_pos_bias(p, q, h, w)
-    bias_h = bias_h.reshape(b, num_heads, h * w, h)
-    bias_w = bias_w.reshape(b, num_heads, h * w, w)
     qt, kt, vt = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
-    out = torch.stack([
-        sam_attention.grid_attention(qt[i], kt[i], vt[i], bias_h[i].contiguous(),
-                                     bias_w[i].contiguous(), (h, w))
-        for i in range(b)])  # (B, nh, HW, hd)
-    return L.dense(p["proj"], out.permute(0, 2, 1, 3).reshape(b, h, w, c))
+    return (qt, kt, vt, bias_h.reshape(b, num_heads, h * w, h).contiguous(),
+            bias_w.reshape(b, num_heads, h * w, w).contiguous())
 
 
 def _layer_norm_2d(p, x, eps: float = 1e-6):
@@ -186,10 +193,10 @@ def encode_image(params, images, cfg: SamConfig):
         h = L.layer_norm(p["ln1"], x, eps=1e-6)
         if i not in cfg.global_attn_indexes:
             h, pad_hw = _window_partition(h, cfg.window_size)
-            h = _grid_attention(p["attn"], h, cfg.num_heads)
+            h = _grid_attention(p["attn"], h, cfg.num_heads, route="window")
             h = _window_unpartition(h, cfg.window_size, pad_hw, (gh, gw))
         else:
-            h = _grid_attention(p["attn"], h, cfg.num_heads, allow_kernel=True)
+            h = _grid_attention(p["attn"], h, cfg.num_heads, route="global")
         x = shortcut + h
         x = x + L.mlp(p["mlp"], L.layer_norm(p["ln2"], x, eps=1e-6), L.exact_gelu)
     # neck: 1x1 conv → LN2d → 3x3 conv → LN2d (reference image_encoder.py:88-105)

@@ -20,7 +20,8 @@ from typing import Dict, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("attention_tap", "sam_grid_attention", "auction", "int4_matmul")
+SOURCES = ("attention_tap", "attention_notap", "sam_grid_attention", "sam_windowed_attention",
+           "auction", "int4_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -28,6 +28,20 @@ def _qkv(h, l, d, dtype, dev, seed=0):
             for _ in range(3)]
 
 
+def _assert_bf16_attention(got, want, want_on_abs_v):
+    """bfloat16 attention outputs, element by element (chip_smoke.py's
+    limit): each side rounds P to bf16 (the flash kernels the unnormalised
+    exp(s - running max), whose float32 row sum carries the same roundings:
+    weights at most 1.5 x 2^-8 apart, relative) and its output (at most
+    2^-8 |out| each), so |got - want| <= 2^-7 (|want| + P|v|), P|v| the plain
+    version on |v|.  With randn inputs at d = 64 that is ~6.5e-3 at a typical
+    element (|out| ~0.04, P|v| ~0.8)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    want = want.float()
+    over = (got.float() - want).abs() - 2 ** -7 * (want.abs() + want_on_abs_v.float())
+    assert over.max().item() <= 0, f"exceeds the bf16 limit by {over.max().item()}"
+
+
 @pytest.mark.parametrize("h,l,d", [(3, 200, 32), (2, 300, 16), (16, 1374, 64),
                                    (12, 1090, 64), (1, 17, 64)])
 def test_kernel_matches_plain_f32(dev, h, l, d):
@@ -48,9 +62,7 @@ def test_kernel_matches_plain_bf16(dev, h, l):
     q, k, v = _qkv(h, l, 64, torch.bfloat16, dev)
     out, tap = fa.attention_with_tap(q, k, v)
     want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
-    assert out.dtype == torch.bfloat16
-    # out: one bf16 rounding of values |x| < 4 (2^-7 relative) can differ
-    torch.testing.assert_close(out.float(), want_out.float(), atol=3e-2, rtol=0)
+    _assert_bf16_attention(out, want_out, fa.attention_with_tap_plain(q, k, v.abs())[0])
     torch.testing.assert_close(tap, want_tap, atol=1e-5, rtol=0)
 
 
@@ -99,8 +111,8 @@ def test_grid_attention_matches_plain_bf16(dev):
     args = _grid_inputs(16, 64, 64, 80, torch.bfloat16, dev)
     out = sa.grid_attention(*args, (64, 64))
     want = sa.grid_attention_plain(*args, (64, 64))
-    assert out.dtype == torch.bfloat16
-    torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=0)
+    _assert_bf16_attention(out, want, sa.grid_attention_plain(*args[:2], args[2].abs(), *args[3:],
+                                                               (64, 64)))
 
 
 def _auction_instance(seed, t, n):
@@ -194,3 +206,87 @@ def test_4bit_matmul_rejects_what_it_does_not_take(dev):
         im.matmul_nf4(x.half(), packed, scale)
     with pytest.raises(TypeError):
         im.matmul_nf4(x, packed, scale.bfloat16())
+
+
+def _bhld(b, h, l, d, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, h, l, d).astype(np.float32)).to(dev, dtype)
+            for _ in range(3)]
+
+
+# (B, H, L, D): DINOv2-L and CLIP-B at B = 1, an AlphaCLIP-L chunk, ragged
+# tiles, the widest head dim and a single key
+@pytest.mark.parametrize("b,h,l,d", [(1, 16, 1374, 64), (1, 12, 1090, 64), (16, 16, 577, 64),
+                                     (2, 3, 200, 32), (1, 2, 17, 128), (3, 1, 1, 8)])
+def test_notap_matches_plain_f32(dev, b, h, l, d):
+    q, k, v = _bhld(b, h, l, d, torch.float32, dev)
+    before = fa.attention_notap.launches
+    out = fa.attention_notap(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.attention_notap.launches == before + 1
+    want = fa.attention_notap_plain(q, k, v)
+    assert out.dtype == torch.float32 and out.shape == (b, h, l, d)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,l", [(1, 16, 1374), (16, 16, 577)])
+def test_notap_matches_plain_bf16(dev, b, h, l):
+    q, k, v = _bhld(b, h, l, 64, torch.bfloat16, dev)
+    out = fa.attention_notap(q, k, v)
+    want = fa.attention_notap_plain(q, k, v)
+    _assert_bf16_attention(out, want, fa.attention_notap_plain(q, k, v.abs()))
+
+
+def test_notap_is_deterministic_and_rejects(dev):
+    q, k, v = _bhld(2, 4, 300, 64, torch.float32, dev, seed=3)
+    assert torch.equal(fa.attention_notap(q, k, v), fa.attention_notap(q, k, v))
+    with pytest.raises(ValueError):
+        fa.attention_notap(*_bhld(1, 2, 64, 160, torch.float32, dev))
+    with pytest.raises(TypeError):
+        fa.attention_notap(*_bhld(1, 2, 64, 64, torch.float16, dev))
+    with pytest.raises(ValueError):
+        fa.attention_notap(q[0], k[0], v[0])
+
+
+def _window_inputs(b, nh, h, w, d, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    l = h * w
+    arrays = [rng.randn(b, nh, l, d), rng.randn(b, nh, l, d), rng.randn(b, nh, l, d),
+              rng.randn(b, nh, l, h), rng.randn(b, nh, l, w)]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrays]
+
+
+# (windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer, ViT-B's head
+# dim on a ragged window, a small one, and hd 128 (the 16-row query chunks)
+@pytest.mark.parametrize("b,nh,h,w,d", [(25, 16, 14, 14, 80), (2, 2, 5, 6, 64),
+                                        (3, 4, 7, 7, 24), (2, 2, 14, 14, 128)])
+def test_windowed_matches_plain_f32(dev, b, nh, h, w, d):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _window_inputs(b, nh, h, w, d, torch.float32, dev)
+    before = sa.windowed_attention.launches
+    out = sa.windowed_attention(*args, (h, w))
+    torch.cuda.synchronize()
+    assert sa.windowed_attention.launches == before + 1
+    want = sa.windowed_attention_plain(*args, (h, w))
+    assert out.dtype == torch.float32 and out.shape == (b, nh, h * w, d)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+
+
+def test_windowed_matches_plain_bf16(dev):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _window_inputs(25, 16, 14, 14, 80, torch.bfloat16, dev)
+    out = sa.windowed_attention(*args, (14, 14))
+    want = sa.windowed_attention_plain(*args, (14, 14))
+    _assert_bf16_attention(out, want, sa.windowed_attention_plain(
+        *args[:2], args[2].abs(), *args[3:], (14, 14)))
+
+
+def test_windowed_refuses_a_window_that_does_not_fit(dev):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    with pytest.raises(RuntimeError):
+        sa.windowed_attention(*_window_inputs(1, 1, 32, 32, 128, torch.float32, dev), (32, 32))
+    with pytest.raises(ValueError):
+        sa.windowed_attention(*_window_inputs(1, 1, 4, 4, 8, torch.float32, dev), (2, 8))

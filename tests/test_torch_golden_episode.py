@@ -1,5 +1,6 @@
 """The port's Mars.predict on the golden episode, against the fixture and
-against mars_tpu's Mars on the same weights."""
+against mars_tpu's Mars on the same weights, in float32 and with bf16
+towers."""
 import os
 
 import jax
@@ -10,9 +11,11 @@ import torch
 
 from mars_tpu.core.episode import Episode as JEpisode, pad_proposals as jpad
 from mars_tpu.models import clip as jclip, convert as jconvert, dinov2 as jdino
+from mars_tpu.models.precision import cast_floating as jcast
 from mars_tpu.pipeline import filtering as jfilt, mars as jmars, vta as jvta, vva as jvva
 from mars_tpu_torch.core.episode import Episode, pad_proposals
 from mars_tpu_torch.models import clip as tclip, convert as tconvert, dinov2 as tdino
+from mars_tpu_torch.models.precision import cast_floating as tcast
 from mars_tpu_torch.pipeline import filtering as tfilt, mars as tmars, vta as tvta, vva as tvva
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -35,8 +38,10 @@ def _sub(sd, prefix):
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
-@pytest.fixture(scope="module")
-def golden():
+def _episode(bf16: bool):
+    """Both packages' Mars on the fixture's weights; ``bf16`` casts the DINOv2
+    and both visual towers on each side with its own ``cast_floating``, as
+    the CLIs' ``--bf16`` does."""
     data = np.load(os.path.join(FIXTURES, "golden_episode_tiny.npz"))
     sd = {k[3:]: data[k] for k in data.files if k.startswith("sd.")}
     d = {k: data[k] for k in data.files if not k.startswith("sd.")}
@@ -48,6 +53,10 @@ def golden():
         ac_v=jconvert.alpha_clip_visual_to_flax(ac_sd, depth=2),
         ac_t=jconvert.clip_text_to_flax(ac_sd, depth=2),
     )
+    t = {k: tconvert.from_jax_params(jax.tree.map(np.asarray, v)) for k, v in trees.items()}
+    if bf16:
+        for k in ("dino", "clip_v", "ac_v"):
+            trees[k], t[k] = jcast(trees[k]), tcast(t[k])
     scales = (np.float32(clip_sd["logit_scale"]), np.float32(ac_sd["logit_scale"]))
     sup = d["support_images"][0].transpose(0, 2, 3, 1)
     qry = d["query_image"][0].transpose(1, 2, 0)
@@ -72,7 +81,6 @@ def golden():
     j_debug = dict(zip(("merged", "scores", "vva_prior", "vta_prior", "ac_scores"),
                        map(np.asarray, jm._fused_debug()(*args))))
 
-    t = {k: tconvert.from_jax_params(jax.tree.map(np.asarray, v)) for k, v in trees.items()}
     tm = tmars.Mars(
         (t["dino"], tdino.DinoV2Config(**DINO)),
         (t["clip_v"], t["clip_t"], torch.tensor(scales[0]),
@@ -87,6 +95,11 @@ def golden():
                   torch.from_numpy(np.ascontiguousarray(qry)), -1)
     tprops = pad_proposals(torch.from_numpy(d["proposals"]), BUCKET)
     return d, j_merged, np.asarray(j_scores), j_debug, tm, tep, tprops, jm, jep
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return _episode(bf16=False)
 
 
 def test_merged_mask_bit_exact(golden):
@@ -121,3 +134,41 @@ def test_empty_bucket_matches_jax(golden):
                            valid=torch.zeros((3,), dtype=torch.bool))
     got = tm.predict(tep, tprops, class_name="dog", class_description=DESC).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# bf16 towers: the final score is the mean of four terms, two of them
+# min-max scaled over the 6 live proposals.  The tiny AlphaCLIP's cosines
+# span ~0.01 and the two packages' bf16 roundings move each by up to ~1e-3,
+# which the scaling magnifies to ~0.3 of its term: ≤ 0.1 in the final score.
+BF16_SCORE_TOL = 0.1
+
+
+def _kept(scores, valid, cfg):
+    top = scores[valid].max()
+    thr = cfg["dynamic_threshold"] * top if top < cfg["static_threshold"] else cfg["static_threshold"]
+    return valid & (scores >= thr), thr
+
+
+def test_bf16_merged_mask_matches_jax():
+    """With bf16 towers on both sides: every stage output has JAX's dtype,
+    the final scores agree within BF16_SCORE_TOL, and the merged masks are
+    equal, or differ only by proposals whose keep/drop decision flipped
+    with a score within BF16_SCORE_TOL of its threshold (rounding, not a
+    fault)."""
+    _, j_merged, j_scores, j_debug, tm, tep, tprops, _, _ = _episode(bf16=True)
+    out = tm.predict_debug(tep, tprops, class_name="dog", class_description=DESC)
+    for key in ("merged", "scores", "vva_prior", "vta_prior", "ac_scores"):
+        assert out[key].dtype == j_debug[key].dtype, key
+    np.testing.assert_array_equal(j_merged, j_debug["merged"])
+    valid = tprops.valid.numpy()
+    np.testing.assert_allclose(out["scores"][valid], j_scores[valid], atol=BF16_SCORE_TOL, rtol=0)
+    if np.array_equal(out["merged"], j_debug["merged"]):
+        return
+    masks = tprops.masks.numpy() > 0
+    keep_t, thr_t = _kept(out["scores"], valid, FM)
+    keep_j, thr_j = _kept(j_scores, valid, FM)
+    for keep, merged in ((keep_t, out["merged"]), (keep_j, j_debug["merged"])):
+        np.testing.assert_array_equal(merged > 0, masks[keep].any(axis=0))
+    for i in np.flatnonzero(keep_t != keep_j):
+        assert abs(out["scores"][i] - thr_t) <= BF16_SCORE_TOL, (i, out["scores"][i], thr_t)
+        assert abs(j_scores[i] - thr_j) <= BF16_SCORE_TOL, (i, j_scores[i], thr_j)

@@ -263,4 +263,5 @@ def test_cli_generate_proposals_on_cpu(monkeypatch, capsys):
     assert res["masks_binary"] and len(res["proposal_ms"]) == 1
     assert 0 <= res["live_proposals"][0] <= 16
     # CPU tensors take the plain versions: no kernel launches
-    assert res["launches"] == {"attention_with_tap": 0, "grid_attention": 0, "auction": 0}
+    assert res["launches"] == {"attention_with_tap": 0, "attention_notap": 0,
+                               "grid_attention": 0, "windowed_attention": 0, "auction": 0}

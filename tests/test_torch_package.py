@@ -85,3 +85,12 @@ def test_tokenizer_and_meter_copies_match():
         for m, ev in ((jm, jeval), (tm, teval)):
             m.update(*ev.classify_prediction(pred, gt), cls)
     assert tm.compute_iou()[:2] == jm.compute_iou()[:2]
+
+
+def test_cli_proposals_default_device_raises_without_cuda(monkeypatch, tmp_path):
+    from mars_tpu_torch import cli_proposals
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_proposals.main(["--episodes", "1", "--out", str(tmp_path)])
+    assert not os.listdir(tmp_path)

@@ -65,7 +65,7 @@ def test_global_layer_matches_jax():
     finally:
         jL.set_attention_impl("auto")
     tp = tconvert.from_jax_params(p)
-    got = tsam._grid_attention(tp, torch.from_numpy(x), nh, allow_kernel=True)
+    got = tsam._grid_attention(tp, torch.from_numpy(x), nh, route="global")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)
     plain = tsam._grid_attention(tp, torch.from_numpy(x), nh)
     np.testing.assert_allclose(plain.numpy(), np.asarray(want), atol=2e-4, rtol=0)
