@@ -5,10 +5,13 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit) and the kernel build (one
-     nvcc per source, all started together);
+     nvcc per source, all started together): ptxas' registers and spill
+     stores, and each library's tensor-core instructions in its SASS
+     (``cuobjdump -sass``: HGMMA for wgmma, HMMA for mma.sync); fails if a
+     bfloat16 tap or 4-bit GEMM kernel has none, or if either library spills;
   2. ``attention_with_tap`` against its plain version at the ranking path's
-     shapes, in float32 and bfloat16, timed with CUDA events beside its
-     bound and a PyTorch yardstick;
+     shapes, in float32 and bfloat16, rerun for bitwise equality, timed with
+     CUDA events beside its bound and a PyTorch yardstick;
   3. ``grid_attention`` the same way at SAM ViT-H's global-layer shape and
      a ragged grid;
   4. ``auction`` against its plain version, bit-exact, on the five test
@@ -31,7 +34,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      torch.profiler: device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
      7B's shapes (decode rows 1 and 4, prefill rows ~2330) and a ragged
-     one, in bfloat16, beside their bound and cuBLAS on the dense weight;
+     one, in bfloat16, rerun for bitwise equality, beside their bound and
+     cuBLAS on the dense weight;
  12. the text path at full width: ViP-LLaVA-7B (seeded random weights,
      hybrid int4, then NF4) answering one BlockTextStage-shaped block
      through ``TorchVipLlava.generate_batch`` (4 name rows, then 4
@@ -172,17 +176,65 @@ def _agreement(got, want, f32_tol, plain_on_abs_v):
             "err_over_tol": (diff / limit).max().item()}
 
 
+def _spill_stores(log_lines):
+    """{kernel: spill-store bytes} from one library's ptxas report."""
+    import re
+
+    out, fn = {}, None
+    for ln in log_lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        fn = m.group(1) if m else fn
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and fn:
+            out[fn] = int(m.group(1))
+    return out
+
+
+def _tensor_core_sass(path):
+    """{kernel: {"HGMMA": n, "HMMA": n}} for the kernels of one library
+    whose SASS (``cuobjdump -sass``) holds tensor-core instructions."""
+    import re
+
+    from mars_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        fn = m.group(1) if m else fn
+        for op in ("HGMMA", "HMMA"):
+            if fn and re.search(rf"\b{op}\.", ln):
+                out.setdefault(fn, {"HGMMA": 0, "HMMA": 0})[op] += 1
+    return out
+
+
+# the tensor-core kernels (bfloat16): each must hold HGMMA or HMMA in its SASS
+TENSOR_CORE_KERNELS = {"attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
+                       "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1")}
+
+
 def phase_build(state):
     from mars_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     built = build.build_all()
-    ptxas = {}
+    ptxas, spills, sass = {}, {}, {}
     for name in build.SOURCES:
         with open(build.library_path(name)[:-3] + ".log") as f:
-            ptxas[name] = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+            log = f.readlines()
+        ptxas[name] = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
+        spills[name] = {fn: n for fn, n in _spill_stores(log).items() if n}
+        sass[name] = _tensor_core_sass(build.library_path(name))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(built),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "spill_stores": spills, "tensor_core_sass": sass})
+    missing = [k for lib, kernels in TENSOR_CORE_KERNELS.items() for k in kernels
+               if not any(k in fn and sum(c.values()) for fn, c in sass[lib].items())]
+    spilled = {lib: spills[lib] for lib in TENSOR_CORE_KERNELS if spills[lib]}
+    if missing or spilled:
+        raise AssertionError(f"tensor-core kernels without HGMMA/HMMA: {missing}; "
+                             f"spill stores: {spilled}")
 
 
 def phase_kernels(state):
@@ -199,8 +251,10 @@ def phase_kernels(state):
             q, k, v = (torch.randn((h, l, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             out, tap = fa.attention_with_tap(q, k, v)
+            out2, tap2 = fa.attention_with_tap(q, k, v)
             want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
             torch.cuda.synchronize()
+            rerun_equal = bool(torch.equal(out, out2) and torch.equal(tap, tap2))
             agree = _agreement(out, want_out, TAP_TOL,
                                lambda: fa.attention_with_tap_plain(q, k, v.abs())[0])
             err_tap = (tap - want_tap).abs().max().item()
@@ -213,7 +267,7 @@ def phase_kernels(state):
                    "shape": [h, l, d], "dtype": dt, "max_abs_err_out": agree["max_abs_err"],
                    "max_abs_err_tap": err_tap, "max_abs_err_tap_rowsum": err_rows,
                    "tol": {"out": agree["tol"], "tap": TAP_TOL},
-                   "out_err_over_tol": agree["err_over_tol"],
+                   "out_err_over_tol": agree["err_over_tol"], "rerun_equal": rerun_equal,
                    "ms": cuda_ms(lambda: fa.attention_with_tap(q, k, v)),
                    "plain_ms": cuda_ms(lambda: fa.attention_with_tap_plain(q, k, v)),
                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -225,7 +279,7 @@ def phase_kernels(state):
             emit(row)
             rows.append(row)
             if (agree["err_over_tol"] > 1 or err_tap > TAP_TOL or err_rows > TAP_TOL
-                    or not torch.isfinite(out.float()).all()):
+                    or not rerun_equal or not torch.isfinite(out.float()).all()):
                 raise AssertionError(f"attention_with_tap disagrees with its plain version: {row}")
     state["kernel_rows"] = rows
 
@@ -981,6 +1035,7 @@ def phase_4bit_kernels(state):
             for m in QUANT_ROWS:
                 x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
                 got, want = fn(x, packed, scale), plain(x, packed, scale)
+                rerun_equal = bool(torch.equal(got, fn(x, packed, scale)))
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 tol = QUANT_REL_TOL * want.float().abs().max().item()
@@ -989,6 +1044,7 @@ def phase_4bit_kernels(state):
                 row = {"phase": "kernel", "kernel": f"matmul_{fmt}", "geometry": name,
                        "shape": [m, din, dout], "dtype": "bfloat16", "max_abs_err": err,
                        "tol": tol, "finite": bool(torch.isfinite(got.float()).all()),
+                       "rerun_equal": rerun_equal,
                        "ms": cuda_ms(lambda: fn(x, packed, scale)),
                        "plain_ms": cuda_ms(lambda: plain(x, packed, scale), iters=5),
                        "library_ms": cuda_ms(lambda: x @ dense),
@@ -997,7 +1053,7 @@ def phase_4bit_kernels(state):
                        "bound_ms": bound, "bound_by": by}
                 emit(row)
                 rows.append(row)
-                if err > tol or not row["finite"]:
+                if err > tol or not row["finite"] or not rerun_equal:
                     raise AssertionError(f"matmul_{fmt} disagrees with its plain version: {row}")
             del dense
     state["quant_rows"] = rows

@@ -22,21 +22,38 @@
 // prefill (M ~ 2330) the same kernel is 210 GFLOP against ~45 MB of inputs
 // and outputs: the operations bound it.
 //
-// Design.  Two kernels behind one entry point, picked by M.
+// Design.  Three kernels behind one entry point, picked by M and x's type.
 //   gemv_kernel (M <= 8): a CTA owns 32 output columns; its 8 column threads
 //     each read one 32-bit word (4 columns) of a packed row, so a warp reads
 //     whole 32-byte sectors, and 32 groups of them split the packed rows.
 //     Every thread keeps 8 x 4 float32 sums in registers; the 32 partial
 //     sums of each output are added in a fixed order through shared memory,
-//     so reruns are bitwise equal.
-//   gemm_kernel (M > 8): a 64 x 128 output tile per CTA, K in steps of 32;
-//     the x tile and the unpacked weight tile are staged in shared memory as
-//     float32 and each of 256 threads accumulates a 4 x 8 block with FMAs.
-// Both unpack in registers; the NF4 codebook sits in shared memory.  These
-// run on the CUDA cores: wgmma, TMA and split-K are work for a later change.
+//     so reruns are bitwise equal.  Unpacks in registers.
+//   gemm_bf16_kernel (M > 8, bfloat16 x): the tensor cores.  A 128 x 128
+//     output tile per CTA, K in steps of 64, two warpgroups of 64 rows.  The
+//     x tile (bf16) arrives by cp.async, double-buffered; each thread loads
+//     four 32-bit words of packed bytes (4 columns x 8 input rows) a step
+//     ahead, and the CTA dequantizes the step's 64 x 128 weights ONCE into a
+//     bf16 B tile in shared memory (K-major: a column's 8 input rows are one
+//     16-byte store, swizzled for wgmma), so both warpgroups' 128 rows use
+//     each dequantized tile.  NF4 reads the codebook from shared memory and
+//     one block-scale row per step (64 input rows = one NF4 block); int4's
+//     -8..7 are exact in bf16.  Each warpgroup issues wgmma m64n128k16 from
+//     shared memory with float32 accumulators, and dequantizes the next step
+//     while the tensor cores run.  int4's scale multiplies after the sum
+//     (__fmul_rn), then one rounding to bf16.  No split-K: reruns are
+//     bitwise equal.
+//   gemm_kernel (M > 8, float32 x): a 64 x 128 output tile per CTA, K in
+//     steps of 32; the x tile and the unpacked weight tile are staged in
+//     shared memory as float32 and each of 256 threads accumulates a 4 x 8
+//     block with FMAs (no float32 4-bit matmul is on any path).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -146,17 +163,17 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
-// ---------------------------------------------------------------- GEMM
+// ------------------------------------------------------- float32 GEMM
 constexpr int BM = 64, BN = 128, BK = 32;
 constexpr int TM = 4, TN = 8;  // per thread: rows 4ty.., columns 4tx.. and 64 + 4tx..
 constexpr int GT = 256;
 constexpr int AS_LD = BM + 4;  // keeps float4 rows aligned, spreads the transposed stores
 
-template <int FMT, typename T>
+template <int FMT>
 __global__ void __launch_bounds__(GT)
-gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
+gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
             const float* __restrict__ scale, const float* __restrict__ code_g,
-            T* __restrict__ out, int M, int IN, int OUT) {
+            float* __restrict__ out, int M, int IN, int OUT) {
   __shared__ float code[16];
   __shared__ __align__(16) float As[BK][AS_LD];  // x tile, transposed
   __shared__ __align__(16) float Bs[BK][BN];     // unpacked weights
@@ -177,7 +194,7 @@ gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
     for (int j = 0; j < BM * BK / GT; ++j) {
       const int idx = threadIdx.x + GT * j, r = idx / BK, kk = idx % BK;
       const int m = m0 + r, k = k0 + kk;
-      As[kk][r] = (m < M && k < IN) ? to_f32(x[(size_t)m * IN + k]) : 0.f;
+      As[kk][r] = (m < M && k < IN) ? x[(size_t)m * IN + k] : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < (BK / 2) * BN / GT; ++j) {
@@ -186,7 +203,7 @@ gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
       float w0 = 0.f, w1 = 0.f;
       if (r < rows && col < OUT) {
         const float s = FMT == FMT_NF4 ? __ldg(scale + (size_t)(r / 32) * OUT + col) : 0.f;
-        unpack<FMT, T>(__ldg(packed + (size_t)r * OUT + col), s, code, w0, w1);
+        unpack<FMT, float>(__ldg(packed + (size_t)r * OUT + col), s, code, w0, w1);
       }
       Bs[2 * pr][c] = w0;
       Bs[2 * pr + 1][c] = w1;
@@ -216,7 +233,159 @@ gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
       if (col >= OUT) continue;
       float v = acc[i][j];
       if (FMT == FMT_INT4) v = __fmul_rn(v, scale[col]);
-      out[(size_t)m * OUT + col] = from_f32<T>(v);
+      out[(size_t)m * OUT + col] = v;
+    }
+  }
+}
+
+// ------------------------------------------------------- bf16 GEMM (wgmma)
+constexpr int WM = 128, WN = 128, WK = 64;  // CTA tile and K step
+constexpr int W_THREADS = 256;              // two warpgroups, 64 rows each
+constexpr uint32_t W_TILE = 128 * 128;      // bytes of one 128 x 64 bf16 SW128 tile
+constexpr size_t W_SMEM = 4 * W_TILE + 1024;  // 2 x (x tile, B tile), alignment slack
+
+template <int FMT>
+__global__ void __launch_bounds__(W_THREADS, 2)  // two CTAs an SM: one dequantizes, one multiplies
+gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                 const float* __restrict__ scale, const float* __restrict__ code_g,
+                 __nv_bfloat16* __restrict__ out, int M, int IN, int OUT, int xvec, int wvec) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float code[16];
+  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  // x tile buffers 0 and 1, then B tile buffers 0 and 1
+  auto at = [&](int i) { return base + W_TILE * (i & 1); };
+  auto bt = [&](int i) { return base + W_TILE * (2 + (i & 1)); };
+  const int tid = threadIdx.x;
+  if (tid < 16) code[tid] = FMT == FMT_NF4 ? code_g[tid] : 0.f;
+  const int m0 = blockIdx.y * WM, n0 = blockIdx.x * WN;
+  const int rows = IN / 2, steps = (IN + WK - 1) / WK;
+  // dequantizing role: packed rows 4rg..4rg+3 of a step (its input rows
+  // 8rg..8rg+7, chunk rg of a B-tile row), columns 4cg..4cg+3 of the tile
+  const int rg = tid & 7, cg = tid >> 3, col0 = n0 + 4 * cg;
+  uint32_t word[4];
+  float bs[4];
+
+  // x rows [m0, m0 + 128), inputs [64 step, + 64) -> SW128 tile (zeros past M, IN)
+  auto load_x = [&](int step, uint32_t tile) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + W_THREADS * i, r = idx >> 3, c = idx & 7;
+      const int m = m0 + r, kx = step * WK + 8 * c;
+      const uint32_t dst = tile + sm90::sw128(r, c);
+      if (xvec) {
+        const bool live = m < M && kx < IN;
+        sm90::cp_async16(dst, live ? x + (size_t)m * IN + kx : x, live ? 16 : 0);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = kx + 2 * e;
+          const float a = m < M && k < IN ? __bfloat162float(x[(size_t)m * IN + k]) : 0.f;
+          const float b = m < M && k + 1 < IN ? __bfloat162float(x[(size_t)m * IN + k + 1]) : 0.f;
+          w[e] = sm90::pack_bf16(a, b);
+        }
+        sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
+      }
+    }
+  };
+  // this thread's packed words of a step (and its NF4 block-scale row)
+  auto load_w = [&](int step) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pr = step * (WK / 2) + 4 * rg + i;
+      uint32_t w = 0;
+      if (pr < rows) {
+        const uint8_t* p = packed + (size_t)pr * OUT + col0;
+        if (wvec) {
+          if (col0 < OUT) w = __ldg(reinterpret_cast<const uint32_t*>(p));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col0 + e < OUT) w |= (uint32_t)__ldg(p + e) << (8 * e);
+        }
+      }
+      word[i] = w;
+    }
+    if (FMT == FMT_NF4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bs[j] = col0 + j < OUT ? __ldg(scale + (size_t)step * OUT + col0 + j) : 0.f;
+    }
+  };
+  // the words -> bf16 weights of 4 B-tile rows (columns), one 16-byte chunk each
+  auto dequant = [&](uint32_t tile) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t b = (word[i] >> (8 * j)) & 0xFF;
+        if (FMT == FMT_INT4) {
+          v[i] = sm90::pack_bf16((float)((int)(b & 0xF) - 8), (float)((int)(signed char)b >> 4));
+        } else {
+          v[i] = sm90::pack_bf16(__fmul_rn(code[b & 0xF], bs[j]), __fmul_rn(code[b >> 4], bs[j]));
+        }
+      }
+      sm90::st_shared16(tile + sm90::sw128(4 * cg + j, rg), v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const uint32_t a_off = (tid >> 7) * 64 * 128;  // this warpgroup's 64 rows of the x tile
+  load_x(0, at(0));
+  sm90::cp_async_commit();
+  load_w(0);
+  __syncthreads();  // the codebook
+  dequant(bt(0));
+  if (steps > 1) {
+    load_x(1, at(1));
+    sm90::cp_async_commit();
+    load_w(1);
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < steps) sm90::cp_async_wait<1>();
+    else sm90::cp_async_wait<0>();
+    sm90::fence_async_smem();
+    __syncthreads();  // x tile s landed, B tile s written
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk)
+      sm90::wgmma_m64n128_ss(acc, sm90::desc_sw128(at(buf) + a_off + 32 * kk),
+                             sm90::desc_sw128(bt(buf) + 32 * kk), 1);
+    sm90::wgmma_commit();
+    if (s + 1 < steps) {  // while the tensor cores run: B tile s + 1, words of s + 2
+      dequant(bt(buf ^ 1));
+      if (s + 2 < steps) load_w(s + 2);
+    }
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(acc);
+    __syncthreads();  // both warpgroups are done with x and B buffers buf
+    if (s + 2 < steps) {
+      load_x(s + 2, at(buf));
+      sm90::cp_async_commit();
+    }
+  }
+
+  const int lane = tid & 31;
+  const int row0 = m0 + 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = row0 + 8 * ((i / 2) & 1), col = n0 + 8 * (i / 4) + 2 * (lane & 3);
+    if (row >= M) continue;
+    float v0 = acc[i], v1 = acc[i + 1];
+    if (FMT == FMT_INT4) {
+      v0 = col < OUT ? __fmul_rn(v0, scale[col]) : 0.f;
+      v1 = col + 1 < OUT ? __fmul_rn(v1, scale[col + 1]) : 0.f;
+    }
+    __nv_bfloat16* o = out + (size_t)row * OUT + col;
+    if (OUT % 2 == 0) {
+      if (col < OUT) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      if (col < OUT) o[0] = __float2bfloat16(v0);
+      if (col + 1 < OUT) o[1] = __float2bfloat16(v1);
     }
   }
 }
@@ -231,12 +400,23 @@ int launch(const void* x, const void* packed, const void* scale, const void* cod
     gemv_kernel<FMT, T><<<(OUT + GV_BN - 1) / GV_BN, GV_THREADS, 0, st>>>(
         (const T*)x, (const uint8_t*)packed, (const float*)scale, (const float*)code, (T*)out,
         M, IN, OUT);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const dim3 grid((OUT + WN - 1) / WN, (M + WM - 1) / WM);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_bf16_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int xvec = IN % 8 == 0 && ((uintptr_t)x & 15) == 0;
+    const int wvec = OUT % 4 == 0 && ((uintptr_t)packed & 3) == 0;
+    gemm_bf16_kernel<FMT><<<grid, W_THREADS, W_SMEM, st>>>(
+        (const __nv_bfloat16*)x, (const uint8_t*)packed, (const float*)scale,
+        (const float*)code, (__nv_bfloat16*)out, M, IN, OUT, xvec, wvec);
   } else {
     const dim3 grid((OUT + BN - 1) / BN, (M + BM - 1) / BM);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    gemm_kernel<FMT, T><<<grid, GT, 0, st>>>(
-        (const T*)x, (const uint8_t*)packed, (const float*)scale, (const float*)code, (T*)out,
-        M, IN, OUT);
+    gemm_kernel<FMT><<<grid, GT, 0, st>>>((const float*)x, (const uint8_t*)packed,
+                                          (const float*)scale, (const float*)code, (float*)out,
+                                          M, IN, OUT);
   }
   return (int)cudaGetLastError();
 }

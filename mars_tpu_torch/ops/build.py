@@ -2,9 +2,10 @@
 
 Each source is compiled at first use with ``nvcc`` into a shared library
 with a plain C interface (loaded through ``ctypes``), for ``sm_90a``.  The
-library name carries a hash of the source and flags, so an edited source is
-rebuilt.  Builds land in ``mars_tpu_torch/_build/`` (listed in
-``.gitignore``); ``build_all`` starts one ``nvcc`` per source, all at once.
+library name carries a hash of the source, the shared headers (``*.cuh``)
+and the flags, so an edited source or header is rebuilt.  Builds land in
+``mars_tpu_torch/_build/`` (listed in ``.gitignore``); ``build_all`` starts
+one ``nvcc`` per source, all at once.
 Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -38,8 +39,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

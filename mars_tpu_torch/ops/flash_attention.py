@@ -3,11 +3,16 @@
 ``attention_notap``, ``mha_pallas_notap``).
 
 PIR consumes the mean over heads (and later blocks) of the softmax
-attention probabilities.  ``attention_with_tap`` returns it from the same
-pass that computes the attention output, so per-head probabilities never
-reach device memory.  On a CUDA tensor it launches the hand-written Hopper
-kernel ``csrc/attention_tap.cu`` (which replaces the Pallas TPU kernel; its
-source note says what bounds it and how it is laid out) or raises; on a CPU
+attention probabilities.  ``attention_with_tap`` returns it without
+per-head probabilities ever reaching device memory.  On a CUDA tensor it
+runs the hand-written Hopper kernels of ``csrc/attention_tap.cu`` (which
+replace the Pallas TPU kernel; the source note says what bounds them and
+how they are laid out), two launches per call: ``tap_out`` (grid query
+tiles × heads) writes the output and each row's log-sum-exp into a float32
+(H, L) scratch, ``tap_mean`` (grid query tiles × key tiles) recomputes the
+logits head by head and writes the tap once.  bfloat16 runs on the tensor
+cores (wgmma), float32 on the CUDA cores.  Its counter
+``attention_with_tap.launches`` counts calls, one per call.  On a CPU
 tensor it takes ``attention_with_tap_plain``, the plain PyTorch version the
 CPU tests hold against the JAX package.
 
@@ -30,9 +35,9 @@ import torch
 
 from mars_tpu_torch.ops import build
 
-MAX_HEAD_DIM = 64  # csrc/attention_tap.cu DMAX
+MAX_HEAD_DIM = 64  # csrc/attention_tap.cu DMAX (both types)
 NOTAP_MAX_HEAD_DIM = 128  # csrc/attention_notap.cu DMAX
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 _NOTAP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -61,7 +66,8 @@ def attention_with_tap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     attn_mean (L, L) float32).
 
     out = softmax(q kᵀ / √D) v per head; attn_mean = head-mean probs.
-    ``attention_with_tap.launches`` counts the kernel's launches.
+    On a CUDA tensor: two kernel launches (output and log-sum-exp, then the
+    tap); ``attention_with_tap.launches`` counts calls, one per call.
     """
     if not q.is_cuda:
         return attention_with_tap_plain(q, k, v)
@@ -80,8 +86,9 @@ def attention_with_tap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     fn = lib.mars_attention_tap_f32 if q.dtype == torch.float32 else lib.mars_attention_tap_bf16
     out = torch.empty_like(q)
     tap = torch.empty((l, l), dtype=torch.float32, device=q.device)
+    lse = torch.empty((h, l), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), tap.data_ptr(),
-             h, l, d, d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+             lse.data_ptr(), h, l, d, d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_tap kernel launch failed with CUDA error {err}")
     attention_with_tap.launches += 1

@@ -13,7 +13,11 @@ Two formats, both two nibbles per byte along the INPUT dimension of an
     block, folded in BEFORE the product, the weight rounded to x's type.
 
 On a CUDA tensor ``matmul_int4`` / ``matmul_nf4`` launch the hand-written
-Hopper kernels of ``csrc/int4_matmul.cu`` or raise; on a CPU tensor they
+Hopper kernels of ``csrc/int4_matmul.cu`` or raise, one launch per call:
+for M ≤ 8 rows (decode) a GEMV on the CUDA cores; for M > 8 (prefill) with
+bfloat16 x a tensor-core GEMM (the weights dequantized once per CTA and K
+step into a bf16 tile in shared memory, wgmma); for M > 8 with float32 x
+the SIMT GEMM on the CUDA cores.  On a CPU tensor they
 take ``matmul_int4_plain`` / ``matmul_nf4_plain``, which follow the JAX
 package's non-TPU branch of ``quantized_dense``: the weight unpacked to x's
 type, products and sums in float32, the result cast to x's type.

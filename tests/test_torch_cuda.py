@@ -42,8 +42,13 @@ def _assert_bf16_attention(got, want, want_on_abs_v):
     assert over.max().item() <= 0, f"exceeds the bf16 limit by {over.max().item()}"
 
 
-@pytest.mark.parametrize("h,l,d", [(3, 200, 32), (2, 300, 16), (16, 1374, 64),
-                                   (12, 1090, 64), (1, 17, 64)])
+# the path's geometries, L that fill no 64-row tile exactly, d in {16, 32, 64}
+# and a single head
+TAP_SHAPES = [(3, 200, 32), (2, 300, 16), (16, 1374, 64), (12, 1090, 64), (1, 17, 64),
+              (2, 65, 64), (3, 129, 32), (1, 200, 16), (4, 1374, 32)]
+
+
+@pytest.mark.parametrize("h,l,d", TAP_SHAPES)
 def test_kernel_matches_plain_f32(dev, h, l, d):
     q, k, v = _qkv(h, l, d, torch.float32, dev)
     before = fa.attention_with_tap.launches
@@ -57,17 +62,26 @@ def test_kernel_matches_plain_f32(dev, h, l, d):
     torch.testing.assert_close(tap.sum(-1), torch.ones(l, device=dev), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("h,l", [(16, 1374), (12, 1090)])
-def test_kernel_matches_plain_bf16(dev, h, l):
-    q, k, v = _qkv(h, l, 64, torch.bfloat16, dev)
+@pytest.mark.parametrize("h,l,d", TAP_SHAPES + [(2, 64, 24), (2, 100, 20)])
+def test_kernel_matches_plain_bf16(dev, h, l, d):
+    """The tensor-core kernels.  d = 24 leaves half of the second K step of
+    16 empty; d = 20 takes the element-wise tile loads (a row of 20 bf16 is
+    no whole number of 16-byte chunks)."""
+    q, k, v = _qkv(h, l, d, torch.bfloat16, dev)
+    before = fa.attention_with_tap.launches
     out, tap = fa.attention_with_tap(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.attention_with_tap.launches == before + 1
     want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == (h, l, d) and tap.shape == (l, l)
     _assert_bf16_attention(out, want_out, fa.attention_with_tap_plain(q, k, v.abs())[0])
     torch.testing.assert_close(tap, want_tap, atol=1e-5, rtol=0)
+    torch.testing.assert_close(tap.sum(-1), torch.ones(l, device=dev), atol=1e-5, rtol=0)
 
 
-def test_kernel_is_deterministic(dev):
-    q, k, v = _qkv(16, 1374, 64, torch.float32, dev, seed=3)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(dev, dtype):
+    q, k, v = _qkv(16, 1374, 64, dtype, dev, seed=3)
     out1, tap1 = fa.attention_with_tap(q, k, v)
     out2, tap2 = fa.attention_with_tap(q, k, v)
     assert torch.equal(out1, out2) and torch.equal(tap1, tap2)
@@ -180,6 +194,10 @@ def test_4bit_matmul_matches_plain(dev, fmt, din, dout, m, dtype):
     """Float32: the kernel and the plain version differ in summation order
     only.  bfloat16: the output is rounded to bf16 once in each, so they
     may differ by one bf16 rounding of the largest output."""
+    _check_4bit(dev, fmt, din, dout, m, dtype)
+
+
+def _check_4bit(dev, fmt, din, dout, m, dtype):
     from mars_tpu_torch.ops import int4_matmul as im
 
     x, (packed, scale) = _quant_inputs(fmt, m, din, dout, dtype, dev)
@@ -194,6 +212,27 @@ def test_4bit_matmul_matches_plain(dev, fmt, din, dout, m, dtype):
     top = want.float().abs().max().item()
     rel = 1e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=rel, atol=rel * top)
+    return x, packed, scale, got
+
+
+# the tensor-core GEMM (bf16, M > 8): ragged OUT (199, 999), ragged int4 IN
+# (300: no 16-byte x chunks; 1984), an NF4 IN of 320 (five 64-row blocks);
+# chip_smoke.py holds the text path's shapes
+@pytest.mark.parametrize("fmt,din,dout", [("int4", 512, 199), ("int4", 300, 999),
+                                          ("int4", 1984, 384), ("nf4", 320, 199),
+                                          ("nf4", 512, 999)])
+@pytest.mark.parametrize("m", [9, 80, 300, 2330])
+def test_4bit_gemm_bf16_matches_plain(dev, fmt, din, dout, m):
+    _check_4bit(dev, fmt, din, dout, m, torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_gemm_bf16_is_deterministic(dev, fmt):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    x, packed, scale, got = _check_4bit(dev, fmt, 1024, 999, 300, torch.bfloat16)
+    fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
+    assert torch.equal(got, fn(x, packed, scale))
 
 
 def test_4bit_matmul_rejects_what_it_does_not_take(dev):
