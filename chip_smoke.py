@@ -8,7 +8,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      nvcc per source, all started together): ptxas' registers and spill
      stores, and each library's tensor-core instructions in its SASS
      (``cuobjdump -sass``: HGMMA for wgmma, HMMA for mma.sync); fails if a
-     bfloat16 tap or 4-bit GEMM kernel has none, or if either library spills;
+     bfloat16 attention or 4-bit GEMM kernel has none, or if one of their
+     libraries spills;
   2. ``attention_with_tap`` against its plain version at the ranking path's
      shapes, in float32 and bfloat16, rerun for bitwise equality, timed with
      CUDA events beside its bound and a PyTorch yardstick;
@@ -44,8 +45,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      first forward's logits, kernel path against plain path;
  13. one int4 text block under torch.profiler;
  14. ``attention_notap`` against its plain version at the untapped blocks'
-     shapes (AlphaCLIP-L chunk, DINOv2-L, CLIP-B), float32 and bfloat16,
-     beside its bound and F.scaled_dot_product_attention;
+     shapes (AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and at head dim 128,
+     float32 and bfloat16, rerun for bitwise equality, beside its bound and
+     F.scaled_dot_product_attention;
  15. ``windowed_attention`` the same way at SAM ViT-H's windowed layer
      (400 window-heads of 196 tokens) and a ragged window;
  16. the production bf16 evaluation with both kernel switches on
@@ -56,8 +58,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      launches checked exactly, each merged mask's IoU with the float32
      run's; then one zero-threshold Matcher call in bf16 and the ranking
      of its bucket;
- 17. one bf16 proposal-plus-ranking episode (switches on) under
-     torch.profiler;
+ 17. one bf16 proposal-plus-ranking episode under torch.profiler, with
+     both switches on, then with both off (the default route);
  18. the kernels line.
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 the repository, it exits non-zero and prints no result.  Imports nothing
@@ -87,6 +89,7 @@ ALPHACLIP_CHUNK = 16
 MATCHER_UNTAPPED = 2 * 24
 SAM_WINDOWED_LAYERS = 28  # ViT-H's other 28 blocks, behind MARS_SAM_WINDOWED_IMPL=pallas
 SWITCHES = {"MARS_ATTENTION_NOTAP_IMPL": "pallas", "MARS_SAM_WINDOWED_IMPL": "pallas"}
+SWITCHES_OFF = {name: "xla" for name in SWITCHES}  # the default route
 BF16_EPISODES = 2
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on CUDA cores, bf16 on
 # tensor cores, HBM3
@@ -98,9 +101,9 @@ TAP_TOL = 1e-5  # the tap (float32 in both types) and the float32 output
 GRID_GEOMETRIES = (("sam_vit_h_global", 16, 64, 64, 80), ("ragged_5x7", 2, 5, 7, 24))
 GRID_TOL = 2e-5
 # (name, B, H, L, D): an AlphaCLIP-L/14@336 chunk, DINOv2-L @518 and CLIP-B/16
-# @528 at B = 1
+# @528 at B = 1, and the widest head dim the kernel takes (two panels)
 NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518", 1, 16, 1374, 64),
-                    ("clip_b16_528", 1, 12, 1090, 64))
+                    ("clip_b16_528", 1, 12, 1090, 64), ("head_dim_128", 2, 8, 577, 128))
 NOTAP_TOL = 2e-5
 # (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer (64 x 64
 # grid padded to 70 x 70: 25 windows), a ragged window at ViT-B/L's head dim
@@ -210,9 +213,15 @@ def _tensor_core_sass(path):
     return out
 
 
-# the tensor-core kernels (bfloat16): each must hold HGMMA or HMMA in its SASS
-TENSOR_CORE_KERNELS = {"attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
-                       "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1")}
+# the tensor-core kernels (bfloat16): each must hold HGMMA or HMMA in its SASS;
+# notap and windowed have one instantiation per width of the second head-dim
+# panel (0, 16, 64; the resident windowed kernel takes 0 and 16)
+TENSOR_CORE_KERNELS = {
+    "attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
+    "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64)),
+    "sam_windowed_attention": tuple(f"windowed_bf16_residentILi{r}E" for r in (0, 16))
+    + tuple(f"windowed_bf16_streamedILi{r}E" for r in (0, 16, 64)),
+    "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1")}
 
 
 def phase_build(state):
@@ -351,13 +360,14 @@ def phase_notap(state):
             q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             out = fa.attention_notap(q, k, v)
+            rerun_equal = bool(torch.equal(out, fa.attention_notap(q, k, v)))
             want = fa.attention_notap_plain(q, k, v)
             torch.cuda.synchronize()
             agree = _agreement(out, want, NOTAP_TOL,
                                lambda: fa.attention_notap_plain(q, k, v.abs()))
             bound, by = _bound(4.0 * b * h * l * l * d, 4.0 * b * h * l * d * q.element_size(), dt)
             row = {"phase": "kernel", "kernel": "attention_notap", "geometry": name,
-                   "shape": [b, h, l, d], "dtype": dt, **agree,
+                   "shape": [b, h, l, d], "dtype": dt, **agree, "rerun_equal": rerun_equal,
                    "ms": cuda_ms(lambda: fa.attention_notap(q, k, v)),
                    "plain_ms": cuda_ms(lambda: fa.attention_notap_plain(q, k, v), iters=5),
                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -365,7 +375,8 @@ def phase_notap(state):
                    "bound_ms": bound, "bound_by": by}
             emit(row)
             rows.append(row)
-            if agree["err_over_tol"] > 1 or not torch.isfinite(out.float()).all():
+            if (agree["err_over_tol"] > 1 or not rerun_equal
+                    or not torch.isfinite(out.float()).all()):
                 raise AssertionError(f"attention_notap disagrees with its plain version: {row}")
     state["notap_rows"] = rows
 
@@ -388,6 +399,7 @@ def phase_windowed(state):
             args = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in
                     ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, h), (b, nh, l, w))]
             out = sa.windowed_attention(*args, (h, w))
+            rerun_equal = bool(torch.equal(out, sa.windowed_attention(*args, (h, w))))
             want = sa.windowed_attention_plain(*args, (h, w))
             torch.cuda.synchronize()
             agree = _agreement(out, want, WINDOW_TOL, lambda: sa.windowed_attention_plain(
@@ -400,6 +412,7 @@ def phase_windowed(state):
                                dt)
             row = {"phase": "kernel", "kernel": "windowed_attention", "geometry": name,
                    "shape": [b, nh, l, d], "window": [h, w], "dtype": dt, **agree,
+                   "rerun_equal": rerun_equal,
                    "ms": cuda_ms(lambda: sa.windowed_attention(*args, (h, w))),
                    "plain_ms": cuda_ms(lambda: sa.windowed_attention_plain(*args, (h, w)),
                                        iters=5),
@@ -410,7 +423,8 @@ def phase_windowed(state):
                    "bound_ms": bound, "bound_by": by}
             emit(row)
             rows.append(row)
-            if agree["err_over_tol"] > 1 or not torch.isfinite(out.float()).all():
+            if (agree["err_over_tol"] > 1 or not rerun_equal
+                    or not torch.isfinite(out.float()).all()):
                 raise AssertionError(f"windowed_attention disagrees with its plain version: {row}")
     state["window_rows"] = rows
 
@@ -771,10 +785,11 @@ def phase_zero_thresholds(state):
 
 
 @contextlib.contextmanager
-def kernel_switches():
-    """Both kernel switches on (``SWITCHES``), restored on the way out."""
-    saved = {k: os.environ.get(k) for k in SWITCHES}
-    os.environ.update(SWITCHES)
+def kernel_switches(values=SWITCHES):
+    """Both kernel switches set to ``values`` (on: ``SWITCHES``), restored on
+    the way out."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -968,9 +983,10 @@ def phase_profile_proposals(state):
 
 
 def phase_profile_bf16(state):
-    """The same in bf16 with both kernel switches on."""
-    with kernel_switches():
-        emit({"phase": "profile_bf16", "switches": SWITCHES, **_profile_proposals(bf16=True)})
+    """The same in bf16, with both kernel switches on, then with both off."""
+    for values in (SWITCHES, SWITCHES_OFF):
+        with kernel_switches(values):
+            emit({"phase": "profile_bf16", "switches": values, **_profile_proposals(bf16=True)})
 
 
 def phase_profile(state):
@@ -1319,7 +1335,8 @@ def _attention_entry(state, name, rows_key, geometry, source, replaces, launches
             "max_abs_err": first.get("max_abs_err"), **{k: first.get(k) for k in keys},
             "shape": first.get("shape"), "dtype": "bfloat16",
             "geometries": [{k: r[k] for k in ("geometry", "shape", "dtype", "max_abs_err", "tol",
-                                              "err_over_tol") + keys} for r in rows]}
+                                              "err_over_tol", "rerun_equal") + keys}
+                           for r in rows]}
 
 
 def _quant_entry(state, fmt, line):

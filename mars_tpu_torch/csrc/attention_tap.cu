@@ -44,7 +44,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -224,54 +224,17 @@ tap_mean_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ bfloat16
-constexpr int B_THREADS = 128;        // one warpgroup
-constexpr uint32_t TILE = 64 * 128;   // bytes of one 64 x 64 bf16 SW128 tile
+constexpr int B_THREADS = attn::THREADS;  // one warpgroup
+constexpr uint32_t TILE = attn::Tile<0>::BYTES;  // one 64 x 64 bf16 SW128 tile
 constexpr size_t B_OUT_SMEM = 5 * TILE + 1024;   // Q, 2 x K, 2 x V, alignment slack
 constexpr size_t B_MEAN_SMEM = 4 * TILE + 1024;  // 2 x Q, 2 x K
 
-__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
-  return (sm90::smem_addr(smem) + 1023u) & ~1023u;
-}
-
-// Rows [row0, row0 + 64) of one head's (L, d) bf16 matrix into an SW128 tile;
-// rows >= L and columns >= d are zero.  ``vec``: cp.async in 16-byte chunks
-// (d % 8 == 0, 16-byte aligned rows), else element by element.
-__device__ __forceinline__ void load_tile_bf16(uint32_t tile, const __nv_bfloat16* src, int row0,
-                                               int L, int d, bool vec) {
-  for (int idx = threadIdx.x; idx < 64 * 8; idx += B_THREADS) {
-    const int r = idx >> 3, c = idx & 7, row = row0 + r;
-    const uint32_t dst = tile + sm90::sw128(r, c);
-    if (vec) {
-      const bool live = row < L && 8 * c < d;
-      sm90::cp_async16(dst, live ? src + (size_t)row * d + 8 * c : src, live ? 16 : 0);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c0 = 8 * c + 2 * e;
-        const float a = row < L && c0 < d ? __bfloat162float(src[(size_t)row * d + c0]) : 0.f;
-        const float b =
-            row < L && c0 + 1 < d ? __bfloat162float(src[(size_t)row * d + c0 + 1]) : 0.f;
-        w[e] = sm90::pack_bf16(a, b);  // exact: a and b are bf16 values
-      }
-      sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
 // s = scale * Q K^T for one 64 x 64 tile (the accumulator layout of
-// sm90.cuh), Q and K SW128 tiles over the whole DMAX: columns past d are
-// zeros and add exact zeros.
+// sm90.cuh), Q and K tiles over the whole DMAX: columns past d are zeros and
+// add exact zeros.
 __device__ __forceinline__ void tile_logits_bf16(uint32_t qs, uint32_t ks, float scale,
                                                  float (&s)[32]) {
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk)
-    sm90::wgmma_m64n64_ss(s, sm90::desc_sw128(qs + 32 * kk), sm90::desc_sw128(ks + 32 * kk),
-                          kk > 0);
-  sm90::wgmma_commit();
-  sm90::wgmma_wait_all();
-  sm90::fence_regs(s);
+  attn::qk<0>(qs, ks, s);
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] *= scale;
 }
@@ -281,7 +244,7 @@ tap_out_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
              float* __restrict__ lse, int L, int d, float scale, int vec) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = aligned_base(smem_raw);
+  const uint32_t base = sm90::aligned_base(smem_raw);
   // Q, then K buffers 0 and 1, then V buffers 0 and 1
   const uint32_t qs = base;
   auto ks = [&](int i) { return base + TILE * (1 + (i & 1)); };
@@ -295,13 +258,13 @@ tap_out_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   float s[32];
 
   // pass 1: running max / sum over this thread's columns of each row
-  load_tile_bf16(qs, q + head, q0, L, d, vec);
-  load_tile_bf16(ks(0), k + head, 0, L, d, vec);
+  attn::load_tile<0>(qs, q + head, q0, L, d, vec);
+  attn::load_tile<0>(ks(0), k + head, 0, L, d, vec);
   sm90::cp_async_commit();
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
-      load_tile_bf16(ks(t + 1), k + head, (t + 1) * BK, L, d, vec);
+      attn::load_tile<0>(ks(t + 1), k + head, (t + 1) * BK, L, d, vec);
       sm90::cp_async_commit();
       sm90::cp_async_wait<1>();
     } else {
@@ -350,13 +313,13 @@ tap_out_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  load_tile_bf16(ks(0), k + head, 0, L, d, vec);
-  load_tile_bf16(vs(0), v + head, 0, L, d, vec);
+  attn::load_tile<0>(ks(0), k + head, 0, L, d, vec);
+  attn::load_tile<0>(vs(0), v + head, 0, L, d, vec);
   sm90::cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
-      load_tile_bf16(ks(t + 1), k + head, (t + 1) * BK, L, d, vec);
-      load_tile_bf16(vs(t + 1), v + head, (t + 1) * BK, L, d, vec);
+      attn::load_tile<0>(ks(t + 1), k + head, (t + 1) * BK, L, d, vec);
+      attn::load_tile<0>(vs(t + 1), v + head, (t + 1) * BK, L, d, vec);
       sm90::cp_async_commit();
       sm90::cp_async_wait<1>();
     } else {
@@ -398,7 +361,7 @@ tap_mean_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
               const float* __restrict__ lse, float* __restrict__ tap, int H, int L, int d,
               float scale, int vec) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = aligned_base(smem_raw);
+  const uint32_t base = sm90::aligned_base(smem_raw);
   // Q buffers 0 and 1, then K buffers 0 and 1
   auto qs = [&](int i) { return base + TILE * (i & 1); };
   auto ks = [&](int i) { return base + TILE * (2 + (i & 1)); };
@@ -409,14 +372,14 @@ tap_mean_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   float s[32], acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  load_tile_bf16(qs(0), q, q0, L, d, vec);
-  load_tile_bf16(ks(0), k, k0, L, d, vec);
+  attn::load_tile<0>(qs(0), q, q0, L, d, vec);
+  attn::load_tile<0>(ks(0), k, k0, L, d, vec);
   sm90::cp_async_commit();
   for (int h = 0; h < H; ++h) {
     if (h + 1 < H) {
       const size_t next = (size_t)(h + 1) * L * d;
-      load_tile_bf16(qs(h + 1), q + next, q0, L, d, vec);
-      load_tile_bf16(ks(h + 1), k + next, k0, L, d, vec);
+      attn::load_tile<0>(qs(h + 1), q + next, q0, L, d, vec);
+      attn::load_tile<0>(ks(h + 1), k + next, k0, L, d, vec);
       sm90::cp_async_commit();
       sm90::cp_async_wait<1>();
     } else {

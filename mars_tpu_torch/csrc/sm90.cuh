@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// asynchronous copies, the 128-byte-swizzled tile layout, wgmma descriptors
-// and the three wgmma shapes the kernels issue.
+// asynchronous copies, the 128-byte-swizzled and interleaved tile layouts,
+// wgmma descriptors and the wgmma shapes the kernels issue.
 //
 // Tile layout ("SW128"): a tile of R rows x 64 bf16 (128 bytes a row), row r
 // at byte r * 128, its 16-byte chunk c at chunk c ^ (r % 8); the tile starts
@@ -9,6 +9,15 @@
 // apart; a K step of 16 advances the start address by 32 bytes), read with
 // rows as K it is the MN-major one for N = 64 (a K step of 16 advances it by
 // 2048 bytes).
+//
+// Tile layout ("interleaved", no swizzle), for a panel narrower than 64 bf16:
+// a row of C 16-byte chunks; rows go in 8-row groups of C core matrices, a
+// core matrix being 8 rows x 16 bytes stored as 128 contiguous bytes, so row
+// r's chunk c is at (r / 8) * 128 C + 128 c + 16 (r % 8).  Read with rows as M
+// or N (K-major) its descriptor's leading offset is the chunk stride (128) and
+// its stride offset the 8-row group stride (128 C); read with rows as K
+// (MN-major) the two swap: leading offset = the 8-row group stride (a K step
+// of 16 advances the start address by two groups), stride offset = 128.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -19,9 +28,19 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The first 1024-byte boundary at or after ``smem`` (SW128 tiles start on one).
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
 // Byte offset of chunk c (8 bf16) of row r in an SW128 tile.
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// Byte offset of chunk c of row r in an interleaved tile of C chunks a row.
+__device__ __forceinline__ uint32_t interleaved(int r, int c, int C) {
+  return (uint32_t)((r >> 3) * 128 * C + (c << 7) + ((r & 7) << 4));
 }
 
 // 16 bytes global -> shared, asynchronous; ``bytes`` < 16 zero-fills the rest.
@@ -61,6 +80,14 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Matrix descriptor of an interleaved tile at ``addr``: leading and stride
+// byte offsets as the layout note above gives them, layout type 0 = none.
+__device__ __forceinline__ uint64_t desc_interleaved(uint32_t addr, uint32_t leading,
+                                                     uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(leading >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -114,6 +141,18 @@ __device__ __forceinline__ void wgmma_m64n64_rs_mn(float (&d)[32], const uint32_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B, m64n16k16: A in registers as above, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n16_rs_mn(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

@@ -102,10 +102,7 @@ def _auction_phase_kernel(scores, row_valid, prices, eps, max_rounds: int,
     scores = scores.contiguous()
     valid_u8 = row_valid.to(torch.uint8).contiguous()
     prices = prices.contiguous()
-    lib = build.load("auction")
-    fn = lib.mars_auction_phase
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = build.load("auction", {"mars_auction_phase": _ARGTYPES}).mars_auction_phase
     col = torch.empty((t,), dtype=torch.int32, device=scores.device)
     prices_out = torch.empty_like(prices)
     stats = torch.zeros((4,), dtype=torch.int32, device=scores.device)

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -79,9 +79,15 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     return took
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, argtypes: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.  At
+    the first load each function named in ``argtypes`` gets those argument
+    types and an ``int`` (cudaError_t) result; later calls reuse them."""
     if name not in _LOADED:
         build_all([name])
-        _LOADED[name] = ctypes.CDLL(library_path(name))
+        lib = ctypes.CDLL(library_path(name))
+        for fn, types in argtypes.items():
+            getattr(lib, fn).argtypes = list(types)
+            getattr(lib, fn).restype = ctypes.c_int
+        _LOADED[name] = lib
     return _LOADED[name]

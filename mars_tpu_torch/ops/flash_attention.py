@@ -53,11 +53,8 @@ def attention_with_tap_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("attention_tap")
-    for fn in (lib.mars_attention_tap_f32, lib.mars_attention_tap_bf16):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load("attention_tap", {"mars_attention_tap_f32": _ARGTYPES,
+                                        "mars_attention_tap_bf16": _ARGTYPES})
 
 
 def attention_with_tap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -122,11 +119,8 @@ def attention_notap_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def _notap_library() -> ctypes.CDLL:
-    lib = build.load("attention_notap")
-    for fn in (lib.mars_attention_notap_f32, lib.mars_attention_notap_bf16):
-        fn.argtypes = _NOTAP_ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load("attention_notap", {"mars_attention_notap_f32": _NOTAP_ARGTYPES,
+                                          "mars_attention_notap_bf16": _NOTAP_ARGTYPES})
 
 
 def attention_notap(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

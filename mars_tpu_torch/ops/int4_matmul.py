@@ -80,10 +80,7 @@ def matmul_nf4_plain(x: torch.Tensor, packed: torch.Tensor, bscale: torch.Tensor
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("int4_matmul")
-    lib.mars_matmul_4bit.argtypes = _ARGTYPES
-    lib.mars_matmul_4bit.restype = ctypes.c_int
-    return lib
+    return build.load("int4_matmul", {"mars_matmul_4bit": _ARGTYPES})
 
 
 def _code_on(device: torch.device) -> torch.Tensor:

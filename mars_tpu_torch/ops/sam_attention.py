@@ -58,11 +58,8 @@ def _check_inputs(tensors, max_head_dim: int) -> None:
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("sam_grid_attention")
-    for fn in (lib.mars_grid_attention_f32, lib.mars_grid_attention_bf16):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load("sam_grid_attention", {"mars_grid_attention_f32": _ARGTYPES,
+                                             "mars_grid_attention_bf16": _ARGTYPES})
 
 
 def grid_attention(q, k, v, bias_h, bias_w, grid_hw: Tuple[int, int]) -> torch.Tensor:
@@ -108,11 +105,8 @@ def windowed_attention_plain(q, k, v, bias_h, bias_w, window_hw: Tuple[int, int]
 
 
 def _windowed_library() -> ctypes.CDLL:
-    lib = build.load("sam_windowed_attention")
-    for fn in (lib.mars_windowed_attention_f32, lib.mars_windowed_attention_bf16):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load("sam_windowed_attention", {"mars_windowed_attention_f32": _ARGTYPES,
+                                                 "mars_windowed_attention_bf16": _ARGTYPES})
 
 
 def windowed_attention(q, k, v, bias_h, bias_w, window_hw: Tuple[int, int]) -> torch.Tensor:
@@ -141,8 +135,8 @@ def windowed_attention(q, k, v, bias_h, bias_w, window_hw: Tuple[int, int]) -> t
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sam_windowed_attention kernel launch failed with CUDA error {err} "
-                           f"(shape {tuple(q.shape)}, window {window_hw}; a window whose K "
-                           f"and V do not fit in shared memory is refused)")
+                           f"(shape {tuple(q.shape)}, window {window_hw}; in float32 a window "
+                           f"whose K and V do not fit in shared memory is refused)")
     windowed_attention.launches += 1
     return out
 

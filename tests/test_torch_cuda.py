@@ -255,8 +255,11 @@ def _bhld(b, h, l, d, dtype, dev, seed=0):
 
 # (B, H, L, D): DINOv2-L and CLIP-B at B = 1, an AlphaCLIP-L chunk, ragged
 # tiles, the widest head dim and a single key
-@pytest.mark.parametrize("b,h,l,d", [(1, 16, 1374, 64), (1, 12, 1090, 64), (16, 16, 577, 64),
-                                     (2, 3, 200, 32), (1, 2, 17, 128), (3, 1, 1, 8)])
+NOTAP_SHAPES = [(1, 16, 1374, 64), (1, 12, 1090, 64), (16, 16, 577, 64), (2, 3, 200, 32),
+                (1, 2, 17, 128), (3, 1, 1, 8)]
+
+
+@pytest.mark.parametrize("b,h,l,d", NOTAP_SHAPES)
 def test_notap_matches_plain_f32(dev, b, h, l, d):
     q, k, v = _bhld(b, h, l, d, torch.float32, dev)
     before = fa.attention_notap.launches
@@ -268,12 +271,25 @@ def test_notap_matches_plain_f32(dev, b, h, l, d):
     torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("b,h,l", [(1, 16, 1374), (16, 16, 577)])
-def test_notap_matches_plain_bf16(dev, b, h, l):
-    q, k, v = _bhld(b, h, l, 64, torch.bfloat16, dev)
+@pytest.mark.parametrize("b,h,l,d", NOTAP_SHAPES + [(2, 2, 100, 80), (1, 3, 70, 20)])
+def test_notap_matches_plain_bf16(dev, b, h, l, d):
+    """The tensor-core kernel at every float32 shape, and at d = 80 (the
+    16-wide interleaved second panel) and d = 20 (element-wise tile loads);
+    d = 128 takes two SW128 panels."""
+    q, k, v = _bhld(b, h, l, d, torch.bfloat16, dev)
+    before = fa.attention_notap.launches
     out = fa.attention_notap(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.attention_notap.launches == before + 1
     want = fa.attention_notap_plain(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, l, d)
     _assert_bf16_attention(out, want, fa.attention_notap_plain(q, k, v.abs()))
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_notap_bf16_is_deterministic(dev, d):
+    q, k, v = _bhld(2, 4, 300, d, torch.bfloat16, dev, seed=3)
+    assert torch.equal(fa.attention_notap(q, k, v), fa.attention_notap(q, k, v))
 
 
 def test_notap_is_deterministic_and_rejects(dev):
@@ -297,8 +313,10 @@ def _window_inputs(b, nh, h, w, d, dtype, dev, seed=0):
 
 # (windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer, ViT-B's head
 # dim on a ragged window, a small one, and hd 128 (the 16-row query chunks)
-@pytest.mark.parametrize("b,nh,h,w,d", [(25, 16, 14, 14, 80), (2, 2, 5, 6, 64),
-                                        (3, 4, 7, 7, 24), (2, 2, 14, 14, 128)])
+WINDOW_SHAPES = [(25, 16, 14, 14, 80), (2, 2, 5, 6, 64), (3, 4, 7, 7, 24), (2, 2, 14, 14, 128)]
+
+
+@pytest.mark.parametrize("b,nh,h,w,d", WINDOW_SHAPES)
 def test_windowed_matches_plain_f32(dev, b, nh, h, w, d):
     from mars_tpu_torch.ops import sam_attention as sa
 
@@ -312,14 +330,33 @@ def test_windowed_matches_plain_f32(dev, b, nh, h, w, d):
     torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
 
 
-def test_windowed_matches_plain_bf16(dev):
+@pytest.mark.parametrize("b,nh,h,w,d", WINDOW_SHAPES + [(2, 2, 5, 6, 20), (1, 2, 17, 17, 64),
+                                                         (1, 2, 20, 20, 80), (1, 2, 32, 32, 128)])
+def test_windowed_matches_plain_bf16(dev, b, nh, h, w, d):
+    """The tensor-core kernels at every float32 shape and d = 20 (element-wise
+    tile loads): windows of up to 256 keys at hd <= 80 take the resident
+    kernel, hd 128 and the windows of 289, 400 and 1024 keys the streamed one
+    (the last is one the float32 kernel refuses)."""
     from mars_tpu_torch.ops import sam_attention as sa
 
-    args = _window_inputs(25, 16, 14, 14, 80, torch.bfloat16, dev)
-    out = sa.windowed_attention(*args, (14, 14))
-    want = sa.windowed_attention_plain(*args, (14, 14))
+    args = _window_inputs(b, nh, h, w, d, torch.bfloat16, dev)
+    before = sa.windowed_attention.launches
+    out = sa.windowed_attention(*args, (h, w))
+    torch.cuda.synchronize()
+    assert sa.windowed_attention.launches == before + 1
+    want = sa.windowed_attention_plain(*args, (h, w))
+    assert out.dtype == torch.bfloat16 and out.shape == (b, nh, h * w, d)
     _assert_bf16_attention(out, want, sa.windowed_attention_plain(
-        *args[:2], args[2].abs(), *args[3:], (14, 14)))
+        *args[:2], args[2].abs(), *args[3:], (h, w)))
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_windowed_bf16_is_deterministic(dev, d):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _window_inputs(4, 4, 14, 14, d, torch.bfloat16, dev, seed=3)
+    assert torch.equal(sa.windowed_attention(*args, (14, 14)),
+                       sa.windowed_attention(*args, (14, 14)))
 
 
 def test_windowed_refuses_a_window_that_does_not_fit(dev):

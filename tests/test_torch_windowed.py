@@ -51,6 +51,82 @@ def test_plain_matches_pallas_bf16(h, w, d):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
 
 
+def _windowed_tiles(q, k, v, bias_h, bias_w, window_hw, two_sweeps, skip_tile=None):
+    """``csrc/sam_windowed_attention.cu``'s bfloat16 arithmetic: key tiles of
+    64 and float32 logits (s · d^-0.5 + bias_h) + bias_w, then either (the
+    streamed kernel, ``two_sweeps``) a running max and sum per row over the
+    tiles giving its log-sum-exp and P = exp(logit - lse) from the same
+    logits recomputed, or (the resident kernel) every tile's logits held,
+    their exact max and sum, and P = exp(logit - max) · (1 / sum).  P is
+    rounded to bfloat16 when the inputs are, P·V runs in float32 and the
+    output is rounded once at the end.  ``skip_tile`` drops one key tile:
+    the fault the card's limit has to catch."""
+    b, nh, l, d = q.shape
+    w = window_hw[1]
+    qf, kf, vf, bh, bw = (t.float() for t in (q, k, v, bias_h, bias_w))
+    starts = [k0 for t, k0 in enumerate(range(0, l, 64)) if t != skip_tile]
+
+    def logits(k0):
+        keys = torch.arange(k0, min(k0 + 64, l))
+        s = qf @ kf[..., keys, :].transpose(-1, -2)
+        return (s * d ** -0.5 + bh[..., keys // w]) + bw[..., keys % w]
+
+    def rounded(p):
+        return p.bfloat16().float() if q.dtype == torch.bfloat16 else p
+
+    acc = torch.zeros(qf.shape)
+    if two_sweeps:
+        m = torch.full((b, nh, l), -torch.inf)
+        total = torch.zeros((b, nh, l))
+        for k0 in starts:
+            s = logits(k0)
+            m_new = torch.maximum(m, s.amax(-1))
+            total = total * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+            m = m_new
+        lse = m + torch.log(total)
+        for k0 in starts:
+            acc = acc + rounded(torch.exp(logits(k0) - lse[..., None])) @ vf[..., k0:k0 + 64, :]
+    else:
+        s = [logits(k0) for k0 in starts]
+        m = torch.stack([t.amax(-1) for t in s]).amax(0)[..., None]
+        e = [torch.exp(t - m) for t in s]
+        inv = 1 / sum(t.sum(-1) for t in e)[..., None]
+        for k0, t in zip(starts, e):
+            acc = acc + rounded(t * inv) @ vf[..., k0:k0 + 64, :]
+    return acc.to(q.dtype)
+
+
+@pytest.mark.parametrize("two_sweeps", [True, False])
+@pytest.mark.parametrize("h,w,d", [(14, 14, 80), (10, 10, 64), (5, 6, 24)])
+def test_tile_emulation_matches_plain_f32(h, w, d, two_sweeps):
+    """In float32 both kernel designs compute the plain version's softmax:
+    only the summation order differs."""
+    args = [torch.from_numpy(a) for a in _inputs(np.random.RandomState(9), 2, 3, h, w, d)]
+    np.testing.assert_allclose(_windowed_tiles(*args, (h, w), two_sweeps).numpy(),
+                               tsa.windowed_attention_plain(*args, (h, w)).numpy(),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("two_sweeps", [True, False])
+@pytest.mark.parametrize("h,w,d", [(14, 14, 80), (10, 10, 64)])
+def test_bf16_card_limit_separates_rounding_from_a_lost_tile(h, w, d, two_sweeps):
+    """The limit the kernel's bf16 outputs are held to on the card
+    (``chip_smoke.py``, ``tests/test_torch_cuda.py``): 2^-7 (|want| + P|v|)
+    element by element.  The kernel's own rounding, emulated, stays under
+    half of it; a kernel that skips one key tile goes past it twice over."""
+    args = [torch.from_numpy(a).bfloat16() for a in _inputs(np.random.RandomState(11), 2, 4,
+                                                             h, w, d)]
+    want = tsa.windowed_attention_plain(*args, (h, w)).float()
+    limit = 2 ** -7 * (want.abs() + tsa.windowed_attention_plain(
+        *args[:2], args[2].abs(), *args[3:], (h, w)).float())
+
+    def worst(got):
+        return ((got.float() - want).abs() / limit).max().item()
+
+    assert worst(_windowed_tiles(*args, (h, w), two_sweeps)) < 0.5
+    assert worst(_windowed_tiles(*args, (h, w), two_sweeps, skip_tile=1)) > 2
+
+
 def _window_params(rng, c, hd, h, w):
     return {"qkv": {"kernel": rng.randn(c, 3 * c).astype(np.float32) * 0.05,
                     "bias": rng.randn(3 * c).astype(np.float32) * 0.1},

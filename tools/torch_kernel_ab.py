@@ -7,8 +7,11 @@ Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
 run one after another, in the order given (repeat them to alternate), each
 in its own process that builds that checkout's kernels and times, with CUDA
 events on the same seeded inputs, ``attention_with_tap`` at the ranking
-path's shapes (float32 and bfloat16) and ``matmul_int4`` / ``matmul_nf4`` at
-``chip_smoke.py``'s shapes (bfloat16, 4 decode rows and 2330 prefill rows).
+path's shapes, ``attention_notap`` at the untapped blocks' shapes (an
+AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and ``windowed_attention`` at SAM
+ViT-H's windowed layer (each in float32 and bfloat16), and ``matmul_int4`` /
+``matmul_nf4`` at ``chip_smoke.py``'s shapes (bfloat16, 4 decode rows and
+2330 prefill rows).
 Prints one JSON line per root and shape, then the card's name and power
 limit.  Imports nothing of JAX.
 """
@@ -18,6 +21,8 @@ import subprocess
 import sys
 
 TAP_SHAPES = ((16, 1374, 64), (12, 1090, 64))
+NOTAP_SHAPES = ((16, 16, 577, 64), (1, 16, 1374, 64), (1, 12, 1090, 64))
+WINDOW_SHAPES = ((25, 16, 14, 14, 80),)  # (windows, heads, Hw, Ww, hd)
 QUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (5120, 4096), (1024, 4096),
                 (1984, 999))
 QUANT_ROWS = (4, 2330)
@@ -44,8 +49,9 @@ def worker(root):
     sys.path.insert(0, root)
     from mars_tpu_torch.models import quantization as Q
     from mars_tpu_torch.ops import build, flash_attention as fa, int4_matmul as im
+    from mars_tpu_torch.ops import sam_attention as sa
 
-    build.build_all(["attention_tap", "int4_matmul"])
+    build.build_all(["attention_tap", "attention_notap", "sam_windowed_attention", "int4_matmul"])
 
     def emit(**row):
         print(json.dumps({"root": root, **row}), flush=True)
@@ -57,6 +63,19 @@ def worker(root):
                        for _ in range(3))
             emit(kernel="attention_with_tap", shape=[h, l, d], dtype=str(dtype)[6:],
                  ms=_ms(lambda: fa.attention_with_tap(q, k, v)))
+    for b, h, l, d in NOTAP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            emit(kernel="attention_notap", shape=[b, h, l, d], dtype=str(dtype)[6:],
+                 ms=_ms(lambda: fa.attention_notap(q, k, v)))
+    for b, nh, hw, ww, d in WINDOW_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            l = hw * ww
+            args = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in
+                    ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, hw), (b, nh, l, ww))]
+            emit(kernel="windowed_attention", shape=[b, nh, l, d], dtype=str(dtype)[6:],
+                 ms=_ms(lambda: sa.windowed_attention(*args, (hw, ww))))
     gen = torch.Generator(device="cuda").manual_seed(4)
     for fmt in ("int4", "nf4"):
         fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
