@@ -119,14 +119,34 @@ def test_grid_attention_matches_plain_f32(dev, nh, h, w, d):
     torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
 
 
-def test_grid_attention_matches_plain_bf16(dev):
+# aligned grids (W % 64 == 0: ViT-H and ViT-B/L global layers, then W = 128
+# and 192, whose bias_w rows sit in shared memory), then general ones: ragged,
+# d = 20 (element-wise tile loads), two head-dim panels, a 16 x 16 grid
+GRID_BF16_SHAPES = [(16, 64, 64, 80), (12, 64, 64, 64), (2, 2, 128, 80), (2, 2, 192, 128),
+                    (2, 5, 7, 24), (2, 5, 7, 20), (3, 33, 31, 128), (2, 16, 16, 16)]
+
+
+@pytest.mark.parametrize("nh,h,w,d", GRID_BF16_SHAPES)
+def test_grid_attention_matches_plain_bf16(dev, nh, h, w, d):
     from mars_tpu_torch.ops import sam_attention as sa
 
-    args = _grid_inputs(16, 64, 64, 80, torch.bfloat16, dev)
-    out = sa.grid_attention(*args, (64, 64))
-    want = sa.grid_attention_plain(*args, (64, 64))
+    args = _grid_inputs(nh, h, w, d, torch.bfloat16, dev)
+    before = sa.grid_attention.launches
+    out = sa.grid_attention(*args, (h, w))
+    torch.cuda.synchronize()
+    assert sa.grid_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (nh, h * w, d)
+    want = sa.grid_attention_plain(*args, (h, w))
     _assert_bf16_attention(out, want, sa.grid_attention_plain(*args[:2], args[2].abs(), *args[3:],
-                                                               (64, 64)))
+                                                               (h, w)))
+
+
+@pytest.mark.parametrize("nh,h,w,d", [(16, 64, 64, 80), (2, 5, 7, 24)])
+def test_grid_attention_bf16_is_deterministic(dev, nh, h, w, d):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _grid_inputs(nh, h, w, d, torch.bfloat16, dev, seed=2)
+    assert torch.equal(sa.grid_attention(*args, (h, w)), sa.grid_attention(*args, (h, w)))
 
 
 def _auction_instance(seed, t, n):

@@ -9,9 +9,10 @@ in its own process that builds that checkout's kernels and times, with CUDA
 events on the same seeded inputs, ``attention_with_tap`` at the ranking
 path's shapes, ``attention_notap`` at the untapped blocks' shapes (an
 AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and ``windowed_attention`` at SAM
-ViT-H's windowed layer (each in float32 and bfloat16), and ``matmul_int4`` /
-``matmul_nf4`` at ``chip_smoke.py``'s shapes (bfloat16, 4 decode rows and
-2330 prefill rows).
+ViT-H's windowed layer (each in float32 and bfloat16), ``grid_attention`` at
+SAM ViT-H's global layer (both types) and ViT-B's (bfloat16), and
+``matmul_int4`` / ``matmul_nf4`` at ``chip_smoke.py``'s shapes (bfloat16, 4
+decode rows and 2330 prefill rows).
 Prints one JSON line per root and shape, then the card's name and power
 limit.  Imports nothing of JAX.
 """
@@ -23,6 +24,8 @@ import sys
 TAP_SHAPES = ((16, 1374, 64), (12, 1090, 64))
 NOTAP_SHAPES = ((16, 16, 577, 64), (1, 16, 1374, 64), (1, 12, 1090, 64))
 WINDOW_SHAPES = ((25, 16, 14, 14, 80),)  # (windows, heads, Hw, Ww, hd)
+# (heads, grid H, grid W, hd, types): ViT-H and ViT-B global layers
+GRID_SHAPES = ((16, 64, 64, 80, ("float32", "bfloat16")), (12, 64, 64, 64, ("bfloat16",)))
 QUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (5120, 4096), (1024, 4096),
                 (1984, 999))
 QUANT_ROWS = (4, 2330)
@@ -51,7 +54,8 @@ def worker(root):
     from mars_tpu_torch.ops import build, flash_attention as fa, int4_matmul as im
     from mars_tpu_torch.ops import sam_attention as sa
 
-    build.build_all(["attention_tap", "attention_notap", "sam_windowed_attention", "int4_matmul"])
+    build.build_all(["attention_tap", "attention_notap", "sam_grid_attention",
+                     "sam_windowed_attention", "int4_matmul"])
 
     def emit(**row):
         print(json.dumps({"root": root, **row}), flush=True)
@@ -76,6 +80,13 @@ def worker(root):
                     ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, hw), (b, nh, l, ww))]
             emit(kernel="windowed_attention", shape=[b, nh, l, d], dtype=str(dtype)[6:],
                  ms=_ms(lambda: sa.windowed_attention(*args, (hw, ww))))
+    for nh, hg, wg, d, dtypes in GRID_SHAPES:
+        for dt in dtypes:
+            l = hg * wg
+            args = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
+                    for shape in ((nh, l, d), (nh, l, d), (nh, l, d), (nh, l, hg), (nh, l, wg))]
+            emit(kernel="grid_attention", shape=[nh, l, d], grid=[hg, wg], dtype=dt,
+                 ms=_ms(lambda: sa.grid_attention(*args, (hg, wg))))
     gen = torch.Generator(device="cuda").manual_seed(4)
     for fmt in ("int4", "nf4"):
         fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
