@@ -34,9 +34,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
  10. one ranking episode, then one proposal-plus-ranking episode, under
      torch.profiler: device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
-     7B's shapes (decode rows 1 and 4, prefill rows ~2330) and a ragged
+     7B's shapes (decode rows 1, 4 and 8, prefill rows ~2330) and a ragged
      one, in bfloat16, rerun for bitwise equality, beside their bound and
-     cuBLAS on the dense weight;
+     cuBLAS on the dense weight; decode rows also timed with the device
+     held while the calls are enqueued, warm and cold (the calls rotate
+     through >= 100 MB of weight copies, twice the L2), kernel and cuBLAS;
  12. the text path at full width: ViP-LLaVA-7B (seeded random weights,
      hybrid int4, then NF4) answering one BlockTextStage-shaped block
      through ``TorchVipLlava.generate_batch`` (4 name rows, then 4
@@ -125,11 +127,12 @@ BF16_ATTN_REL = 2 ** -7
 AUCTION_CASES = ((0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1), (5, 120, 120, 5),
                  (6, 3, 700, 1))
 # ViP-LLaVA-7B's dense shapes (IN, OUT) and a ragged one; rows: decode at
-# batch 1 and 4, prefill of 4 rows x ~582 positions
+# batch 1, 4 and 8 (the GEMV's widest), prefill of 4 rows x ~582 positions
 QUANT_SHAPES = (("llama_qkvo", 4096, 4096), ("llama_gate_up", 4096, 11008),
                 ("llama_down", 11008, 4096), ("projector_1", 5120, 4096),
                 ("clip_fc1", 1024, 4096), ("ragged", 1984, 999))
-QUANT_ROWS = (1, 4, 2330)
+QUANT_ROWS = (1, 4, 8, 2330)
+COLD_BYTES = 100e6  # weight copies a cold timing rotates through: twice the 50 MB L2
 QUANT_REL_TOL = 2 ** -7  # bf16 output: one rounding of the largest output
 # quantized denses per image prefill (CLIP-L: 24 layers x q, k, v, out,
 # fc1, fc2, then the projector's two) and per LLaMA forward (32 x 7)
@@ -164,6 +167,51 @@ def cuda_ms(fn, iters=20, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def held_device_ms(calls):
+    """Device milliseconds a call of the zero-argument ``calls``: CUDA events
+    around them, enqueued while the device is held (``torch.cuda._sleep``)
+    for the time the host took to enqueue them once, and more.  ``cuda_ms``
+    times a kernel of a few microseconds behind a Python wrapper at the
+    host's enqueue pace; this times the device alone."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fn in calls:
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    # 3e6 cycles a host ms: 1.5 host ms at the H100's top clock (~2 GHz), more below it
+    torch.cuda._sleep(int(3e6 * host_ms) + 400_000)
+    start.record()
+    for fn in calls:
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / len(calls)
+
+
+def held_ms(fn, iters=20, warmup=3):
+    """``cuda_ms``'s warm calls on one set of operands, timed device-held."""
+    for _ in range(warmup):
+        fn()
+    return held_device_ms([fn] * iters)
+
+
+def cold_ms(fn, operands, rounds=2):
+    """Device-held milliseconds a call of ``fn(*operands[i])`` over ``rounds``
+    passes through every operand set: with the sets' bytes past twice the
+    L2, each call finds its weights in device memory."""
+    return held_device_ms([lambda ops=ops: fn(*ops) for ops in operands] * rounds)
+
+
+def cold_copies(tensors, nbytes=COLD_BYTES):
+    """Enough distinct copies of ``tensors`` to total ``nbytes``."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    return [tuple(t.clone() for t in tensors) for _ in range(max(2, -(-int(nbytes) // size)))]
 
 
 def _agreement(got, want, f32_tol, plain_on_abs_v):
@@ -219,7 +267,8 @@ def _tensor_core_sass(path):
 # the tensor-core kernels (bfloat16): each must hold HGMMA or HMMA in its SASS;
 # notap, windowed and grid have one instantiation per width of the second
 # head-dim panel (0, 16, 64; the resident windowed kernel takes 0 and 16),
-# grid also one per way of taking the bias (0 general, 1 W = 64, 2 wide)
+# grid also one per way of taking the bias (0 general, 1 W = 64, 2 wide);
+# the 4-bit library's bf16 prefill GEMM and decode GEMV, int4 (0) and NF4 (1)
 TENSOR_CORE_KERNELS = {
     "attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
     "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64)),
@@ -227,7 +276,8 @@ TENSOR_CORE_KERNELS = {
     + tuple(f"windowed_bf16_streamedILi{r}E" for r in (0, 16, 64)),
     "sam_grid_attention": tuple(f"grid_bf16ILi{r}ELi{mode}EE" for r in (0, 16, 64)
                                 for mode in (0, 1, 2)),
-    "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1")}
+    "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1", "gemv_bf16ILi0",
+                    "gemv_bf16ILi1")}
 
 
 def phase_build(state):
@@ -1038,7 +1088,13 @@ def _bound_ms(nbytes, flops):
 def phase_4bit_kernels(state):
     """Both 4-bit kernels against their plain versions at the 7B's shapes,
     bfloat16 activations, timed with CUDA events beside the bound and the
-    dense GEMM they replace (cuBLAS on the pre-dequantized bf16 weight)."""
+    dense GEMM they replace (cuBLAS on the pre-dequantized bf16 weight):
+    warm (``ms``: 20 calls on one weight, which the L2 may hold) and, for
+    the decode rows, device-held (``held_ms``, ``library_held_ms``: the same
+    calls, which the host no longer paces) and cold (``cold_ms``,
+    ``library_cold_ms``: held, the calls rotating through copies of the
+    weight totalling >= 100 MB, as a decode step finds its 32 layers'
+    weights)."""
     import torch
 
     from mars_tpu_torch.models import quantization as Q
@@ -1061,6 +1117,7 @@ def phase_4bit_kernels(state):
                                                          device="cuda"))
                 packed, scale = leaf["nf4"], leaf["bscale"]
             dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
+            weights, denses = cold_copies((packed, scale)), cold_copies((dense,))
             for m in QUANT_ROWS:
                 x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
                 got, want = fn(x, packed, scale), plain(x, packed, scale)
@@ -1080,11 +1137,18 @@ def phase_4bit_kernels(state):
                        "library_call": "cuBLAS x @ W, W the pre-dequantized bf16 weight (the "
                                        "dense GEMM the kernel replaces)",
                        "bound_ms": bound, "bound_by": by}
+                if m <= 8:
+                    row["held_ms"] = held_ms(lambda: fn(x, packed, scale))
+                    row["cold_ms"] = cold_ms(lambda p, s: fn(x, p, s), weights)
+                    row["library_held_ms"] = held_ms(lambda: x @ dense)
+                    row["library_cold_ms"] = cold_ms(lambda w: x @ w, denses)
+                    row["cold_copies_mb"] = len(weights) * (packed.numel()
+                                                            + scale.numel() * 4) / 1e6
                 emit(row)
                 rows.append(row)
                 if err > tol or not row["finite"] or not rerun_equal:
                     raise AssertionError(f"matmul_{fmt} disagrees with its plain version: {row}")
-            del dense
+            del dense, weights, denses
     state["quant_rows"] = rows
 
 
@@ -1357,20 +1421,22 @@ def _attention_entry(state, name, rows_key, geometry, source, replaces, launches
 
 def _quant_entry(state, fmt, line):
     """The decode GEMV of the LLaMA MLP (4 rows x 4096 x 11008) stands for
-    the kernel; every measured shape is listed."""
+    the kernel, warm (``ms``), device-held (``held_ms``) and cold
+    (``cold_ms``); every measured shape is listed."""
     rows = [r for r in state.get("quant_rows", []) if r["kernel"] == f"matmul_{fmt}"]
     first = next((r for r in rows if r["geometry"] == "llama_gate_up" and r["shape"][0] == 4),
                  {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    cold = ("held_ms", "cold_ms", "library_held_ms", "library_cold_ms")
     return {"name": f"matmul_{fmt}", "route": "cuda",
             "source": "mars_tpu_torch/csrc/int4_matmul.cu",
             "replaces": f"mars_tpu/ops/int4_matmul.py:{line}",
             "launches": state.get("text_launches", {}).get(f"matmul_{fmt}", 0),
             "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
-            **{k: first.get(k) for k in keys}, "shape": first.get("shape"),
+            **{k: first.get(k) for k in keys + cold}, "shape": first.get("shape"),
             "dtype": "bfloat16",
-            "geometries": [{k: r[k] for k in ("geometry", "shape", "max_abs_err", "tol") + keys}
-                           for r in rows]}
+            "geometries": [{k: r.get(k) for k in ("geometry", "shape", "max_abs_err", "tol")
+                            + keys + cold} for r in rows]}
 
 
 def main():

@@ -16,19 +16,56 @@
 // IN must be even (nf4: a multiple of 64); ragged IN, OUT and M are masked
 // here, never padded by copying the weights.
 //
-// What bounds it.  At decode (M = 1-8 rows) the packed bytes dominate: a
-// LLaMA-7B MLP kernel 4096 x 11008 is 22.5 MB of codes against 2 * M * IN
-// * OUT = 90 MFLOP per row, so memory bounds it (6.7 us at 3.35 TB/s).  At
+// What bounds it.  At decode (M = 1-8 rows) the packed bytes: at M = 4 a
+// LLaMA-7B projection moves codes + scales + x + out of
+//   4096 -> 4096:  8.47 MB int4, 9.51 MB NF4: 2.53 / 2.84 us at 3.35 TB/s
+//   4096 -> 11008: 22.7 MB int4, 25.5 MB NF4: 6.78 / 7.62 us
+//   11008 -> 4096: 22.7 MB int4, 25.5 MB NF4: 6.78 / 7.62 us
+// against 2 M IN OUT = 0.36 GFLOP at most, so memory bounds it; in a decode
+// step the codes come cold from device memory (32 layers x ~101 MB).  At
 // prefill (M ~ 2330) the same kernel is 210 GFLOP against ~45 MB of inputs
 // and outputs: the operations bound it.
 //
-// Design.  Three kernels behind one entry point, picked by M and x's type.
-//   gemv_kernel (M <= 8): a CTA owns 32 output columns; its 8 column threads
-//     each read one 32-bit word (4 columns) of a packed row, so a warp reads
-//     whole 32-byte sectors, and 32 groups of them split the packed rows.
-//     Every thread keeps 8 x 4 float32 sums in registers; the 32 partial
-//     sums of each output are added in a fixed order through shared memory,
-//     so reruns are bitwise equal.  Unpacks in registers.
+// Design.  Four kernels behind one entry point, picked by M and x's type.
+//   gemv_bf16 (M <= 8, bfloat16 x): the decode GEMV.
+//     Split-K over the whole card: a CTA owns 128 output columns (each
+//     packed row it reads is one 128-byte line) and one K slice of whole
+//     64-input-row blocks (one NF4 scale row, 32 packed rows); the wrapper
+//     picks the slice count S (gemv_split) so that column tiles x S give at
+//     least 2 CTAs an SM on 132 SMs.  Without it the 4096-column
+//     projections ran 128 CTAs of one K sweep each.
+//     Weight stream: a ring of 8 stages, one block each, filled by cp.async
+//     (16 bytes a thread: the block's 4 KB of codes, its 1 KB of x rows and,
+//     for NF4, its 128 scales), so a CTA keeps up to 28 KB of codes in
+//     flight.  A code row's 16-byte chunk c lands at chunk c ^ (row % 8),
+//     x row m's chunk c at c ^ 2 (m % 4): the reads below are conflict-free.
+//     Math on the tensor cores, A and B swapped: out^T (OUT x M) = W^T x^T
+//     with mma.sync m16n8k16 (bf16 in, float32 sums), M padded to the n8 of
+//     the instruction; each warp owns 16 columns.  One ldmatrix.x4.trans
+//     gives a lane, for each of the block's four k16 steps, packed rows 2t
+//     and 2t+1 of columns 2g and 2g+1 (g = lane / 4, t = lane % 4) in one
+//     32-bit word.  A row g is taken as column 2g, row g + 8 as column
+//     2g + 1; k pair t as the low nibbles of packed rows 2t and 2t+1 (inputs
+//     4t, 4t + 2), pair t + 4 as their high nibbles (4t + 1, 4t + 3).  Then
+//     each A register is the word shifted by 0, 4, 8 or 12 and masked with
+//     0x000F000F, dequantized in place, never through shared memory: int4
+//     by one xor under the bf16 exponent and one bf16x2 subtraction
+//     (exact); NF4 as __fmul_rn(code[c], scale) rounded to bf16, the plain
+//     version's weight.  The B fragment is x inputs 4t..4t+3 of row g, one
+//     8-byte shared load, paired (4t, 4t+2), (4t+1, 4t+3) by two byte
+//     permutes.
+//     Split-K reduction, one launch and deterministic: with S > 1 each CTA
+//     writes its float32 partials (M x 128) to the workspace (S, 8, OUT),
+//     fences and counts itself in its tile's int32 counter; the last CTA to
+//     arrive fences, sums the S partials in slice order 0..S-1, applies
+//     int4's scale (__fmul_rn), rounds once to bf16 and resets the counter.
+//     With S = 1 the CTA stores directly.  Products of bf16 are exact in
+//     float32, so it differs from the plain version in summation order and
+//     the one output rounding only; reruns are bitwise equal.
+//   gemv_kernel (M <= 8, float32 x, not on any path): a CTA owns 32 output
+//     columns; its 8 column threads each read one 32-bit word (4 columns) of
+//     a packed row, 32 groups of them split the packed rows; 8 x 4 float32
+//     sums a thread, added in a fixed order through shared memory.
 //   gemm_bf16_kernel (M > 8, bfloat16 x): the tensor cores.  A 128 x 128
 //     output tile per CTA, K in steps of 64, two warpgroups of 64 rows.  The
 //     x tile (bf16) arrives by cp.async, double-buffered; each thread loads
@@ -61,13 +98,9 @@ constexpr int FMT_INT4 = 0;
 constexpr int FMT_NF4 = 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // The two weights of one packed byte (rows 2r and 2r+1).  ``s`` is the NF4
 // block scale of the column (unused for int4).
@@ -161,6 +194,229 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
     if (FMT == FMT_INT4) v = __fmul_rn(v, scale[col]);
     out[(size_t)m * OUT + col] = from_f32<T>(v);
   }
+}
+
+// ------------------------------------------------------- bf16 GEMV (mma.sync)
+constexpr int GB_COLS = 128;                        // output columns a CTA
+constexpr int GB_THREADS = 256;                     // 8 warps x 16 columns
+constexpr int GB_ROWS = 32;                         // packed rows a stage: one 64-row block
+constexpr int GB_STAGES = 8;
+constexpr int GB_MAX_SPLIT = 16;
+constexpr int GB_CODE_BYTES = GB_ROWS * GB_COLS;    // 4096
+constexpr int GB_X_BYTES = GV_MAX_M * 64 * 2;       // x rows 0..7 of the block's 64 inputs
+constexpr int GB_STAGE_BYTES = GB_CODE_BYTES + GB_X_BYTES + GB_COLS * 4;  // + NF4 scale row
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a b, m16n8k16, bf16 in, float32 sums.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// int4: the nibbles at bits 0-3 and 16-19 of v, as the bf16x2 of their weights.
+// Each nibble goes under the exponent of 128 (bf16 0x4300 | n = 128 + n), a
+// high (odd-row) nibble with its sign bit flipped, and 136 comes off both
+// halves: low - 8 and (high ^ 8) - 8 = the signed high nibble, exact.
+template <bool HIGH>
+__device__ __forceinline__ uint32_t int4_pair(uint32_t v) {
+  const uint32_t w = (v & 0x000F000Fu) ^ (HIGH ? 0x43084308u : 0x43004300u);
+  const uint32_t bias = 0x43084308u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// NF4: the nibbles at bits 0-3 and 16-19 of v, as bf16(code[c] x s) each.
+__device__ __forceinline__ uint32_t nf4_pair(uint32_t v, float s, const float* code) {
+  return sm90::pack_bf16(__fmul_rn(code[v & 0xF], s), __fmul_rn(code[(v >> 16) & 0xF], s));
+}
+
+// The A fragment of one k16 step from the lane's ldmatrix word a: bytes
+// [2t][2g], [2t][2g+1], [2t+1][2g], [2t+1][2g+1] of the step's 8 packed rows.
+// Register e pairs packed rows 2t and 2t+1 of one column, low nibbles (k
+// pair t: inputs 4t and 4t + 2) or high ones (pair t + 4: inputs 4t + 1 and
+// 4t + 3), so a shift and a mask put both nibbles in place.  s0, s1: NF4's
+// scales of columns 2g and 2g + 1.
+template <int FMT>
+__device__ __forceinline__ void dequant_step(uint32_t a, float s0, float s1, const float* code,
+                                             uint32_t (&frag)[4]) {
+  if (FMT == FMT_INT4) {
+    frag[0] = int4_pair<false>(a);
+    frag[1] = int4_pair<false>(a >> 8);
+    frag[2] = int4_pair<true>(a >> 4);
+    frag[3] = int4_pair<true>(a >> 12);
+  } else {
+    frag[0] = nf4_pair(a, s0, code);
+    frag[1] = nf4_pair(a >> 8, s1, code);
+    frag[2] = nf4_pair(a >> 4, s0, code);
+    frag[3] = nf4_pair(a >> 12, s1, code);
+  }
+}
+
+template <int FMT>
+__global__ void __launch_bounds__(GB_THREADS, 3)
+gemv_bf16(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+          const float* __restrict__ scale, const float* __restrict__ code_g,
+          __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+          int M, int IN, int OUT, int S, int xvec, int wvec) {
+  __shared__ __align__(128) uint8_t ring[GB_STAGES][GB_STAGE_BYTES];
+  __shared__ float code[16];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x, slice = blockIdx.y, col0 = tile * GB_COLS;
+  const int rows = IN / 2, blocks = (IN + 63) / 64;
+  // this slice's blocks: [blocks s / S, blocks (s + 1) / S), sizes differ by one at most
+  const int kb0 = slice * blocks / S, nb = (slice + 1) * blocks / S - kb0;
+  if (tid < 16) code[tid] = FMT == FMT_NF4 ? code_g[tid] : 0.f;
+
+  // block kb -> stage buffer: codes (32 rows x 128 bytes), x rows m < M of its
+  // 64 inputs, NF4's scale row; zeros past IN, OUT (int4's zero byte is -8 in
+  // the low nibble, so a ragged tail is harmless only because x is zero there)
+  auto load = [&](int kb, int buf) {
+    const uint32_t base = sm90::smem_addr(ring[buf]);
+    {
+      const int r = tid >> 3, c = tid & 7, pr = kb * GB_ROWS + r, col = col0 + 16 * c;
+      const uint32_t dst = base + r * GB_COLS + ((c ^ (r & 7)) << 4);
+      if (wvec) {
+        const bool live = pr < rows && col < OUT;
+        sm90::cp_async16(dst, live ? packed + (size_t)pr * OUT + col : packed, live ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (pr < rows) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (col + e < OUT) w[e / 4] |= (uint32_t)packed[(size_t)pr * OUT + col + e] << (8 * (e % 4));
+        }
+        sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
+      }
+    }
+    if (tid < 8 * M) {
+      const int m = tid >> 3, c = tid & 7, k = kb * 64 + 8 * c;
+      const uint32_t dst = base + GB_CODE_BYTES + m * 128 + ((c ^ ((m & 3) << 1)) << 4);
+      const __nv_bfloat16* src = x + (size_t)m * IN + k;
+      if (xvec) {
+        sm90::cp_async16(dst, k < IN ? src : x, k < IN ? 16 : 0);
+      } else {
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = (k + 2 * e < IN ? h[2 * e] : 0u) | (k + 2 * e + 1 < IN ? (uint32_t)h[2 * e + 1] << 16 : 0u);
+        sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
+      }
+    }
+    if (FMT == FMT_NF4 && tid < 32) {
+      const int col = col0 + 4 * tid;
+      const uint32_t dst = base + GB_CODE_BYTES + GB_X_BYTES + 16 * tid;
+      const float* src = scale + (size_t)kb * OUT + col;
+      if (wvec) {
+        sm90::cp_async16(dst, col < OUT ? src : scale, col < OUT ? 16 : 0);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = col + e < OUT ? src[e] : 0.f;
+        sm90::st_shared16(dst, __float_as_uint(v[0]), __float_as_uint(v[1]),
+                          __float_as_uint(v[2]), __float_as_uint(v[3]));
+      }
+    }
+  };
+
+  // ldmatrix: lane L gives the address of packed row L of the stage at the
+  // warp's chunk, so matrix j (lanes 8j..8j+7) is k16 step j
+  const uint32_t a_off = lane * GB_COLS + ((warp ^ (lane & 7)) << 4);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < GB_STAGES - 1; ++i) {
+    if (i < nb) load(kb0 + i, i);
+    sm90::cp_async_commit();
+  }
+  for (int i = 0; i < nb; ++i) {
+    sm90::cp_async_wait<GB_STAGES - 2>();
+    __syncthreads();  // block i landed everywhere; every warp is done with block i - 1's buffer
+    if (i + GB_STAGES - 1 < nb) load(kb0 + i + GB_STAGES - 1, (i + GB_STAGES - 1) % GB_STAGES);
+    sm90::cp_async_commit();
+    const uint8_t* st = ring[i % GB_STAGES];
+    uint32_t a[4];
+    ldmatrix_x4_trans(a, sm90::smem_addr(st) + a_off);
+    float2 s = make_float2(0.f, 0.f);
+    if (FMT == FMT_NF4)
+      s = *reinterpret_cast<const float2*>(st + GB_CODE_BYTES + GB_X_BYTES + 4 * (16 * warp + 2 * g));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // x row g, inputs 4t..4t+3 of step j; the B pairs are (4t, 4t+2), (4t+1, 4t+3)
+      uint2 b = make_uint2(0u, 0u);
+      if (g < M)
+        b = *reinterpret_cast<const uint2*>(st + GB_CODE_BYTES + g * 128 +
+                                            (((2 * j + (t >> 1)) ^ ((g & 3) << 1)) << 4) + 8 * (t & 1));
+      uint32_t frag[4];
+      dequant_step<FMT>(a[j], s.x, s.y, code, frag);
+      mma_16816(acc, frag, __byte_perm(b.x, b.y, 0x5410), __byte_perm(b.x, b.y, 0x7632));
+    }
+  }
+
+  // acc[h], acc[2 + h]: row m = 2t + h, columns 2g and 2g + 1 of the warp's 16
+  const int col = col0 + 16 * warp + 2 * g;
+  if (S == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 2 * t + h;
+      if (m >= M) continue;
+      float v0 = acc[h], v1 = acc[2 + h];
+      if (FMT == FMT_INT4) {
+        v0 = col < OUT ? __fmul_rn(v0, scale[col]) : 0.f;
+        v1 = col + 1 < OUT ? __fmul_rn(v1, scale[col + 1]) : 0.f;
+      }
+      __nv_bfloat16* o = out + (size_t)m * OUT + col;
+      if (OUT % 2 == 0) {
+        if (col < OUT) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < OUT) o[0] = __float2bfloat16(v0);
+        if (col + 1 < OUT) o[1] = __float2bfloat16(v1);
+      }
+    }
+    return;
+  }
+  const size_t ld = (size_t)gridDim.x * GB_COLS;  // workspace (S, 8, tiles x 128)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 2 * t + h;
+    if (m < M)
+      *reinterpret_cast<float2*>(ws + ((size_t)slice * GV_MAX_M + m) * ld + col) =
+          make_float2(acc[h], acc[2 + h]);
+  }
+  __threadfence();  // the partials, before the count
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + tile, 1) == S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the count, before the other slices' partials
+  for (int idx = tid; idx < M * GB_COLS; idx += GB_THREADS) {
+    const int m = idx / GB_COLS, c = col0 + idx % GB_COLS;
+    if (c >= OUT) continue;
+    const float* p = ws + (size_t)m * ld + c;
+    float part[GB_MAX_SPLIT];  // every slice's load in flight at once
+#pragma unroll
+    for (int sl = 0; sl < GB_MAX_SPLIT; ++sl)
+      part[sl] = sl < S ? __ldcg(p + (size_t)sl * GV_MAX_M * ld) : 0.f;
+    float v = part[0];
+#pragma unroll
+    for (int sl = 1; sl < GB_MAX_SPLIT; ++sl)
+      if (sl < S) v += part[sl];
+    if (FMT == FMT_INT4) v = __fmul_rn(v, scale[c]);
+    out[(size_t)m * OUT + c] = __float2bfloat16(v);
+  }
+  if (tid == 0) counters[tile] = 0;
 }
 
 // ------------------------------------------------------- float32 GEMM
@@ -392,15 +648,28 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
 
 template <int FMT, typename T>
 int launch(const void* x, const void* packed, const void* scale, const void* code, void* out,
-           int M, int IN, int OUT, void* stream) {
+           int M, int IN, int OUT, int S, void* ws, void* counters, void* stream) {
   if (M < 1 || IN < 2 || IN % 2 || OUT < 1 || (FMT == FMT_NF4 && (IN % 64 || !code)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   if (M <= GV_MAX_M) {
-    gemv_kernel<FMT, T><<<(OUT + GV_BN - 1) / GV_BN, GV_THREADS, 0, st>>>(
-        (const T*)x, (const uint8_t*)packed, (const float*)scale, (const float*)code, (T*)out,
-        M, IN, OUT);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (bf16) {
+      if (S < 1 || S > (IN + 63) / 64 || S > GB_MAX_SPLIT || (S > 1 && (!ws || !counters)))
+        return (int)cudaErrorInvalidValue;
+      const int xvec = IN % 8 == 0 && ((uintptr_t)x & 15) == 0;
+      const int wvec = OUT % 16 == 0 && ((uintptr_t)packed & 15) == 0 &&
+                       (FMT == FMT_INT4 || ((uintptr_t)scale & 15) == 0);
+      gemv_bf16<FMT><<<dim3((OUT + GB_COLS - 1) / GB_COLS, S), GB_THREADS, 0, st>>>(
+          (const __nv_bfloat16*)x, (const uint8_t*)packed, (const float*)scale,
+          (const float*)code, (__nv_bfloat16*)out, (float*)ws, (int*)counters, M, IN, OUT, S,
+          xvec, wvec);
+    } else {
+      gemv_kernel<FMT, float><<<(OUT + GV_BN - 1) / GV_BN, GV_THREADS, 0, st>>>(
+          (const float*)x, (const uint8_t*)packed, (const float*)scale, (const float*)code,
+          (float*)out, M, IN, OUT);
+    }
+  } else if constexpr (bf16) {
     const dim3 grid((OUT + WN - 1) / WN, (M + WM - 1) / WM);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
     const cudaError_t err = cudaFuncSetAttribute(
@@ -424,15 +693,22 @@ int launch(const void* x, const void* packed, const void* scale, const void* cod
 }  // namespace
 
 // fmt: 0 = int4 (scale (OUT,)), 1 = nf4 (scale = bscale (IN/64, OUT), code = 16 floats);
-// bf16: 0 = float32 x and out, 1 = bfloat16.  Returns a cudaError_t.
+// bf16: 0 = float32 x and out, 1 = bfloat16.  The bf16 GEMV (M <= 8) takes S K
+// slices; with S > 1, ws holds at least S x 8 x (128 ceil(OUT / 128)) floats and
+// counters ceil(OUT / 128) int32 zeros (the last CTA of a tile resets its own).
+// Returns a cudaError_t.
 extern "C" int mars_matmul_4bit(int fmt, int bf16, const void* x, const void* packed,
                                 const void* scale, const void* code, void* out, int M, int IN,
-                                int OUT, void* stream) {
+                                int OUT, int S, void* ws, void* counters, void* stream) {
   if (fmt == FMT_INT4)
-    return bf16 ? launch<FMT_INT4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, stream)
-                : launch<FMT_INT4, float>(x, packed, scale, code, out, M, IN, OUT, stream);
+    return bf16 ? launch<FMT_INT4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, S, ws,
+                                                  counters, stream)
+                : launch<FMT_INT4, float>(x, packed, scale, code, out, M, IN, OUT, S, ws,
+                                          counters, stream);
   if (fmt == FMT_NF4)
-    return bf16 ? launch<FMT_NF4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, stream)
-                : launch<FMT_NF4, float>(x, packed, scale, code, out, M, IN, OUT, stream);
+    return bf16 ? launch<FMT_NF4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, S, ws,
+                                                 counters, stream)
+                : launch<FMT_NF4, float>(x, packed, scale, code, out, M, IN, OUT, S, ws,
+                                         counters, stream);
   return (int)cudaErrorInvalidValue;
 }

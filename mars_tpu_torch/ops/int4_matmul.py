@@ -14,10 +14,13 @@ Two formats, both two nibbles per byte along the INPUT dimension of an
 
 On a CUDA tensor ``matmul_int4`` / ``matmul_nf4`` launch the hand-written
 Hopper kernels of ``csrc/int4_matmul.cu`` or raise, one launch per call:
-for M ≤ 8 rows (decode) a GEMV on the CUDA cores; for M > 8 (prefill) with
-bfloat16 x a tensor-core GEMM (the weights dequantized once per CTA and K
-step into a bf16 tile in shared memory, wgmma); for M > 8 with float32 x
-the SIMT GEMM on the CUDA cores.  On a CPU tensor they
+for M ≤ 8 rows (decode) with bfloat16 x a split-K GEMV on the tensor cores
+(``gemv_split`` picks the K slices; the last CTA of a column tile sums the
+slices' float32 partials in slice order from a workspace this module keeps
+per device and stream); with float32 x a GEMV on the CUDA cores; for M > 8
+(prefill) with bfloat16 x a tensor-core GEMM (the weights dequantized once
+per CTA and K step into a bf16 tile in shared memory, wgmma); for M > 8
+with float32 x the SIMT GEMM on the CUDA cores.  On a CPU tensor they
 take ``matmul_int4_plain`` / ``matmul_nf4_plain``, which follow the JAX
 package's non-TPU branch of ``quantized_dense``: the weight unpacked to x's
 type, products and sums in float32, the result cast to x's type.
@@ -25,16 +28,25 @@ type, products and sums in float32, the result cast to x's type.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from mars_tpu_torch.ops import build
 
 _FMT_INT4, _FMT_NF4 = 0, 1
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p] * 3)
 _CODE: Dict[torch.device, torch.Tensor] = {}
+# (device, stream) -> (float32 partials, int32 arrival counters of the column tiles)
+_WORKSPACE: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+GEMV_MAX_ROWS = 8     # x rows the GEMV takes: the n8 of its mma
+GEMV_COLS = 128       # output columns a CTA of the GEMV owns
+GEMV_BLOCK = 64       # input rows of a K block (one NF4 scale row)
+GEMV_MAX_SPLIT = 16
+GEMV_MIN_CTAS = 2 * 132  # two CTAs on each SM of an H100 SXM
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -79,6 +91,37 @@ def matmul_nf4_plain(x: torch.Tensor, packed: torch.Tensor, bscale: torch.Tensor
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def gemv_split(d_in: int, d_out: int) -> int:
+    """K slices S of the bf16 GEMV at (IN, OUT): the smallest power of two
+    for which the 128-column tiles × S make ``GEMV_MIN_CTAS`` CTAs, at most
+    16 and at most the 64-row blocks of IN.  A constant of the shape (not
+    of the card), so the summation order, and the result, is one on every
+    card: 4096→4096 and 11008→4096 take 16, 4096→11008 takes 4."""
+    tiles = -(-d_out // GEMV_COLS)
+    blocks = -(-d_in // GEMV_BLOCK)
+    s = 1
+    while tiles * s < GEMV_MIN_CTAS and 2 * s <= min(GEMV_MAX_SPLIT, blocks):
+        s *= 2
+    return s
+
+
+def _workspace(device: torch.device, stream: int, floats: int,
+               tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GEMV's split-K workspace on (device, stream), grown to hold
+    ``floats`` partials and ``tiles`` counters; zeroed once when allocated
+    (the last CTA of each tile resets its counter), nothing allocated per
+    call once warm."""
+    key = (device, stream)
+    ws, counters = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.zeros(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = ws, counters
+    return ws, counters
+
+
 def _library() -> ctypes.CDLL:
     return build.load("int4_matmul", {"mars_matmul_4bit": _ARGTYPES})
 
@@ -114,10 +157,20 @@ def _launch(fmt: int, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     if m == 0:
         return out
     code = _code_on(x.device) if fmt == _FMT_NF4 else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16 = x.dtype == torch.bfloat16
+    split, ws, counters = 1, None, None
+    if bf16 and m <= GEMV_MAX_ROWS:
+        split = gemv_split(d_in, d_out)
+        if split > 1:
+            tiles = -(-d_out // GEMV_COLS)
+            ws, counters = _workspace(x.device, stream, split * GEMV_MAX_ROWS * tiles * GEMV_COLS,
+                                      tiles)
     err = _library().mars_matmul_4bit(
-        fmt, int(x.dtype == torch.bfloat16), x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-        None if code is None else code.data_ptr(), out.data_ptr(), m, d_in, d_out,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        fmt, int(bf16), x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+        None if code is None else code.data_ptr(), out.data_ptr(), m, d_in, d_out, split,
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        stream)
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed with CUDA error {err} "
                            f"(x {tuple(x.shape)}, packed {tuple(packed.shape)})")

@@ -255,6 +255,109 @@ def test_4bit_gemm_bf16_is_deterministic(dev, fmt):
     assert torch.equal(got, fn(x, packed, scale))
 
 
+def _gemv_inputs(fmt, din, dout, dev, seed=0, offset=0):
+    """Weights quantized on the card (the 7B's shapes are slow on the host);
+    ``offset`` > 0 puts the packed codes ``offset`` bytes into a larger
+    buffer, so their pointer is not 16-byte aligned."""
+    from mars_tpu_torch.models import quantization as TQ
+
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randn(din, dout).astype(np.float32)).to(dev)
+    leaf = TQ.quantize_kernel(w, 4) if fmt == "int4" else TQ.quantize_kernel_nf4(w)
+    keys = ("q4", "scale") if fmt == "int4" else ("nf4", "bscale")
+    packed, scale = leaf[keys[0]], leaf[keys[1]]
+    if offset:
+        buf = torch.zeros(packed.numel() + offset, dtype=packed.dtype, device=dev)
+        buf[offset:] = packed.reshape(-1)
+        packed = buf[offset:].view(packed.shape)
+        assert packed.is_contiguous() and packed.data_ptr() % 16 == offset % 16
+    return rng, packed, scale
+
+
+def _check_gemv(fmt, rng, packed, scale, m, dev):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    din = packed.shape[0] * 2
+    x = torch.from_numpy(rng.randn(m, din).astype(np.float32)).to(dev, torch.bfloat16)
+    fn, plain = ((im.matmul_int4, im.matmul_int4_plain) if fmt == "int4"
+                 else (im.matmul_nf4, im.matmul_nf4_plain))
+    before = fn.launches
+    got = fn(x, packed, scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(x, packed, scale).float()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, packed.shape[1])
+    assert torch.isfinite(got.float()).all()
+    top = want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -7, atol=2 ** -7 * top)
+    return x, got
+
+
+# the bf16 GEMV (M <= 8): the 7B's decode shapes (S = 16, 4, 16), slices of
+# unequal length (1984 -> 384: 31 blocks in 16 slices; 320 -> 384: 5 in 4),
+# ragged OUT (199, 999: the byte-load path), int4's ragged IN (300: 150
+# packed rows, no whole k16 step at the end, no 16-byte x chunks), NF4 at IN
+# 320, one slice (S = 1: each CTA stores its own outputs, no workspace; odd
+# OUT 199 element by element, even OUT in bf16 pairs, 33 800 and 33 792
+# columns with two blocks a slice); one shape per case, every M the GEMV
+# takes
+@pytest.mark.parametrize("fmt,din,dout", [
+    ("int4", 4096, 4096), ("int4", 4096, 11008), ("int4", 11008, 4096),
+    ("nf4", 4096, 4096), ("nf4", 4096, 11008), ("nf4", 11008, 4096),
+    ("int4", 1984, 384), ("nf4", 320, 384), ("int4", 512, 199), ("int4", 300, 999),
+    ("nf4", 320, 199), ("nf4", 1024, 999), ("int4", 64, 199), ("nf4", 64, 384),
+    ("int4", 128, 33800), ("nf4", 128, 33792)])
+def test_4bit_gemv_bf16_matches_plain(dev, fmt, din, dout):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    rng, packed, scale = _gemv_inputs(fmt, din, dout, dev)
+    split = im.gemv_split(din, dout)
+    if (din, dout) in ((1984, 384), (320, 384)):
+        blocks = -(-din // 64)
+        assert len({(i + 1) * blocks // split - i * blocks // split for i in range(split)}) == 2
+    if din <= 128:
+        assert split == 1
+    for m in (1, 2, 3, 5, 8):
+        _check_gemv(fmt, rng, packed, scale, m, dev)
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_gemv_bf16_unaligned_packed(dev, fmt):
+    """Packed codes one byte into a larger buffer: no cp.async of them."""
+    rng, packed, scale = _gemv_inputs(fmt, 1024, 384, dev, offset=1)
+    for m in (1, 4, 8):
+        _check_gemv(fmt, rng, packed, scale, m, dev)
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_gemv_bf16_is_deterministic(dev, fmt):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
+    rng, packed, scale = _gemv_inputs(fmt, 4096, 4096, dev)
+    x, got = _check_gemv(fmt, rng, packed, scale, 4, dev)
+    for _ in range(3):
+        assert torch.equal(got, fn(x, packed, scale))
+
+
+def test_4bit_gemv_bf16_workspace_resets(dev):
+    """Shape A (16 slices over 32 column tiles), shape B (4 over 86), A
+    again: the last result equals the first bit for bit, so every tile's
+    arrival counter went back to 0 and B's partials did not leak into A."""
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    rng_a, packed_a, scale_a = _gemv_inputs("int4", 4096, 4096, dev, seed=1)
+    rng_b, packed_b, scale_b = _gemv_inputs("int4", 4096, 11008, dev, seed=2)
+    x_a, first = _check_gemv("int4", rng_a, packed_a, scale_a, 4, dev)
+    _check_gemv("int4", rng_b, packed_b, scale_b, 8, dev)
+    again = im.matmul_int4(x_a, packed_a, scale_a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _, counters = im._WORKSPACE[(x_a.device, stream)]
+    assert int(counters.abs().sum()) == 0
+
+
 def test_4bit_matmul_rejects_what_it_does_not_take(dev):
     from mars_tpu_torch.ops import int4_matmul as im
 

@@ -2,6 +2,7 @@
 """A/B the CUDA kernels of two or more mars_tpu_torch checkouts on one card.
 
     python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --text-path PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
 
 Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
 run one after another, in the order given (repeat them to alternate), each
@@ -11,44 +12,85 @@ path's shapes, ``attention_notap`` at the untapped blocks' shapes (an
 AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and ``windowed_attention`` at SAM
 ViT-H's windowed layer (each in float32 and bfloat16), ``grid_attention`` at
 SAM ViT-H's global layer (both types) and ViT-B's (bfloat16), and
-``matmul_int4`` / ``matmul_nf4`` at ``chip_smoke.py``'s shapes (bfloat16, 4
-decode rows and 2330 prefill rows).
-Prints one JSON line per root and shape, then the card's name and power
-limit.  Imports nothing of JAX.
+``matmul_int4`` / ``matmul_nf4``: the bf16 decode GEMV at the 7B's three
+decode shapes at 1 and 4 rows, warm (20 calls on one weight, which the L2
+may hold), device-held, and cold (the calls rotate through copies of the weight totalling
+>= 100 MB, twice the L2), beside cuBLAS on the dense bf16 weight timed both
+ways; the float32 GEMV at 4 x 4096 -> 11008; the bf16 prefill GEMM at
+``chip_smoke.py``'s shapes (2330 rows).
+With ``--text-path`` each root runs ``chip_smoke.py``'s text-path phase
+instead (one ViP-LLaVA-7B text block per format, int4 then NF4, through that
+root's package): block ms, prefill ms and decode ms per step.
+The timers are this checkout's ``chip_smoke.py``'s, for every root:
+``ms`` is CUDA events around 20 warm calls (``cuda_ms``); the decode rows
+also carry device-held times (``held_ms``, ``cold_ms`` and cuBLAS's
+``library_held_ms``, ``library_cold_ms``: CUDA events around calls
+enqueued while the device is held) and the host's enqueue time a call
+(``host_us``, ``library_host_us``).  Prints one JSON line per root and
+shape, then the card's name and power limit.  Imports nothing of JAX.
 """
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import time
 
 TAP_SHAPES = ((16, 1374, 64), (12, 1090, 64))
 NOTAP_SHAPES = ((16, 16, 577, 64), (1, 16, 1374, 64), (1, 12, 1090, 64))
 WINDOW_SHAPES = ((25, 16, 14, 14, 80),)  # (windows, heads, Hw, Ww, hd)
 # (heads, grid H, grid W, hd, types): ViT-H and ViT-B global layers
 GRID_SHAPES = ((16, 64, 64, 80, ("float32", "bfloat16")), (12, 64, 64, 64, ("bfloat16",)))
-QUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (5120, 4096), (1024, 4096),
-                (1984, 999))
-QUANT_ROWS = (4, 2330)
+DECODE_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+DECODE_ROWS = (1, 4)
+PREFILL_SHAPES = DECODE_SHAPES + ((5120, 4096), (1024, 4096), (1984, 999))
+PREFILL_ROWS = 2330
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _ms(fn, iters=20, warmup=3):
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py`` (its timers and its text-path
+    phase), whatever a root holds: every root is timed by one yardstick."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def host_us(fn, iters=200):
+    """Host microseconds a call of ``fn`` takes to enqueue (the wrapper's
+    checks, its ctypes call, the launch), with the device held so that no
+    call waits on it: what a host-bound decode step pays a call."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
     torch.cuda.synchronize()
-    start.record()
+    torch.cuda._sleep(int(2e5 * iters))  # ~0.1 ms of device time a call, past the host's pace
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    stop.record()
+    host = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return host
+
+
+def text_worker(root):
+    """chip_smoke.phase_text_path on ``root``'s package: its rows tagged
+    with the root."""
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch import device as device_lib
+
+    device_lib.resolve("cuda")
+    chip_smoke.emit = lambda obj: print(json.dumps({"root": root, **obj}), flush=True)
+    chip_smoke.phase_text_path({})
 
 
 def worker(root):
     import torch
 
+    smoke = _chip_smoke()
     sys.path.insert(0, root)
     from mars_tpu_torch.models import quantization as Q
     from mars_tpu_torch.ops import build, flash_attention as fa, int4_matmul as im
@@ -66,55 +108,77 @@ def worker(root):
             q, k, v = (torch.randn((h, l, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             emit(kernel="attention_with_tap", shape=[h, l, d], dtype=str(dtype)[6:],
-                 ms=_ms(lambda: fa.attention_with_tap(q, k, v)))
+                 ms=smoke.cuda_ms(lambda: fa.attention_with_tap(q, k, v)))
     for b, h, l, d in NOTAP_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             emit(kernel="attention_notap", shape=[b, h, l, d], dtype=str(dtype)[6:],
-                 ms=_ms(lambda: fa.attention_notap(q, k, v)))
+                 ms=smoke.cuda_ms(lambda: fa.attention_notap(q, k, v)))
     for b, nh, hw, ww, d in WINDOW_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             l = hw * ww
             args = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for shape in
                     ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, hw), (b, nh, l, ww))]
             emit(kernel="windowed_attention", shape=[b, nh, l, d], dtype=str(dtype)[6:],
-                 ms=_ms(lambda: sa.windowed_attention(*args, (hw, ww))))
+                 ms=smoke.cuda_ms(lambda: sa.windowed_attention(*args, (hw, ww))))
     for nh, hg, wg, d, dtypes in GRID_SHAPES:
         for dt in dtypes:
             l = hg * wg
             args = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
                     for shape in ((nh, l, d), (nh, l, d), (nh, l, d), (nh, l, hg), (nh, l, wg))]
             emit(kernel="grid_attention", shape=[nh, l, d], grid=[hg, wg], dtype=dt,
-                 ms=_ms(lambda: sa.grid_attention(*args, (hg, wg))))
+                 ms=smoke.cuda_ms(lambda: sa.grid_attention(*args, (hg, wg))))
     gen = torch.Generator(device="cuda").manual_seed(4)
     for fmt in ("int4", "nf4"):
         fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
-        for din, dout in QUANT_SHAPES:
+        for din, dout in PREFILL_SHAPES:
             if fmt == "int4":
                 q = torch.randint(-7, 8, (din, dout), generator=gen, device="cuda",
                                   dtype=torch.int8)
-                packed = im.pack_int4(q)
-                scale = torch.rand((dout,), generator=gen, device="cuda") * 0.1 + 0.01
+                leaf = {"q4": im.pack_int4(q), "scale": torch.rand(
+                    (dout,), generator=gen, device="cuda") * 0.1 + 0.01}
+                packed, scale = leaf["q4"], leaf["scale"]
             else:
                 leaf = Q.quantize_kernel_nf4(torch.randn((din, dout), generator=gen,
                                                          device="cuda"))
                 packed, scale = leaf["nf4"], leaf["bscale"]
-            for m in QUANT_ROWS:
-                x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
-                emit(kernel=f"matmul_{fmt}", shape=[m, din, dout], dtype="bfloat16",
-                     ms=_ms(lambda: fn(x, packed, scale)))
+            if (din, dout) in DECODE_SHAPES:
+                dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
+                weights, denses = smoke.cold_copies((packed, scale)), smoke.cold_copies((dense,))
+                for m in DECODE_ROWS:
+                    x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+                    emit(kernel=f"matmul_{fmt}", shape=[m, din, dout], dtype="bfloat16",
+                         ms=smoke.cuda_ms(lambda: fn(x, packed, scale)),
+                         held_ms=smoke.held_ms(lambda: fn(x, packed, scale)),
+                         cold_ms=smoke.cold_ms(lambda p, s: fn(x, p, s), weights),
+                         library_ms=smoke.cuda_ms(lambda: x @ dense),
+                         library_held_ms=smoke.held_ms(lambda: x @ dense),
+                         library_cold_ms=smoke.cold_ms(lambda w: x @ w, denses),
+                         host_us=host_us(lambda: fn(x, packed, scale)),
+                         library_host_us=host_us(lambda: x @ dense))
+                if (din, dout) == (4096, 11008):
+                    x = torch.randn((4, din), generator=gen, device="cuda")
+                    emit(kernel=f"matmul_{fmt}", shape=[4, din, dout], dtype="float32",
+                         ms=smoke.cuda_ms(lambda: fn(x, packed, scale)))
+                del dense, weights, denses
+            x = torch.randn((PREFILL_ROWS, din), generator=gen, device="cuda").to(torch.bfloat16)
+            emit(kernel=f"matmul_{fmt}", shape=[PREFILL_ROWS, din, dout], dtype="bfloat16",
+                 ms=smoke.cuda_ms(lambda: fn(x, packed, scale)))
 
 
 def main(argv):
-    if len(argv) >= 2 and argv[0] == "--worker":
-        worker(os.path.abspath(argv[1]))
+    if len(argv) >= 2 and argv[0] in ("--worker", "--text-worker"):
+        (worker if argv[0] == "--worker" else text_worker)(os.path.abspath(argv[1]))
         return 0
+    mode = "--worker"
+    if argv and argv[0] == "--text-path":
+        mode, argv = "--text-worker", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root]).returncode
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), mode, root]).returncode
         if rc:
             return rc
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
