@@ -15,9 +15,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      CUDA events beside its bound and a PyTorch yardstick;
   3. ``grid_attention`` the same way at SAM ViT-H's and ViT-B's
      global-layer shapes and a ragged grid;
-  4. ``auction`` against its plain version, bit-exact, on the five test
-     instances and the full-width forward and reverse matching instances
-     of synthetic episode 0, with the round counts;
+  4. ``auction`` against its plain version, bit-exact, and rerun for
+     bitwise equality, on the five test instances, a dense contested one
+     (1369², every row valid, five phases) and the full-width forward and
+     reverse matching instances of synthetic episode 0, with the round
+     counts and microseconds a round;
   5. the tiny golden ranking episode (tests/fixtures) on the card: merged
      mask equal to the fixture;
   6. the tiny golden Matcher episode on the card: the fixture's content
@@ -123,9 +125,14 @@ WINDOW_TOL = 2e-5  # float32: the same sums in other orders
 # (at most ~0.9), a limit of ~6.5e-3 at a typical element; a kernel that
 # skips one key tile moves elements 20-40 times past it.
 BF16_ATTN_REL = 2 ** -7
-# tests/test_ops.py's Pallas-vs-XLA auction instances: (seed, T, N, phases)
-AUCTION_CASES = ((0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1), (5, 120, 120, 5),
-                 (6, 3, 700, 1))
+# tests/test_ops.py's Pallas-vs-XLA auction instances, then the dense contested
+# geometry of negative_points_from_cost (mars_tpu/pipeline/matcher.py:193:
+# square, every row valid, five ε-phases): (name, seed, T, N, phases)
+AUCTION_CASES = tuple((f"test_ops_seed{seed}_{t}x{n}", seed, t, n, phases)
+                      for seed, t, n, phases in ((0, 200, 300, 1), (2, 96, 96, 1),
+                                                 (3, 150, 150, 1), (5, 120, 120, 5),
+                                                 (6, 3, 700, 1))) + (
+    ("dense_contested_1369x1369", 8, 1369, 1369, 5),)
 # ViP-LLaVA-7B's dense shapes (IN, OUT) and a ragged one; rows: decode at
 # batch 1, 4 and 8 (the GEMV's widest), prefill of 4 rows x ~582 positions
 QUANT_SHAPES = (("llama_qkvo", 4096, 4096), ("llama_gate_up", 4096, 11008),
@@ -512,23 +519,45 @@ def _matching_instances():
                                               pair_valid))
 
 
+def auction_case(seed, t, n):
+    """An ``AUCTION_CASES`` instance → (scores (T, N) float32, valid (T,)
+    bool), numpy, as tests/test_ops.py makes them (seed 3: quantized)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    s = (rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0 if seed == 3
+         else rng.rand(t, n).astype(np.float32))
+    valid = rng.rand(t) < (0.3 if t != n else 1.1)
+    valid[0] |= not valid.any()
+    return s, valid
+
+
+def auction_phases(phase, scores, valid, eps):
+    """Every ε-phase of an instance in turn, from zero prices, through
+    ``phase`` (the kernel's wrapper or the plain version) → (col_of_row,
+    prices, [each phase's round counts])."""
+    import torch
+
+    prices = torch.zeros((scores.shape[1],), dtype=torch.float32, device=scores.device)
+    col, counts = None, []
+    for e in eps:
+        col, prices, c = phase(scores, valid, prices, e, 20000)
+        counts.append(c)
+    return col, prices, counts
+
+
 def phase_auction(state):
     """Each instance's phases on the wrapper's own inputs (``phase_inputs``):
     the kernel and the plain version on the card, compared bit for bit."""
-    import numpy as np
     import torch
 
     from mars_tpu_torch.ops import assignment as asg
 
     cases = []
-    for seed, t, n, phases in AUCTION_CASES:
-        rng = np.random.RandomState(seed)
-        s = (rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0 if seed == 3
-             else rng.rand(t, n).astype(np.float32))
-        valid = rng.rand(t) < (0.3 if t != n else 1.1)
-        valid[0] |= not valid.any()
-        cases.append((f"test_ops_seed{seed}_{t}x{n}", torch.from_numpy(s).cuda(),
-                      torch.from_numpy(valid).cuda(), phases, None))
+    for name, seed, t, n, phases in AUCTION_CASES:
+        s, valid = auction_case(seed, t, n)
+        cases.append((name, torch.from_numpy(s).cuda(), torch.from_numpy(valid).cuda(), phases,
+                      None))
     cases += [(name, s, v, 1, 128) for name, s, v in _matching_instances()]
     rows = []
     for name, s, v, phases, chunk in cases:
@@ -536,31 +565,31 @@ def phase_auction(state):
         n = scores.shape[1]
 
         def run(phase):
-            prices = torch.zeros((n,), dtype=torch.float32, device="cuda")
-            col, counts = None, []
-            for e in eps:
-                col, prices, c = phase(scores, valid, prices, e, 20000)
-                counts.append(c)
-            return col, prices, counts
+            return auction_phases(phase, scores, valid, eps)
 
         col_k, pr_k, st_k = run(asg._auction_phase_kernel)
         t0 = time.perf_counter()
         col_p, pr_p, st_p = run(asg._auction_phase_plain)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        col_r, pr_r, st_r = run(asg._auction_phase_kernel)
         bidder_rows = sum(c[2] + c[3] for c in st_k)
+        rounds = sum(c[0] + c[1] for c in st_k)
+        ms = cuda_ms(lambda: run(asg._auction_phase_kernel), iters=5, warmup=1)
         row = {"phase": "kernel", "kernel": "auction", "instance": name,
                "shape": list(scores.shape), "valid_rows": int(valid.sum()), "phases": phases,
                "equal": bool(torch.equal(col_k, col_p) and torch.equal(pr_k, pr_p)
                              and st_k == st_p),
+               "rerun_equal": bool(torch.equal(col_r, col_k) and st_r == st_k and torch.equal(
+                   pr_r.view(torch.int32), pr_k.view(torch.int32))),
                "rounds": {"dense": sum(c[0] for c in st_k), "small": sum(c[1] for c in st_k)},
                "bidder_rows": bidder_rows, "assigned": int((col_k >= 0).sum()),
-               "ms": cuda_ms(lambda: run(asg._auction_phase_kernel), iters=5, warmup=1),
+               "ms": ms, "us_per_round": ms * 1e3 / max(rounds, 1),
                "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": bidder_rows * n * 4.0 / PEAK_BYTES * 1e3, "bound_by": "bytes"}
         emit(row)
         rows.append(row)
-        if not row["equal"]:
+        if not (row["equal"] and row["rerun_equal"]):
             raise AssertionError(f"auction kernel differs from its plain version: {row}")
     state["auction_rows"] = rows
 
@@ -1393,8 +1422,8 @@ def kernels_line(state):
         "max_abs_err": 0.0 if auc and all(r["equal"] for r in auc) else None,
         **{k: auc_first.get(k) for k in keys},
         "shape": auc_first.get("shape"), "dtype": "float32",
-        "instances": [{k: r[k] for k in ("instance", "shape", "equal", "rounds", "bidder_rows")
-                       + keys} for r in auc],
+        "instances": [{k: r[k] for k in ("instance", "shape", "equal", "rerun_equal", "rounds",
+                                         "bidder_rows", "us_per_round") + keys} for r in auc],
     }, _attention_entry(state, "attention_notap", "notap_rows", "dinov2_l_518",
                         "mars_tpu_torch/csrc/attention_notap.cu",
                         "mars_tpu/ops/flash_attention.py:187", launches, by_path),

@@ -8,9 +8,10 @@ at least ε.  One ε-phase runs the bidding loop to the end; phases carry
 their prices (Bertsekas ε-scaling).
 
 On a CUDA tensor each phase is ONE launch of the hand-written Hopper kernel
-``csrc/auction.cu`` (the whole loop on one CTA, its source note says what
-bounds it) or raises; on a CPU tensor it is ``_auction_phase_plain``, a
-host loop of vector rounds that mirrors the JAX package's XLA path (a dense
+``csrc/auction.cu`` (the whole loop on one cluster of 8 CTAs, each a slice
+of a small round's columns; its source note says what bounds it) or
+raises; on a CPU tensor it is ``_auction_phase_plain``, a host loop of
+vector rounds that mirrors the JAX package's XLA path (a dense
 round, or a gather of the bidder rows when at most ``small_k`` rows bid).
 The two are bit-exact, and the plain version is bit-exact with the JAX
 package's ``auction_assignment(use_kernel=False)``.
@@ -28,6 +29,10 @@ from mars_tpu_torch.ops import build
 NEG = -1e9
 SMALL_K = 16
 _MAX_SHARED = 227 * 1024  # csrc/auction.cu MAX_SMEM; the kernel holds 16 (T + N) bytes
+# and EXTRA_BYTES: the cluster's slice partials (2 rounds x 16 bidders x 8 CTAs
+# x 16 bytes) and their two mbarriers, the warps' append counts, the list
+# lengths
+_EXTRA_SHARED = 2 * 16 * 8 * 16 + 16 + 4 * (16 + 2)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_int] * 4
              + [ctypes.c_void_p] * 4)
 
@@ -96,9 +101,9 @@ def _auction_phase_kernel(scores, row_valid, prices, eps, max_rounds: int,
     if row_valid.shape != (t,) or prices.shape != (n,):
         raise ValueError(f"row_valid {tuple(row_valid.shape)} / prices {tuple(prices.shape)} "
                          f"do not fit scores {tuple(scores.shape)}")
-    if 16 * (t + n) > _MAX_SHARED:
+    if 16 * (t + n) + _EXTRA_SHARED > _MAX_SHARED:
         raise ValueError(f"auction of {t} x {n} exceeds the kernel's shared memory "
-                         f"(T + N <= {_MAX_SHARED // 16})")
+                         f"(T + N <= {(_MAX_SHARED - _EXTRA_SHARED) // 16})")
     scores = scores.contiguous()
     valid_u8 = row_valid.to(torch.uint8).contiguous()
     prices = prices.contiguous()

@@ -149,9 +149,19 @@ def test_grid_attention_bf16_is_deterministic(dev, nh, h, w, d):
     assert torch.equal(sa.grid_attention(*args, (h, w)), sa.grid_attention(*args, (h, w)))
 
 
+AUCTION_BOUNDARY = (1, 2, 16, 17, 31, 32, 33)  # tests/test_torch_auction.py's BOUNDARY_BIDDERS
+
+
 def _auction_instance(seed, t, n):
-    """The instances of tests/test_ops.py's Pallas-vs-XLA auction test."""
+    """The instances of tests/test_ops.py's Pallas-vs-XLA auction test; seed
+    100 + nb: tests/test_torch_auction.py's nb-boundary instance (48 x 64
+    quantized scores, exactly nb valid rows)."""
     rng = np.random.RandomState(seed)
+    if seed >= 100:
+        s = rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0
+        valid = np.zeros((t,), bool)
+        valid[rng.choice(t, seed - 100, replace=False)] = True
+        return s, valid
     if seed == 3:
         s = rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0
     else:
@@ -163,7 +173,8 @@ def _auction_instance(seed, t, n):
 
 
 @pytest.mark.parametrize("seed,t,n,phases", [(0, 200, 300, 1), (2, 96, 96, 1), (3, 150, 150, 1),
-                                             (5, 120, 120, 5), (6, 3, 700, 1)])
+                                             (5, 120, 120, 5), (6, 3, 700, 1)]
+                         + [(100 + nb, 48, 64, 1) for nb in AUCTION_BOUNDARY])
 def test_auction_kernel_equals_plain(dev, seed, t, n, phases):
     from mars_tpu_torch.ops import assignment as asg
 
@@ -179,6 +190,22 @@ def test_auction_kernel_equals_plain(dev, seed, t, n, phases):
     assert got_stats == want_stats
 
 
+def _phases_on_card(phase, scores, valid, eps):
+    from mars_tpu_torch.ops import assignment as asg
+
+    prices = torch.zeros((scores.shape[1],), dtype=torch.float32, device=scores.device)
+    out = []
+    for e in eps:
+        col, prices, counts = phase(scores, valid, prices, e, 20000)
+        out.append((col, prices, counts))
+    return out
+
+
+def _bitwise_equal(a, b):
+    return all(torch.equal(ca, cb) and torch.equal(pa.view(torch.int32), pb.view(torch.int32))
+               and sa == sb for (ca, pa, sa), (cb, pb, sb) in zip(a, b))
+
+
 def test_auction_phase_kernel_equals_plain_on_card(dev):
     """A matching-sized instance (1369², sparse valid rows), one phase with
     carried prices, both versions on the card."""
@@ -191,6 +218,36 @@ def test_auction_phase_kernel_equals_plain_on_card(dev):
     col_k, pr_k, st_k = asg._auction_phase_kernel(s, valid, prices, 2e-4, 20000)
     col_p, pr_p, st_p = asg._auction_phase_plain(s, valid, prices, 2e-4, 20000)
     assert torch.equal(col_k, col_p) and torch.equal(pr_k, pr_p) and st_k == st_p
+
+
+def test_auction_dense_contested_equals_plain_on_card(dev):
+    """The dense contested geometry of negative_points_from_cost
+    (mars_tpu/pipeline/matcher.py:193): 1369², every row valid, five
+    ε-phases with carried prices; kernel and plain version on the card."""
+    from mars_tpu_torch.ops import assignment as asg
+
+    rng = np.random.RandomState(8)
+    s = torch.from_numpy(rng.rand(1369, 1369).astype(np.float32)).to(dev)
+    scores, valid, _, eps = asg.phase_inputs(s, torch.ones((1369,), dtype=torch.bool,
+                                                           device=dev), 5)
+    got = _phases_on_card(asg._auction_phase_kernel, scores, valid, eps)
+    want = _phases_on_card(asg._auction_phase_plain, scores, valid, eps)
+    assert _bitwise_equal(got, want)
+    assert sum(c[0] for _, _, c in got) > 5  # dense rounds in every phase's opening
+
+
+def test_auction_kernel_reruns_bitwise(dev):
+    """Instances A, B, A on the kernel: A's two runs are bitwise equal (no
+    state carried between launches, the bidder list's order free)."""
+    from mars_tpu_torch.ops import assignment as asg
+
+    runs = []
+    for seed, t, n, phases in ((3, 150, 150, 1), (5, 120, 120, 5), (3, 150, 150, 1)):
+        s, valid = _auction_instance(seed, t, n)
+        scores, valid, _, eps = asg.phase_inputs(torch.from_numpy(s).to(dev),
+                                                 torch.from_numpy(valid).to(dev), phases)
+        runs.append(_phases_on_card(asg._auction_phase_kernel, scores, valid, eps))
+    assert _bitwise_equal(runs[0], runs[2])
 
 
 def _quant_inputs(fmt, m, din, dout, dtype, dev, seed=0):

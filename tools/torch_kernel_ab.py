@@ -12,6 +12,11 @@ path's shapes, ``attention_notap`` at the untapped blocks' shapes (an
 AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and ``windowed_attention`` at SAM
 ViT-H's windowed layer (each in float32 and bfloat16), ``grid_attention`` at
 SAM ViT-H's global layer (both types) and ViT-B's (bfloat16), and
+the auction (``_auction_phase_kernel``, every ε-phase of an instance) on
+the forward and reverse matching instances of synthetic episode 0 and
+the dense contested instance of ``chip_smoke.py``, with its rounds, the
+microseconds a round and a digest of the assignment and prices (the same in
+every root: the kernel is bit-exact), and
 ``matmul_int4`` / ``matmul_nf4``: the bf16 decode GEMV at the 7B's three
 decode shapes at 1 and 4 rows, warm (20 calls on one weight, which the L2
 may hold), device-held, and cold (the calls rotate through copies of the weight totalling
@@ -22,7 +27,8 @@ With ``--text-path`` each root runs ``chip_smoke.py``'s text-path phase
 instead (one ViP-LLaVA-7B text block per format, int4 then NF4, through that
 root's package): block ms, prefill ms and decode ms per step.
 The timers are this checkout's ``chip_smoke.py``'s, for every root:
-``ms`` is CUDA events around 20 warm calls (``cuda_ms``); the decode rows
+``ms`` is CUDA events around 20 warm calls (``cuda_ms``; the auction's
+instances 5, every phase a call); the decode rows
 also carry device-held times (``held_ms``, ``cold_ms`` and cuBLAS's
 ``library_held_ms``, ``library_cold_ms``: CUDA events around calls
 enqueued while the device is held) and the host's enqueue time a call
@@ -87,6 +93,37 @@ def text_worker(root):
     chip_smoke.phase_text_path({})
 
 
+def auction_rows(smoke, emit):
+    """The auction's instances: each ε-phase of one instance launched in
+    turn, as ``chip_smoke.phase_auction`` times them."""
+    import hashlib
+
+    import torch
+
+    from mars_tpu_torch.ops import assignment as asg
+
+    cases = [(name, s, v, 1, 128) for name, s, v in smoke._matching_instances()]
+    for name, seed, t, n, phases in smoke.AUCTION_CASES:
+        if name.startswith("dense_contested"):
+            s, v = smoke.auction_case(seed, t, n)
+            cases.append((name, torch.from_numpy(s).cuda(), torch.from_numpy(v).cuda(), phases,
+                          None))
+    for name, s, v, phases, chunk in cases:
+        scores, valid, _, eps = asg.phase_inputs(s, v, phases, chunk)
+
+        def run():
+            return smoke.auction_phases(asg._auction_phase_kernel, scores, valid, eps)
+
+        col, prices, counts = run()
+        rounds = sum(c[0] + c[1] for c in counts)
+        ms = smoke.cuda_ms(run, iters=5, warmup=1)
+        digest = hashlib.sha256(col.cpu().numpy().tobytes()
+                                + prices.cpu().numpy().tobytes()).hexdigest()[:16]
+        emit(kernel="auction", instance=name, shape=list(scores.shape), phases=phases,
+             rounds={"dense": sum(c[0] for c in counts), "small": sum(c[1] for c in counts)},
+             ms=ms, us_per_round=ms * 1e3 / max(rounds, 1), digest=digest)
+
+
 def worker(root):
     import torch
 
@@ -97,10 +134,12 @@ def worker(root):
     from mars_tpu_torch.ops import sam_attention as sa
 
     build.build_all(["attention_tap", "attention_notap", "sam_grid_attention",
-                     "sam_windowed_attention", "int4_matmul"])
+                     "sam_windowed_attention", "auction", "int4_matmul"])
 
     def emit(**row):
         print(json.dumps({"root": root, **row}), flush=True)
+
+    auction_rows(smoke, emit)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for h, l, d in TAP_SHAPES:
