@@ -62,9 +62,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
      launches checked exactly, each merged mask's IoU with the float32
      run's; then one zero-threshold Matcher call in bf16 and the ranking
      of its bucket;
- 17. one bf16 proposal-plus-ranking episode under torch.profiler, with
-     both switches on, then with both off (the default route);
- 18. the kernels line.
+ 17. five-shot episodes: ``cli_proposals --nshot 5 --bf16`` and ``cli --nshot
+     5 --bf16 --mask-proposals-path`` on its dumps with both switches on,
+     then one float32 ``cli --nshot 5 --generate-proposals`` episode; every
+     kernel's launches exact per episode;
+ 18. ``cli --models-path``: the ranking towers' seeded weights written as the
+     reference's checkpoint files (DINOv2-L reg4, CLIP-B/16 as a TorchScript
+     archive, AlphaCLIP's base and override), loaded through the zoo's
+     audited conversion; the merged masks equal phase 7's bit for bit;
+ 19. the other backbones: the tap against its plain version at DINOv2-S/B/g2
+     and CLIP-L/14 shapes, one ranking episode at ``--dino-backbone
+     vit_giant2`` and one at ``--vta-backbone ViT-L/14``;
+ 20. one bf16 proposal-plus-ranking episode under torch.profiler, with
+     both switches on, then with both off (the default route), then a
+     five-shot one with both on;
+ 21. the kernels line.
+Phase 4 also runs the five-shot matching instances of synthetic episode 0
+(1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
+(``ops/assignment.auction_variant``: its state partly or wholly in global
+memory).
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 the repository, it exits non-zero and prints no result.  Imports nothing
 of JAX or of the JAX package.
@@ -101,6 +117,10 @@ BF16_EPISODES = 2
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 GEOMETRIES = (("dinov2_l_518", 16, 1374, 64), ("clip_b16_528", 12, 1090, 64))
+# the tap at the other backbones' shapes (--dino-backbone vit_small, vit_base,
+# vit_giant2 @518; --vta-backbone ViT-L/14 @518)
+BACKBONE_GEOMETRIES = (("dinov2_s_518", 6, 1374, 64), ("dinov2_b_518", 12, 1374, 64),
+                       ("dinov2_g2_518", 24, 1374, 64), ("clip_l14_518", 16, 1370, 64))
 TAP_TOL = 1e-5  # the tap (float32 in both types) and the float32 output
 # (name, heads, grid H, grid W, head dim): SAM ViT-H and ViT-B @1024 global
 # layers, a ragged grid
@@ -110,7 +130,8 @@ GRID_TOL = 2e-5
 # (name, B, H, L, D): an AlphaCLIP-L/14@336 chunk, DINOv2-L @518 and CLIP-B/16
 # @528 at B = 1, and the widest head dim the kernel takes (two panels)
 NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518", 1, 16, 1374, 64),
-                    ("clip_b16_528", 1, 12, 1090, 64), ("head_dim_128", 2, 8, 577, 128))
+                    ("clip_b16_528", 1, 12, 1090, 64), ("head_dim_128", 2, 8, 577, 128),
+                    ("dinov2_l_518_5shot", 5, 16, 1374, 64))
 NOTAP_TOL = 2e-5
 # (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer (64 x 64
 # grid padded to 70 x 70: 25 windows), a ragged window at ViT-B/L's head dim
@@ -133,6 +154,19 @@ AUCTION_CASES = tuple((f"test_ops_seed{seed}_{t}x{n}", seed, t, n, phases)
                                                  (3, 150, 150, 1), (5, 120, 120, 5),
                                                  (6, 3, 700, 1))) + (
     ("dense_contested_1369x1369", 8, 1369, 1369, 5),)
+# past the kernel's shared memory (ops/assignment.auction_variant): the last
+# size that fits, the first that does not, grid 85 (T = N = 7 225), and a
+# five-shot reverse match at grid 54 past 16 N bytes; matching-like (30 % of
+# the rows valid, compacted), quantized scores for long wars:
+# (name, seed, T, N, quantized)
+AUCTION_LARGE = (("bound_7133x7133", 11, 7133, 7133, False),
+                 ("bound_7133x7134", 12, 7133, 7134, False),
+                 ("grid85_7225x7225", 13, 7225, 7225, False),
+                 ("grid85_quantized_7225x7225", 14, 7225, 7225, True),
+                 ("five_shot_g54_reverse_2916x14580", 15, 2916, 14580, False))
+FIVE_SHOT_EPISODES = 2
+MAIN_PATH_ARGS = ["--benchmark", "synthetic", "--episodes", str(EPISODES), "--gt-class-names",
+                  "--proposal-bucket", "128", "--input-size", "518", "--seed", "0"]
 # ViP-LLaVA-7B's dense shapes (IN, OUT) and a ragged one; rows: decode at
 # batch 1, 4 and 8 (the GEMV's widest), prefill of 4 rows x ~582 positions
 QUANT_SHAPES = (("llama_qkvo", 4096, 4096), ("llama_gate_up", 4096, 11008),
@@ -309,51 +343,56 @@ def phase_build(state):
                              f"spill stores: {spilled}")
 
 
-def phase_kernels(state):
+def _tap_row(name, h, l, d, dtype, gen):
+    """``attention_with_tap`` against its plain version at (h, l, d) in
+    ``dtype``: errors, a rerun's bitwise equality, times beside the bound
+    and SDPA (out only); raises on a disagreement."""
     import torch
     import torch.nn.functional as F
 
     from mars_tpu_torch.ops import flash_attention as fa
 
+    dt = str(dtype).split(".")[1]
+    q, k, v = (torch.randn((h, l, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    out, tap = fa.attention_with_tap(q, k, v)
+    out2, tap2 = fa.attention_with_tap(q, k, v)
+    want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
+    torch.cuda.synchronize()
+    rerun_equal = bool(torch.equal(out, out2) and torch.equal(tap, tap2))
+    agree = _agreement(out, want_out, TAP_TOL,
+                       lambda: fa.attention_with_tap_plain(q, k, v.abs())[0])
+    err_tap = (tap - want_tap).abs().max().item()
+    err_rows = (tap.sum(-1) - 1).abs().max().item()
+    size = q.element_size()
+    flops = 4.0 * h * l * l * d
+    nbytes = 4.0 * h * l * d * size + l * l * 4.0
+    bound = max(flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES) * 1e3
+    row = {"phase": "kernel", "kernel": "attention_with_tap", "geometry": name,
+           "shape": [h, l, d], "dtype": dt, "max_abs_err_out": agree["max_abs_err"],
+           "max_abs_err_tap": err_tap, "max_abs_err_tap_rowsum": err_rows,
+           "tol": {"out": agree["tol"], "tap": TAP_TOL},
+           "out_err_over_tol": agree["err_over_tol"], "rerun_equal": rerun_equal,
+           "ms": cuda_ms(lambda: fa.attention_with_tap(q, k, v)),
+           "plain_ms": cuda_ms(lambda: fa.attention_with_tap_plain(q, k, v)),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q[None], k[None], v[None])),
+           "library_call": "F.scaled_dot_product_attention (out only, no tap)",
+           "bound_ms": bound,
+           "bound_by": "operations" if flops / PEAK_FLOPS[dt] > nbytes / PEAK_BYTES
+           else "bytes"}
+    emit(row)
+    if (agree["err_over_tol"] > 1 or err_tap > TAP_TOL or err_rows > TAP_TOL
+            or not rerun_equal or not torch.isfinite(out.float()).all()):
+        raise AssertionError(f"attention_with_tap disagrees with its plain version: {row}")
+    return row
+
+
+def phase_kernels(state):
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    for name, h, l, d in GEOMETRIES:
-        for dtype in (torch.float32, torch.bfloat16):
-            dt = str(dtype).split(".")[1]
-            q, k, v = (torch.randn((h, l, d), generator=gen, device="cuda").to(dtype)
-                       for _ in range(3))
-            out, tap = fa.attention_with_tap(q, k, v)
-            out2, tap2 = fa.attention_with_tap(q, k, v)
-            want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
-            torch.cuda.synchronize()
-            rerun_equal = bool(torch.equal(out, out2) and torch.equal(tap, tap2))
-            agree = _agreement(out, want_out, TAP_TOL,
-                               lambda: fa.attention_with_tap_plain(q, k, v.abs())[0])
-            err_tap = (tap - want_tap).abs().max().item()
-            err_rows = (tap.sum(-1) - 1).abs().max().item()
-            size = q.element_size()
-            flops = 4.0 * h * l * l * d
-            nbytes = 4.0 * h * l * d * size + l * l * 4.0
-            bound = max(flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES) * 1e3
-            row = {"phase": "kernel", "kernel": "attention_with_tap", "geometry": name,
-                   "shape": [h, l, d], "dtype": dt, "max_abs_err_out": agree["max_abs_err"],
-                   "max_abs_err_tap": err_tap, "max_abs_err_tap_rowsum": err_rows,
-                   "tol": {"out": agree["tol"], "tap": TAP_TOL},
-                   "out_err_over_tol": agree["err_over_tol"], "rerun_equal": rerun_equal,
-                   "ms": cuda_ms(lambda: fa.attention_with_tap(q, k, v)),
-                   "plain_ms": cuda_ms(lambda: fa.attention_with_tap_plain(q, k, v)),
-                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                       q[None], k[None], v[None])),
-                   "library_call": "F.scaled_dot_product_attention (out only, no tap)",
-                   "bound_ms": bound,
-                   "bound_by": "operations" if flops / PEAK_FLOPS[dt] > nbytes / PEAK_BYTES
-                   else "bytes"}
-            emit(row)
-            rows.append(row)
-            if (agree["err_over_tol"] > 1 or err_tap > TAP_TOL or err_rows > TAP_TOL
-                    or not rerun_equal or not torch.isfinite(out.float()).all()):
-                raise AssertionError(f"attention_with_tap disagrees with its plain version: {row}")
-    state["kernel_rows"] = rows
+    state["kernel_rows"] = [_tap_row(name, h, l, d, dtype, gen) for name, h, l, d in GEOMETRIES
+                            for dtype in (torch.float32, torch.bfloat16)]
 
 
 def phase_grid_attention(state):
@@ -493,9 +532,13 @@ def phase_windowed(state):
     state["window_rows"] = rows
 
 
-def _matching_instances():
+def _matching_instances(shots=1):
     """The forward and reverse matching auctions of synthetic episode 0 at
-    full width (DINOv2-L/14 reg4 @518, 37 × 37 patches)."""
+    full width (DINOv2-L/14 reg4 @518, 37 × 37 patches), at ``shots``
+    support shots.  At five shots (R = 5 × 1369 support rows) also the
+    forward instance of a footprint past the query grid, which the Matcher
+    solves transposed (pipeline/matcher.py): here every support patch in
+    the masks, so that every query patch finds a column."""
     import torch
 
     from mars_tpu_torch.data.base import to_device_episode
@@ -505,8 +548,8 @@ def _matching_instances():
     from mars_tpu_torch.pipeline import matcher
 
     dev = torch.device("cuda")
-    params, cfg = zoo.build_dinov2(0, dev)
-    ep = to_device_episode(SyntheticFSS(seed=0)[0], 518, 1, dev)
+    params, cfg = zoo.build_dinov2(None, "vit_large", 4, 0, dev)
+    ep = to_device_episode(SyntheticFSS(seed=0, shot=shots)[0], 518, shots, dev)
     with torch.no_grad():
         s_mat, _, fg = matcher._features_and_matrices(
             params, ep.support_images, ep.support_masks, ep.support_valid, ep.query_image,
@@ -515,8 +558,25 @@ def _matching_instances():
     cols = asg.auction_assignment(s_mat, fg, row_chunk=128)
     pair_valid = torch.zeros((l,), dtype=torch.bool, device=dev)
     pair_valid[cols[cols >= 0].long()] = True
-    return (("matching_forward", s_mat, fg), ("matching_reverse", s_mat.T.contiguous(),
-                                              pair_valid))
+    tag = "" if shots == 1 else f"{shots}shot_"
+    out = [(f"matching_{tag}forward", s_mat, fg),
+           (f"matching_{tag}reverse", s_mat.T.contiguous(), pair_valid)]
+    if shots > 1:
+        out.append((f"matching_{tag}forward_transposed", s_mat.T.contiguous(),
+                    torch.ones((l,), dtype=torch.bool, device=dev)))
+    return tuple(out)
+
+
+def _large_auction_case(seed, t, n, quantized):
+    """An ``AUCTION_LARGE`` instance on the card → (scores, valid)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    s = (rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0 if quantized
+         else rng.rand(t, n).astype(np.float32))
+    valid = rng.rand(t) < 0.3
+    return torch.from_numpy(s).cuda(), torch.from_numpy(valid).cuda()
 
 
 def auction_case(seed, t, n):
@@ -559,6 +619,9 @@ def phase_auction(state):
         cases.append((name, torch.from_numpy(s).cuda(), torch.from_numpy(valid).cuda(), phases,
                       None))
     cases += [(name, s, v, 1, 128) for name, s, v in _matching_instances()]
+    cases += [(name, s, v, 1, 128) for name, s, v in _matching_instances(shots=5)]
+    cases += [(name, *_large_auction_case(seed, t, n, q), 1, 128)
+              for name, seed, t, n, q in AUCTION_LARGE]
     rows = []
     for name, s, v, phases, chunk in cases:
         scores, valid, _, eps = asg.phase_inputs(s, v, phases, chunk)
@@ -578,6 +641,7 @@ def phase_auction(state):
         ms = cuda_ms(lambda: run(asg._auction_phase_kernel), iters=5, warmup=1)
         row = {"phase": "kernel", "kernel": "auction", "instance": name,
                "shape": list(scores.shape), "valid_rows": int(valid.sum()), "phases": phases,
+               "variant": asg.VARIANTS[asg.auction_variant(*scores.shape)],
                "equal": bool(torch.equal(col_k, col_p) and torch.equal(pr_k, pr_p)
                              and st_k == st_p),
                "rerun_equal": bool(torch.equal(col_r, col_k) and st_r == st_k and torch.equal(
@@ -761,10 +825,10 @@ def phase_main_path(state):
     from mars_tpu_torch.ops import flash_attention as fa
 
     fa.attention_with_tap.launches = 0
-    res = cli.main(["--benchmark", "synthetic", "--episodes", str(EPISODES), "--gt-class-names",
-                    "--proposal-bucket", "128", "--input-size", "518", "--seed", "0"])
+    res = cli.main(MAIN_PATH_ARGS, keep_masks=True)
     launches = fa.attention_with_tap.launches
     state["launches"] = {"attention_with_tap": launches}
+    state["main_path_masks"] = res["masks"]
     ms = res["episode_ms"]
     row = {"phase": "main_path", "episodes": EPISODES, "episode_ms": ms,
            "ms_per_episode_after_first": sum(ms[1:]) / len(ms[1:]),
@@ -823,8 +887,8 @@ def _zero_thresholds(bf16):
     from mars_tpu_torch.pipeline import amg, matcher
 
     dev = torch.device("cuda")
-    dino, dino_cfg = zoo.build_dinov2(0, dev)
-    sam_params, sam_cfg = zoo.build_sam("vit_h", 3, dev)
+    dino, dino_cfg = zoo.build_dinov2(None, "vit_large", 4, 0, dev)
+    sam_params, sam_cfg = zoo.build_sam(None, "vit_h", 3, dev)
     if bf16:
         dino, sam_params = cast_floating(dino), cast_floating(sam_params)
     ep = to_device_episode(SyntheticFSS(seed=0)[0], 518, 1, dev)
@@ -986,7 +1050,8 @@ def phase_bf16_path(state):
         row, out, ep = _zero_thresholds(bf16=True)
         got, want = launches(), _matcher_launches(1)
         failures += [] if got == want else [("zero_thresholds", got, want)]
-        model = cli.build_model(518, torch.device("cuda"), bf16=True)
+        model = cli.build_model(cli.parse_args(["--input-size", "518", "--bf16"]),
+                                torch.device("cuda"))
         rec = SyntheticFSS(seed=0)[0]
         start()
         t0 = time.perf_counter()
@@ -1008,6 +1073,195 @@ def phase_bf16_path(state):
     state["bf16_launches"] = by_path
     if failures:
         raise AssertionError(f"bf16 path failed: {failures}")
+
+
+def phase_five_shot(state):
+    """Five-shot episodes (``--nshot 5``: R = 5 x 1369 support rows in the
+    Matcher, the supports as one batch of 5 in every tower): with both
+    kernel switches on, ``cli_proposals --nshot 5 --bf16`` into a temporary
+    directory and ``cli --nshot 5 --bf16 --mask-proposals-path`` on it;
+    then one float32 ``cli --nshot 5 --generate-proposals`` episode on the
+    default route.  Each run's launches are exact per kernel and episode
+    (the supports batched: the one-shot counts)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from mars_tpu_torch import cli, cli_proposals
+
+    def start():
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+
+    failures, by_path = [], {}
+
+    def check(run, res, want, **columns):
+        for i, got in enumerate(res["episode_launches"]):
+            row = {"phase": "five_shot", "run": run, "episode": i,
+                   **{k: v[i] for k, v in columns.items()}, "launches": got,
+                   "launches_expected": want(i), "peak_memory_gib": res["episode_peak_gib"][i]}
+            emit(row)
+            if got != row["launches_expected"]:
+                failures.append((run, i, got, row["launches_expected"]))
+        if not res.get("masks_binary", True) or not math.isfinite(res.get("miou", 0.0)):
+            failures.append((run, "non-binary mask or non-finite mIoU"))
+
+    shots = ["--nshot", "5", "--episodes", str(FIVE_SHOT_EPISODES), "--input-size", "518",
+             "--seed", "0"]
+    with kernel_switches(), tempfile.TemporaryDirectory() as tmp:
+        start()
+        pres = cli_proposals.main(shots + ["--bf16", "--out", tmp])
+        check("cli_proposals --nshot 5 --bf16", pres, lambda i: _matcher_launches(1),
+              proposal_ms=pres["proposal_ms"], live_proposals=pres["live_proposals"])
+        by_path["five_shot_proposals"] = pres["launches"]
+        start()
+        res = cli.main(shots + ["--bf16", "--gt-class-names", "--proposal-bucket", "128",
+                                "--mask-proposals-path", tmp])
+        live = res["live_proposals"]
+        check("cli --nshot 5 --bf16 --mask-proposals-path", res,
+              lambda i: _ranking_launches([live[i]]), ranking_ms=res["episode_ms"],
+              live_proposals=live)
+        by_path["five_shot_ranking"] = res["launches"]
+    start()
+    res = cli.main(["--nshot", "5", "--episodes", "1", "--input-size", "518", "--seed", "0",
+                    "--gt-class-names", "--proposal-bucket", "128", "--generate-proposals"])
+    check("cli --nshot 5 --generate-proposals (float32)", res,
+          lambda i: {"attention_with_tap": TAPPED_BLOCKS, "attention_notap": 0,
+                     "grid_attention": SAM_GLOBAL_LAYERS, "windowed_attention": 0,
+                     "auction": AUCTIONS}, proposal_ms=res["proposal_ms"],
+          ranking_ms=res["episode_ms"], live_proposals=res["live_proposals"])
+    by_path["five_shot_inline_f32"] = res["launches"]
+    state["five_shot_launches"] = by_path
+    if failures:
+        raise AssertionError(f"five-shot path failed: {failures}")
+
+
+def _write_ranking_checkpoints(folder):
+    """The ranking towers' seeded full-width weights (models.zoo without
+    files) written as the reference's files: DINOv2-L reg4 as a state
+    dict, CLIP-B/16 as a TorchScript archive (OpenAI's format), AlphaCLIP's
+    base CLIP-L/14@336 bundle and its GRIT-20M visual override."""
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch.models import convert, zoo
+
+    dev = torch.device("cuda")
+
+    def save(sd, name):
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, os.path.join(folder, name))
+
+    params, _ = zoo.build_dinov2(None, "vit_large", 4, 0, dev)
+    save(convert.reference_state_dict(params, "dinov2"), "dinov2_vitl14_reg4_pretrain.pth")
+    del params
+    vp, tp, scale, _, _ = zoo.build_clip(None, "ViT-B/16", 1, dev)
+    sd = {**convert.reference_state_dict(vp, "clip_visual"),
+          **convert.reference_state_dict(tp, "clip_text"),
+          "logit_scale": scale.cpu().numpy(), "input_resolution": np.asarray(224)}
+    del vp, tp
+    torch.jit.save(torch.jit.script(_module_tree(sd, buffers=("input_resolution",))),
+                   os.path.join(folder, "ViT-B-16.pt"))
+    vp, tp, scale, _, _ = zoo.build_alpha_clip(None, 2, dev)
+    visual = convert.reference_state_dict(vp, "alpha_clip_visual")
+    base = {k.replace("attn.in_proj.", "attn.in_proj_"): v for k, v in visual.items()
+            if "conv1_alpha" not in k}
+    save({**base, **convert.reference_state_dict(tp, "clip_text"),
+          "logit_scale": scale.cpu().numpy()}, "ViT-L-14-336px.pt")
+    save({k[len("visual."):]: v for k, v in visual.items()}, "clip_l14_336_grit_20m_4xe.pth")
+
+
+def _module_tree(sd, buffers=()):
+    """A scriptable module whose state dict is ``sd`` (nested submodules by
+    the keys' dotted prefixes), as OpenAI's CLIP archives hold theirs."""
+    import torch
+
+    class Holder(torch.nn.Module):
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            return x
+
+    root = Holder()
+    for key, value in sd.items():
+        *parts, leaf = key.split(".")
+        mod = root
+        for part in parts:
+            if not hasattr(mod, part):
+                mod.add_module(part, Holder())
+            mod = getattr(mod, part)
+        t = torch.from_numpy(value)
+        if key in buffers:
+            mod.register_buffer(leaf, t)
+        else:
+            mod.register_parameter(leaf, torch.nn.Parameter(t, requires_grad=False))
+    return root
+
+
+def phase_models_path(state):
+    """``cli --models-path`` over the ranking towers' seeded weights written
+    as the reference's files: every tower loads through the zoo's audited
+    conversion, and the merged masks equal the in-memory main path's bit
+    for bit."""
+    import tempfile
+
+    import numpy as np
+
+    from mars_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_ranking_checkpoints(tmp)
+        write_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+        res = cli.main(MAIN_PATH_ARGS + ["--models-path", tmp], keep_masks=True)
+    launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+    want = state.get("main_path_masks") or []
+    equal = len(want) == len(res["masks"]) == EPISODES and all(
+        np.array_equal(a, b) for a, b in zip(res["masks"], want))
+    state["models_path_launches"] = launches
+    row = {"phase": "models_path", "files_bytes": files, "write_s": write_s,
+           "episode_ms": res["episode_ms"], "masks_equal_in_memory": equal,
+           "launches": launches, "launches_expected_tap": TAPPED_BLOCKS * EPISODES}
+    emit(row)
+    if not equal or launches["attention_with_tap"] != TAPPED_BLOCKS * EPISODES:
+        raise AssertionError(f"--models-path run differs from the in-memory one: {row}")
+
+
+def phase_backbones(state):
+    """One float32 ranking episode at ``--dino-backbone vit_giant2`` (40
+    blocks, the last 24 tapped, 24 heads) and one at ``--vta-backbone
+    ViT-L/14`` (16 heads over 1370 tokens); the tap held against its plain
+    version at every other backbone's shape."""
+    import math
+
+    import torch
+
+    from mars_tpu_torch import cli
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state.setdefault("kernel_rows", []).extend(
+        _tap_row(name, h, l, d, dtype, gen) for name, h, l, d in BACKBONE_GEOMETRIES
+        for dtype in (torch.float32, torch.bfloat16))
+    by_path, failures = {}, []
+    for flags in (["--dino-backbone", "vit_giant2"], ["--vta-backbone", "ViT-L/14"]):
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+        res = cli.main(["--episodes", "1", "--gt-class-names", "--proposal-bucket", "128",
+                        "--input-size", "518", "--seed", "0"] + flags)
+        launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+        want = {name: TAPPED_BLOCKS if name == "attention_with_tap" else 0 for name in launches}
+        row = {"phase": "backbones", "flags": flags, "ranking_ms": res["episode_ms"],
+               "peak_memory_gib": res["episode_peak_gib"], "masks_binary": res["masks_binary"],
+               "launches": launches, "launches_expected": want}
+        emit(row)
+        by_path[" ".join(flags)] = launches
+        if launches != want or not res["masks_binary"] or not math.isfinite(res["miou"]):
+            failures.append(row)
+    state["backbone_launches"] = by_path
+    if failures:
+        raise AssertionError(f"backbone episodes failed: {failures}")
 
 
 HAND_KERNEL = re.compile(r"\(anonymous namespace\)::(tap_out|tap_mean|notap|grid_attention_kernel|"
@@ -1034,12 +1288,11 @@ def _profile_summary(prof, span_prefixes):
             [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count} for e in top])
 
 
-def _profile_proposals(bf16):
-    """One proposal-plus-ranking episode (after a warm-up one) under
-    torch.profiler: device time by ``matcher.*`` and ``mars.*`` span and by
-    kernel, and the device's idle share of the episode's wall time."""
-    from argparse import Namespace
-
+def _profile_proposals(bf16, shots=1):
+    """One proposal-plus-ranking episode of ``shots`` support shots (after
+    a warm-up one) under torch.profiler: device time by ``matcher.*`` and
+    ``mars.*`` span and by kernel, and the device's idle share of the
+    episode's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1048,12 +1301,12 @@ def _profile_proposals(bf16):
     from mars_tpu_torch.data.synthetic import SyntheticFSS
 
     dev = torch.device("cuda")
-    model = cli.build_model(518, dev, bf16=bf16)
-    generate = cli.make_inline_generator(
-        Namespace(input_size=518, proposal_bucket=128, sam_size="vit_h", bf16=bf16),
-        (model.dino_params, model.dino_cfg), dev)
-    rec = SyntheticFSS(seed=0)[0]
-    ep = to_device_episode(rec, 518, 1, dev)
+    args = cli.parse_args(["--input-size", "518", "--nshot", str(shots)]
+                          + (["--bf16"] if bf16 else []))
+    model = cli.build_model(args, dev)
+    generate = cli.make_inline_generator(args, (model.dino_params, model.dino_cfg), dev)
+    rec = SyntheticFSS(seed=0, shot=shots)[0]
+    ep = to_device_episode(rec, 518, shots, dev)
 
     def episode():
         props = generate(ep, cli.episode_generator(0, 0, dev))
@@ -1081,6 +1334,13 @@ def phase_profile_bf16(state):
             emit({"phase": "profile_bf16", "switches": values, **_profile_proposals(bf16=True)})
 
 
+def phase_profile_five_shot(state):
+    """A five-shot bf16 proposal-plus-ranking episode, both switches on."""
+    with kernel_switches():
+        emit({"phase": "profile_five_shot", "switches": SWITCHES,
+              **_profile_proposals(bf16=True, shots=5)})
+
+
 def phase_profile(state):
     """One full-width episode (after a warm-up one) under torch.profiler:
     device time by stage span (``mars.*``) and by kernel, and the device's
@@ -1094,7 +1354,7 @@ def phase_profile(state):
     from mars_tpu_torch.data.synthetic import SyntheticFSS
 
     dev = torch.device("cuda")
-    model = cli.build_model(518, dev)
+    model = cli.build_model(cli.parse_args(["--input-size", "518"]), dev)
     rec = SyntheticFSS(seed=0)[0]
     ep = to_device_episode(rec, 518, 1, dev)
     props = cli.synthetic_proposals(rec, 518, 128, np.random.RandomState(0), dev)
@@ -1376,7 +1636,9 @@ def kernels_line(state):
                   and r["dtype"] == "float32"), {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"ranking": state.get("launches", {}), "proposal": state.get("proposal_launches", {}),
-             **state.get("bf16_launches", {})}
+             **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
+             "models_path": state.get("models_path_launches", {}),
+             **state.get("backbone_launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in paths.values())
@@ -1422,8 +1684,9 @@ def kernels_line(state):
         "max_abs_err": 0.0 if auc and all(r["equal"] for r in auc) else None,
         **{k: auc_first.get(k) for k in keys},
         "shape": auc_first.get("shape"), "dtype": "float32",
-        "instances": [{k: r[k] for k in ("instance", "shape", "equal", "rerun_equal", "rounds",
-                                         "bidder_rows", "us_per_round") + keys} for r in auc],
+        "instances": [{k: r[k] for k in ("instance", "shape", "variant", "equal", "rerun_equal",
+                                         "rounds", "bidder_rows", "us_per_round") + keys}
+                      for r in auc],
     }, _attention_entry(state, "attention_notap", "notap_rows", "dinov2_l_518",
                         "mars_tpu_torch/csrc/attention_notap.cu",
                         "mars_tpu/ops/flash_attention.py:187", launches, by_path),
@@ -1486,8 +1749,10 @@ def main():
     state, failed = {}, []
     for phase in (phase_build, phase_kernels, phase_grid_attention, phase_notap, phase_windowed,
                   phase_auction, phase_golden, phase_golden_matcher, phase_main_path,
-                  phase_proposal_path, phase_zero_thresholds, phase_bf16_path, phase_profile,
-                  phase_profile_proposals, phase_profile_bf16, phase_4bit_kernels,
+                  phase_proposal_path, phase_zero_thresholds, phase_bf16_path, phase_five_shot,
+                  phase_models_path, phase_backbones, phase_profile,
+                  phase_profile_proposals, phase_profile_bf16, phase_profile_five_shot,
+                  phase_4bit_kernels,
                   phase_text_path, phase_profile_text):
         t0 = time.perf_counter()
         try:

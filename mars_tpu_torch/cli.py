@@ -1,27 +1,35 @@
 """Evaluation CLI (port of ``mars_tpu/cli.py``, a subset of its flags).
 
-Per episode: proposals, ``Mars.predict`` with the dataset's class name,
-and the meter update.  Proposals are synthetic (the ground truth plus six
-random boxes, as ``mars_tpu.cli.synthetic_proposals`` draws them from the
-same seed), loaded from dumps (``--mask-proposals-path``: the reference's
-evaluation mode, one ``{fold}_{idx}`` stack per episode as
-``cli_proposals`` writes them) or, with ``--generate-proposals``, the
-Matcher's (DINOv2-L matching shared with the VVA tower, SAM ``--sam-size``
-@1024, AMG, bucketed best mask score first).  Towers are full width with
-seeded random weights; ``--bf16`` casts the DINOv2, CLIP visual and
-AlphaCLIP visual towers (and SAM) to bfloat16, as the JAX CLI does, the
-text towers staying float32.  Prints each episode's proposal and ranking
-times, its live proposals and the running mIoU.
+Per episode of a benchmark fold (``--benchmark``: the reference's COCO-20i,
+PASCAL-5i, LVIS-92i and FSS-1000 loaders over ``--datapath``, or
+synthetic episodes; ``--nshot`` 1 or 5 support shots): proposals,
+``Mars.predict`` with the dataset's class name, and the meter update.
+Proposals are synthetic (the ground truth plus six random boxes, as
+``mars_tpu.cli.synthetic_proposals`` draws them from the same seed),
+loaded from dumps (``--mask-proposals-path``: the reference's evaluation
+mode, one ``{fold}_{idx}`` stack per episode as ``cli_proposals`` writes
+them) or, with ``--generate-proposals``, the Matcher's (DINOv2 matching
+shared with the VVA tower, SAM ``--sam-size`` @1024, AMG, bucketed best
+mask score first).  Towers are full width: the reference's checkpoints
+from ``--models-path`` by their file names (``models.zoo``), seeded random
+weights for any file that is not there.  ``--dino-backbone``,
+``--num-regs`` and ``--vta-backbone`` pick the towers, and the tuning
+flags reach the stage configs as in the JAX CLI.  ``--bf16`` casts the
+DINOv2, CLIP visual and AlphaCLIP visual towers (and SAM) to bfloat16, as
+the JAX CLI does, the text towers staying float32.  Prints each episode's
+proposal and ranking times, its live proposals and the running mIoU.
 
     python -m mars_tpu_torch.cli --benchmark synthetic --episodes 3 --gt-class-names
     python -m mars_tpu_torch.cli --episodes 2 --gt-class-names --generate-proposals
-    python -m mars_tpu_torch.cli_proposals --episodes 2 --bf16 --out /tmp/props
-    python -m mars_tpu_torch.cli --episodes 2 --gt-class-names --bf16 --mask-proposals-path /tmp/props
+    python -m mars_tpu_torch.cli_proposals --benchmark coco --nshot 5 --datapath /data \
+        --models-path /models --bf16 --out /tmp/props
+    python -m mars_tpu_torch.cli --benchmark coco --nshot 5 --datapath /data \
+        --models-path /models --gt-class-names --bf16 --mask-proposals-path /tmp/props
 
 With random weights the AMG's default thresholds (predicted IoU > 0.88,
 stability >= 0.95) usually reject every mask: an episode then ranks an
-empty bucket.  The VLM retriever, real datasets and the other flags of the
-JAX CLI are not ported yet.
+empty bucket.  The VLM retriever and the JAX CLI's bookkeeping, text and
+quantization flags are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import torch
 from mars_tpu_torch import device as device_lib
 from mars_tpu_torch.core.episode import Proposals, pad_proposals
 from mars_tpu_torch.data.base import resized_gt, to_device_episode
-from mars_tpu_torch.data.synthetic import SyntheticFSS
+from mars_tpu_torch.data.registry import build_dataset
 from mars_tpu_torch.models import zoo
 from mars_tpu_torch.models.precision import cast_floating
 from mars_tpu_torch.ops import assignment, flash_attention, sam_attention
@@ -62,28 +70,45 @@ def launches_since(before: dict) -> dict:
     return {name: n - before[name] for name, n in kernel_launches().items()}
 
 
-def build_mars_config(input_size: int) -> mars_lib.MarsConfig:
-    """Stage configs for an input size (DINOv2 patch 14, CLIP-B patch 16)."""
-    g = input_size // 14
-    vta_in = int(math.ceil(input_size / 16) * 16)
+def build_mars_config(args) -> mars_lib.MarsConfig:
+    """The reference's tuning flags (main_MARS.py:106-163) on the stage
+    configs, as ``mars_tpu.cli.build_mars_config`` maps them: DINOv2 patch
+    14, the VTA input ``ceil(size / patch) * patch`` for the CLIP
+    backbone's patch."""
+    g = args.input_size // 14
+    vta_patch = int(args.vta_backbone[-2:])
+    vta_in = int(math.ceil(args.input_size / vta_patch) * vta_patch)
     return mars_lib.MarsConfig(
-        vva=vva.VVAConfig(grid=g),
-        vta=vta.VTAConfig(input_size=vta_in, grid=vta_in // 16),
-        filter_merge=filtering.FilterMergeConfig(grid=g),
+        vva=vva.VVAConfig(refinement_box_threshold=args.vva_refinement_box_threshold,
+                          attn_tap_last_n=args.last_n_attn_for_vva_refinement, grid=g),
+        vta=vta.VTAConfig(refinement_box_threshold=args.vta_refinement_box_threshold,
+                          attn_tap_last_n=args.last_n_attn_for_vta_refinement,
+                          input_size=vta_in, grid=vta_in // vta_patch),
+        filter_merge=filtering.FilterMergeConfig(alpha=args.alpha_coverage,
+                                                 static_threshold=args.static_threshold,
+                                                 dynamic_threshold=args.dynamic_threshold,
+                                                 grid=g),
     )
 
 
-def build_model(input_size: int, device, bf16: bool = False) -> mars_lib.Mars:
-    """Full-width towers (DINOv2-L/14 reg4, CLIP-B/16, AlphaCLIP-L/14@336)
-    with the JAX package's weight seeds (0, 1, 2); ``bf16`` casts DINOv2 and
-    both visual towers, not the text towers (``mars_tpu.cli.build_model``)."""
-    dino, clip, ac = (zoo.build_dinov2(0, device), zoo.build_clip(1, device),
-                      zoo.build_alpha_clip(2, device))
-    if bf16:
+def build_model(args, device) -> mars_lib.Mars:
+    """The towers of ``args`` (``--dino-backbone``, ``--num-regs``,
+    ``--vta-backbone``, AlphaCLIP-L/14@336) from ``--models-path`` or the
+    JAX package's weight seeds (0, 1, 2); ``--bf16`` casts DINOv2 and both
+    visual towers, not the text towers (``mars_tpu.cli.build_model``)."""
+    if args.vva_backbone != "dino":
+        # the reference exposes the same choices but its live VVA path only
+        # builds DINOv2 (VisualVisualAlignmentModule.py:148-152)
+        raise SystemExit("--vva-backbone: only 'dino' is implemented "
+                         "(matches the reference's live code path)")
+    dino = zoo.build_dinov2(args.models_path, args.dino_backbone, args.num_regs, device=device)
+    clip = zoo.build_clip(args.models_path, args.vta_backbone, device=device)
+    ac = zoo.build_alpha_clip(args.models_path, device=device)
+    if args.bf16:
         dino = (cast_floating(dino[0]), dino[1])
         clip = (cast_floating(clip[0]),) + clip[1:]
         ac = (cast_floating(ac[0]),) + ac[1:]
-    return mars_lib.Mars(dino=dino, clip=clip, alpha_clip=ac, cfg=build_mars_config(input_size),
+    return mars_lib.Mars(dino=dino, clip=clip, alpha_clip=ac, cfg=build_mars_config(args),
                          device=device)
 
 
@@ -134,7 +159,7 @@ def make_inline_generator(args, dino_bundle, device):
     mcfg = matcher.MatcherConfig(input_size=args.input_size,
                                  grid=args.input_size // dino_cfg.patch_size,
                                  patch_size=dino_cfg.patch_size)
-    sam_params, sam_cfg = zoo.build_sam(args.sam_size, device=device)
+    sam_params, sam_cfg = zoo.build_sam(args.models_path, args.sam_size, device=device)
     if args.bf16:
         sam_params = cast_floating(sam_params)
     acfg = amg.AmgConfig()
@@ -155,25 +180,77 @@ def episode_generator(seed: int, idx: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + idx)
 
 
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """The flags both CLIs share: dataset, checkpoints, DINOv2 backbone
+    (``mars_tpu/cli.py:385-535`` and ``mars_tpu/cli_proposals.py``, the same
+    spellings and defaults)."""
+    p.add_argument("--benchmark", default="synthetic",
+                   choices=["coco", "pascal", "pascal5i", "fss", "lvis", "synthetic"])
+    p.add_argument("--datapath", default="", help="dataset root (reference --dataset_path)")
+    p.add_argument("--models-path", default=None,
+                   help="folder of the reference's checkpoints, by their file names "
+                        "(models.zoo); a missing file gives seeded random weights")
+    p.add_argument("--fold", type=int, default=0)
+    p.add_argument("--input-size", type=int, default=518)
+    p.add_argument("--episodes", type=int, default=0, help="0 = full split")
+    p.add_argument("--sam-size", default="vit_h", choices=["vit_b", "vit_l", "vit_h"])
+    p.add_argument("--dino-backbone", default="vit_large",
+                   choices=["vit_small", "vit_base", "vit_large", "vit_giant2"])
+    p.add_argument("--num-regs", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser("mars_tpu_torch evaluation")
-    p.add_argument("--benchmark", default="synthetic", choices=["synthetic"])
-    p.add_argument("--fold", type=int, default=0)
-    p.add_argument("--episodes", type=int, default=0, help="0 = full split")
+    add_model_args(p)
+    p.add_argument("--annotations-datapath", default=None,
+                   help="the COCO mask-annotation folder (default "
+                        "<datapath>/COCO2014/annotations); --benchmark coco only")
+    p.add_argument("--nshot", type=int, default=1, choices=[1, 5])
     p.add_argument("--gt-class-names", action="store_true",
                    help="use dataset class names (required: the VLM is not ported)")
     p.add_argument("--proposal-bucket", type=int, default=128)
-    p.add_argument("--input-size", type=int, default=518)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None, help="default: cuda (raises without a card)")
     p.add_argument("--generate-proposals", action="store_true",
                    help="run the Matcher per episode instead of synthetic proposals")
-    p.add_argument("--sam-size", default="vit_h", choices=["vit_b", "vit_l", "vit_h"])
     p.add_argument("--mask-proposals-path", default=None,
                    help="rank the proposal dumps {fold}_{idx}.npy/.npz/.pt in this directory")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 tower weights (DINOv2, CLIP and AlphaCLIP visual, SAM)")
+    # VTA (reference main_MARS.py:143-146)
+    p.add_argument("--vta-backbone", default="ViT-B/16", choices=["ViT-B/16", "ViT-L/14"])
+    p.add_argument("--vta-refinement-box-threshold", type=float, default=0.4)
+    p.add_argument("--last-n-attn-for-vta-refinement", type=int, default=8)
+    # VVA (:148-152)
+    p.add_argument("--vva-backbone", default="dino", choices=["dino", "ViT-B/16", "ViT-L/14"])
+    p.add_argument("--vva-refinement-box-threshold", type=float, default=0.8)
+    p.add_argument("--last-n-attn-for-vva-refinement", type=int, default=24)
+    # filtering and merging (:155-157)
+    p.add_argument("--static-threshold", type=float, default=0.55)
+    p.add_argument("--dynamic-threshold", type=float, default=0.95)
+    p.add_argument("--alpha-coverage", type=float, default=0.85)
     return p.parse_args(argv)
+
+
+def dataset(args):
+    """The fold's episodes; ``--annotations-datapath`` only for COCO, as
+    the JAX CLI rejects it elsewhere (``mars_tpu/cli.py:551-559``)."""
+    kwargs = {}
+    if getattr(args, "annotations_datapath", None):
+        if args.benchmark != "coco":
+            raise SystemExit("--annotations-datapath only applies to "
+                             f"--benchmark coco (got {args.benchmark})")
+        kwargs["annotations_path"] = args.annotations_datapath
+    return build_dataset(args.benchmark, args.datapath, args.fold, "test", args.nshot, args.seed,
+                         **kwargs)
+
+
+def fold_meter(ds) -> evaluation.AverageMeter:
+    """The fold's meter.  PASCAL-5i lists its classes 1-indexed and records
+    them 0-indexed (reference logger.py:21-23), so its ids shift; the JAX
+    CLI passes them unshifted (``mars_tpu/cli.py``, ROADMAP Queue 3)."""
+    return evaluation.AverageMeter(ds.benchmark, list(ds.class_ids),
+                                   zero_indexed=ds.benchmark != "pascal5i")
 
 
 def _sync(dev):
@@ -205,11 +282,11 @@ def main(argv=None, keep_masks: bool = False) -> dict:
         raise SystemExit(f"--mask-proposals-path does not exist: {args.mask_proposals_path}")
     dev = device_lib.resolve(args.device)
     np.random.seed(args.seed)
-    ds = SyntheticFSS(fold=args.fold, split="test", shot=1, seed=args.seed)
-    model = build_model(args.input_size, dev, bf16=args.bf16)
+    ds = dataset(args)
+    model = build_model(args, dev)
     generate = (make_inline_generator(args, (model.dino_params, model.dino_cfg), dev)
                 if args.generate_proposals else None)
-    meter = evaluation.AverageMeter(ds.benchmark, list(ds.class_ids))
+    meter = fold_meter(ds)
     rng = np.random.RandomState(args.seed)
     launches0 = kernel_launches()
     episode_ms, proposal_ms, live, masks, masks_binary = [], [], [], [], True
@@ -218,7 +295,7 @@ def main(argv=None, keep_masks: bool = False) -> dict:
         before = kernel_launches()
         _reset_peak(dev)
         rec = ds[idx]
-        ep = to_device_episode(rec, args.input_size, 1, dev)
+        ep = to_device_episode(rec, args.input_size, args.nshot, dev)
         if generate is not None:
             t0 = time.perf_counter()
             props = generate(ep, episode_generator(args.seed, idx, dev))

@@ -1,17 +1,21 @@
 """Offline proposal generation (port of ``mars_tpu/cli_proposals.py``): the
 first program of the reference's two-program evaluation.
 
-The Matcher (DINOv2-L matching, SAM ``--sam-size`` @1024, AMG) runs over
-the episodes of a fold and writes one compressed ``{fold}_{idx}.npz`` per
+The Matcher (DINOv2 ``--dino-backbone`` matching, SAM ``--sam-size``
+@1024, AMG) runs over the ``--nshot`` episodes of a benchmark fold (the
+loaders ``cli`` uses) and writes one compressed ``{fold}_{idx}.npz`` per
 episode with the JAX CLI's keys and types: ``masks`` (the live post-NMS
 proposals, uint8), ``iou``, ``stability`` and ``emd`` (float32, per live
 proposal), ``merged`` (the Matcher's own merge, uint8) and ``class_id``.
-``cli --mask-proposals-path`` ranks them.  Towers are full width with
-seeded random weights (``models.zoo``); ``--bf16`` casts DINOv2 and SAM to
-bfloat16.  The prompt sampler draws from ``cli.episode_generator``, the
-stream the inline ``--generate-proposals`` path uses.
+``cli --mask-proposals-path`` ranks them.  Towers are full width, from
+the reference's checkpoints in ``--models-path`` or with seeded random
+weights (``models.zoo``); ``--bf16`` casts DINOv2 and SAM to bfloat16.
+The prompt sampler draws from ``cli.episode_generator``, the stream the
+inline ``--generate-proposals`` path uses.
 
     python -m mars_tpu_torch.cli_proposals --benchmark synthetic --episodes 2 --out /tmp/props
+    python -m mars_tpu_torch.cli_proposals --benchmark coco --nshot 5 --datapath /data \
+        --models-path /models --bf16 --out /tmp/props
 
 With random weights the AMG's default thresholds reject every mask, so a
 dump holds 0 proposals.  The pycocotools RLE side file (``--coco-rle``) and
@@ -29,7 +33,6 @@ import torch
 from mars_tpu_torch import cli
 from mars_tpu_torch import device as device_lib
 from mars_tpu_torch.data.base import to_device_episode
-from mars_tpu_torch.data.synthetic import SyntheticFSS
 from mars_tpu_torch.models import zoo
 from mars_tpu_torch.models.precision import cast_floating
 from mars_tpu_torch.pipeline import amg, matcher
@@ -37,16 +40,10 @@ from mars_tpu_torch.pipeline import amg, matcher
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("mars_tpu_torch offline proposal generation")
-    p.add_argument("--benchmark", default="synthetic", choices=["synthetic"])
-    p.add_argument("--fold", type=int, default=0)
+    cli.add_model_args(p)
     p.add_argument("--nshot", type=int, default=1)
-    p.add_argument("--input-size", type=int, default=518)
-    p.add_argument("--episodes", type=int, default=0, help="0 = full split")
-    p.add_argument("--sam-size", default="vit_h", choices=["vit_b", "vit_l", "vit_h"])
     p.add_argument("--bf16", action="store_true", help="bf16 DINOv2 and SAM weights")
     p.add_argument("--out", required=True)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None, help="default: cuda (raises without a card)")
     return p.parse_args(argv)
 
 
@@ -57,9 +54,10 @@ def main(argv=None) -> dict:
     (each episode's peak on the card), files}."""
     args = parse_args(argv)
     dev = device_lib.resolve(args.device)
-    ds = SyntheticFSS(fold=args.fold, split="test", shot=args.nshot, seed=args.seed)
-    dino_params, dino_cfg = zoo.build_dinov2(0, dev)
-    sam_params, sam_cfg = zoo.build_sam(args.sam_size, device=dev)
+    ds = cli.dataset(args)
+    dino_params, dino_cfg = zoo.build_dinov2(args.models_path, args.dino_backbone, args.num_regs,
+                                             device=dev)
+    sam_params, sam_cfg = zoo.build_sam(args.models_path, args.sam_size, device=dev)
     if args.bf16:
         dino_params, sam_params = cast_floating(dino_params), cast_floating(sam_params)
     mcfg = matcher.MatcherConfig(input_size=args.input_size,

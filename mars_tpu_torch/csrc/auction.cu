@@ -69,6 +69,25 @@
 //     with 64-bit shared atomicMax on (bid, row) (the highest bid wins, ties
 //     to the largest row), and all threads resolve the bidders and append
 //     the next list in thread order.
+//
+// Past shared memory.  16 (T + N) bytes and the exchange buffers fit up to
+// T + N = 14 266; larger instances (T = N = 7 225 at grid 85, or a five-shot
+// support side of 5 x 7 225 columns) run the same rounds with the state
+// moved out, as template parameter MODE says:
+//   - MODE 0: everything in shared memory, as above;
+//   - MODE 1: the row side (col_of_row, the two lists, bid_col: 16 T bytes)
+//     in a global scratch buffer the caller allocates, one replica per CTA;
+//     the column side stays in shared memory while 16 N + EXTRA_BYTES fits;
+//   - MODE 2: the column side (key, prices, owner: 16 N bytes) in the same
+//     buffer too, before each CTA's rows.
+// A small round touches only its own CTA's replica between block barriers,
+// which order global memory within the CTA as they do shared memory.  A
+// dense round writes the bids into every CTA's replica: st.async cannot
+// reach global memory, so the sender stores them (L2, past L1) and both
+// cluster barriers of the round release and acquire (a CTA reads the other
+// CTAs' bids only after the second); the replica argument is unchanged.  In
+// MODE 2 a column index may pass 16 bits, so a small round's winner pass
+// shuffles the column beside the (bid, row) key instead of packing it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -158,11 +177,17 @@ __device__ __forceinline__ void st_async(int* dst, unsigned long long* bar, int 
 // dynamic shared memory, in every CTA: the slices' partials of the last two
 // rounds and their two mbarriers, keys (8 N), prices, owner (4 N each),
 // col_of_row, two bidder lists, bid_col (4 T each), the warps' append counts
-// and the two list lengths
+// and the two list lengths; MODE 1 moves the T arrays to the global scratch,
+// MODE 2 the N arrays too
 constexpr int PART_BYTES = 2 * WARPS * CLUSTER * (int)sizeof(Part) + 16;
 constexpr int EXTRA_BYTES = PART_BYTES + 4 * (WARPS + 2);
-size_t smem_bytes(int T, int N) {
-  return (size_t)16 * ((size_t)T + (size_t)N) + (size_t)EXTRA_BYTES;
+size_t smem_bytes(int mode, int T, int N) {
+  const size_t rows = mode == 0 ? (size_t)T : 0, cols = mode == 2 ? 0 : (size_t)N;
+  return 16 * (rows + cols) + (size_t)EXTRA_BYTES;
+}
+// one CTA's replica in the global scratch (the buffer holds CLUSTER of them)
+__host__ __device__ inline size_t replica_bytes(int mode, int T, int N) {
+  return mode == 0 ? 0 : 16 * ((size_t)T + (mode == 2 ? (size_t)N : 0));
 }
 
 // the top-2 merge: the other side holds the first max when its m1 is larger,
@@ -282,28 +307,49 @@ __device__ __forceinline__ int resolve(const State& st, int r, int j) {
   return r;
 }
 
+// the cluster barrier of a dense round: relaxed while every list it guards
+// is in shared memory and reached by st.async (MODE 0), release and acquire
+// once a replica in global memory is written by plain stores
+template <int MODE>
+__device__ __forceinline__ void dense_barrier() {
+  if (MODE == 0)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\nbarrier.cluster.wait.aligned;" :::
+                 "memory");
+  else
+    asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;"
+                 ::: "memory");
+}
+
+template <int MODE>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 auction_kernel(const float* __restrict__ scores, const unsigned char* __restrict__ valid,
                const float* __restrict__ prices_in, float eps, int T, int N, int max_rounds,
                int small_k, int* __restrict__ col_out, float* __restrict__ prices_out,
-               int* __restrict__ stats) {
+               int* __restrict__ stats, char* __restrict__ scratch) {
   extern __shared__ float4 sm4[];
   Part* part = reinterpret_cast<Part*>(sm4);  // [round parity][slice][bidder]
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(part + 2 * WARPS * CLUSTER);
-  State st;
-  st.key = reinterpret_cast<unsigned long long*>(reinterpret_cast<char*>(sm4) + PART_BYTES);
-  st.prices = reinterpret_cast<float*>(st.key + N);
-  st.owner = reinterpret_cast<int*>(st.prices + N);
-  st.col_of_row = st.owner + N;
-  int* lists = st.col_of_row + T;  // this round's bidders and the next round's, by parity
-  int* bid_col = lists + 2 * T;
-  int* wcount = bid_col + T;
-  int* count = wcount + WARPS;  // the lists' lengths, by parity
-  st.half_key = enc(NEG / 2);
-
   const cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)cluster.block_rank();
+  char* shared_state = reinterpret_cast<char*>(sm4) + PART_BYTES;
+  const size_t replica = replica_bytes(MODE, T, N);
+  // the column side, then the row side, in shared memory or this CTA's replica
+  char* cols = MODE == 2 ? scratch + rank * replica : shared_state;
+  char* rows = MODE == 0 ? shared_state + (size_t)16 * N
+                         : (MODE == 1 ? scratch + rank * replica : cols + (size_t)16 * N);
+  State st;
+  st.key = reinterpret_cast<unsigned long long*>(cols);
+  st.prices = reinterpret_cast<float*>(st.key + N);
+  st.owner = reinterpret_cast<int*>(st.prices + N);
+  st.col_of_row = reinterpret_cast<int*>(rows);
+  int* lists = st.col_of_row + T;  // this round's bidders and the next round's, by parity
+  int* bid_col = lists + 2 * T;
+  int* wcount = reinterpret_cast<int*>(MODE == 0 ? reinterpret_cast<char*>(bid_col + T)
+                                                 : (MODE == 1 ? shared_state + (size_t)16 * N
+                                                              : shared_state));
+  int* count = wcount + WARPS;  // the lists' lengths, by parity
+  st.half_key = enc(NEG / 2);
   // this CTA's slice of a small round's columns: whole warps of columns
   const int slice = 32 * ((N + 32 * CLUSTER - 1) / (32 * CLUSTER));
   const int lo = min(N, rank * slice), hi = min(N, lo + slice);
@@ -377,14 +423,18 @@ auction_kernel(const float* __restrict__ scores, const unsigned char* __restrict
           m1 = q[0].m1;
           m2 = q[0].m2;
           j = q[0].j;
-          key = bid_key(__fadd_rn(__fadd_rn(st.prices[j], __fsub_rn(m1, m2)), eps),
-                        (unsigned)r << 16 | (unsigned)j);
+          const float bid = __fadd_rn(__fadd_rn(st.prices[j], __fsub_rn(m1, m2)), eps);
+          key = MODE == 2 ? bid_key(bid, (unsigned)r) : bid_key(bid, (unsigned)r << 16 | (unsigned)j);
         }
         unsigned long long best = key;  // the best key among the lanes bidding for j
 #pragma unroll
         for (int k = 0; k < WARPS; ++k) {
           const unsigned long long other = __shfl_sync(0xffffffffu, key, k);
-          if ((int)(other & 0xffff) == j && other > best) best = other;
+          if (MODE == 2) {  // columns past 16 bits: the column beside the key
+            if (__shfl_sync(0xffffffffu, j, k) == j && other > best) best = other;
+          } else if ((int)(other & 0xffff) == j && other > best) {
+            best = other;
+          }
         }
         int add = r;
         if (act && key_bid(best) > st.half_key && best == key) {  // r takes column j
@@ -400,30 +450,42 @@ auction_kernel(const float* __restrict__ scores, const unsigned char* __restrict
       }
       phases ^= 1 << par;
     } else {  // several bidders a warp, bidder kk in CTA kk % CLUSTER
-      // every CTA is done reading the last round's lists and bid_col; no
-      // memory to order, so a relaxed arrival
-      asm volatile("barrier.cluster.arrive.relaxed.aligned;\nbarrier.cluster.wait.aligned;" :::
-                   "memory");
-      if (tid == 0) mbar_expect(bar + par, 8 * nb);
+      // every CTA is done reading the last round's lists and bid_col; in
+      // shared memory no memory to order, so a relaxed arrival
+      dense_barrier<MODE>();
+      if (MODE == 0 && tid == 0) mbar_expect(bar + par, 8 * nb);
       for (int kk = rank + CLUSTER * warp; kk < nb; kk += CLUSTER * WARPS) {
         float m1, m2;
         int j;
         row_top2<UNROLL>(scores + (size_t)cur[kk] * N, st.prices, lane, 0, N, m1, m2, j);
         const float bid = __fadd_rn(__fadd_rn(st.prices[j], __fsub_rn(m1, m2)), eps);
         if (lane < CLUSTER) {  // the bid to every CTA (lane = its rank), parked in its next list
-          st_async(bid_col + kk, bar + par, lane, j);
-          st_async(nxt + kk, bar + par, lane, __float_as_int(bid));
+          if (MODE == 0) {
+            st_async(bid_col + kk, bar + par, lane, j);
+            st_async(nxt + kk, bar + par, lane, __float_as_int(bid));
+          } else {  // the same offsets in CTA lane's replica
+            const ptrdiff_t to = (ptrdiff_t)(lane - rank) * (ptrdiff_t)replica;
+            __stcg(reinterpret_cast<int*>(reinterpret_cast<char*>(bid_col + kk) + to), j);
+            __stcg(reinterpret_cast<int*>(reinterpret_cast<char*>(nxt + kk) + to),
+                   __float_as_int(bid));
+          }
         }
       }
-      mbar_wait(bar + par, (phases >> par) & 1);
-      phases ^= 1 << par;
+      if (MODE == 0) {
+        mbar_wait(bar + par, (phases >> par) & 1);
+        phases ^= 1 << par;
+      } else {
+        dense_barrier<MODE>();  // every CTA's bids are in every replica
+      }
       for (int kk = tid; kk < nb; kk += THREADS)
-        atomicMax(&st.key[bid_col[kk]], bid_key(__int_as_float(nxt[kk]), cur[kk]));
+        atomicMax(&st.key[MODE == 0 ? bid_col[kk] : __ldcg(bid_col + kk)],
+                  bid_key(__int_as_float(MODE == 0 ? nxt[kk] : __ldcg(nxt + kk)), cur[kk]));
       __syncthreads();
       int next = 0;
       for (int base = 0; base < nb; base += THREADS) {
         const int kk = base + tid;
-        const int add = kk < nb ? resolve(st, cur[kk], bid_col[kk]) : -1;
+        const int add =
+            kk < nb ? resolve(st, cur[kk], MODE == 0 ? bid_col[kk] : __ldcg(bid_col + kk)) : -1;
         next = ordered_append(nxt, next, add >= 0, add, wcount, lane, warp);
       }
       if (tid == 0) count[par ^ 1] = next;
@@ -444,19 +506,43 @@ auction_kernel(const float* __restrict__ scores, const unsigned char* __restrict
   cluster.sync();  // no CTA leaves while others may still write to it
 }
 
-}  // namespace
-
-extern "C" int mars_auction_phase(const void* scores, const void* valid, const void* prices_in,
-                                  float eps, int T, int N, int max_rounds, int small_k,
-                                  void* col_out, void* prices_out, void* stats, void* stream) {
-  if (T < 1 || N < 1 || max_rounds < 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(T, N);
-  if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(auction_kernel,
+template <int MODE>
+int launch(const void* scores, const void* valid, const void* prices_in, float eps, int T, int N,
+           int max_rounds, int small_k, void* col_out, void* prices_out, void* stats,
+           void* stream, void* scratch) {
+  const size_t bytes = smem_bytes(MODE, T, N);
+  if (bytes > (size_t)MAX_SMEM || (MODE > 0 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(auction_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  auction_kernel<<<CLUSTER, THREADS, bytes, (cudaStream_t)stream>>>(
+  auction_kernel<MODE><<<CLUSTER, THREADS, bytes, (cudaStream_t)stream>>>(
       (const float*)scores, (const unsigned char*)valid, (const float*)prices_in, eps, T, N,
-      max_rounds, small_k, (int*)col_out, (float*)prices_out, (int*)stats);
+      max_rounds, small_k, (int*)col_out, (float*)prices_out, (int*)stats, (char*)scratch);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// mode: where the state lives (MODE above); scratch: CLUSTER replicas of
+// replica_bytes(mode, T, N) each, null in mode 0.  The wrapper picks the
+// mode by size (ops/assignment.py auction_variant).
+extern "C" int mars_auction_phase(const void* scores, const void* valid, const void* prices_in,
+                                  float eps, int T, int N, int max_rounds, int small_k,
+                                  void* col_out, void* prices_out, void* stats, void* stream,
+                                  void* scratch, int mode) {
+  if (T < 1 || N < 1 || max_rounds < 0) return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case 0:
+      return launch<0>(scores, valid, prices_in, eps, T, N, max_rounds, small_k, col_out,
+                       prices_out, stats, stream, scratch);
+    case 1:
+      return launch<1>(scores, valid, prices_in, eps, T, N, max_rounds, small_k, col_out,
+                       prices_out, stats, stream, scratch);
+    case 2:
+      return launch<2>(scores, valid, prices_in, eps, T, N, max_rounds, small_k, col_out,
+                       prices_out, stats, stream, scratch);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

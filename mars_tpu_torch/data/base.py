@@ -31,6 +31,15 @@ class EpisodeRecord:
     org_query_imsize: Optional[Tuple[int, int]] = None
 
 
+def read_image(path: str, mode: Optional[str] = None) -> np.ndarray:
+    """An image file as a numpy array, as the reference reads it with PIL
+    (``Image.open(path)``, converted to ``mode`` when given)."""
+    from PIL import Image
+
+    im = Image.open(path)
+    return np.array(im.convert(mode) if mode else im)
+
+
 def _pil_resize(a: np.ndarray, size: int, nearest: bool) -> np.ndarray:
     a = np.ascontiguousarray(np.asarray(a, np.uint8))
     if a.shape[:2] == (size, size):

@@ -51,6 +51,13 @@ ALPHA_CLIP_L14_336_VISUAL = ClipVisualConfig(
     pos_embed_grid=24, alpha_channel=True,
 )
 ALPHA_CLIP_L14_TEXT = ClipTextConfig(width=768, num_heads=12, output_dim=768)
+# plain CLIP ViT-L/14@224, the reference's other --vta_backbone
+# (main_MARS.py:144, VisualTextAlignmentModule.py:81-86)
+CLIP_L14_VISUAL = ClipVisualConfig(
+    patch_size=14, width=1024, depth=24, num_heads=16, output_dim=768,
+    pos_embed_grid=16,
+)
+CLIP_L14_TEXT = ALPHA_CLIP_L14_TEXT
 
 
 def visual_embed(params, images, cfg: ClipVisualConfig, alpha=None):

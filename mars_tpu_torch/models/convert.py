@@ -12,6 +12,13 @@ kernels (kh, kw, O, I)).
   - ``vip_llava_tree(sd, v_layers, layers)``: an HF ViP-LLaVA state dict →
     the VLM's tree (numpy), which ``models.vip_llava.convert_hf`` makes
     tensors of.
+  - ``reference_state_dict(tree, tower)``: the inverse for the ranking
+    towers, a tree back to the reference's key names (seeded weights
+    written as the checkpoint files the zoo reads).
+  - ``audited_trees(sd, parts, ignore)``: several converters over one
+    checkpoint under ``AuditedStateDict`` (the JAX package's
+    ``audit_conversion``), raising on a key no converter read or a leaf
+    missing, extra or of another shape than the tower's.
 """
 from __future__ import annotations
 
@@ -52,8 +59,51 @@ def _conv(w):
     return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
 
 
+class AuditedStateDict:
+    """A checkpoint that records which keys the converters read (port of
+    the JAX package's ``AuditedStateDict``).  Reading ``sd[k]`` consumes k;
+    ``k in sd`` and iterating the keys do not.  ``rekeyed`` views (a prefix
+    stripped or selected) record under the checkpoint's own names."""
+
+    def __init__(self, sd, consumed=None, origin=None):
+        self.sd = sd
+        self.consumed = set() if consumed is None else consumed
+        self.origin = origin  # view key → checkpoint key; None: the same
+
+    def __getitem__(self, k):
+        v = self.sd[k]
+        self.consumed.add(k if self.origin is None else self.origin[k])
+        return v
+
+    def __contains__(self, k):
+        return k in self.sd
+
+    def __iter__(self):
+        return iter(self.sd)
+
+    def keys(self):
+        return self.sd.keys()
+
+    def rekeyed(self, fn) -> "AuditedStateDict":
+        sd, origin = {}, {}
+        for k, v in self.sd.items():
+            nk = fn(k)
+            if nk is not None:
+                sd[nk] = v
+                origin[nk] = k if self.origin is None else self.origin[k]
+        return AuditedStateDict(sd, self.consumed, origin)
+
+
+def _rekey(sd, fn):
+    """The keys mapped by ``fn`` (None drops one), as a view if ``sd`` is
+    audited."""
+    if isinstance(sd, AuditedStateDict):
+        return sd.rekeyed(fn)
+    return {fn(k): v for k, v in sd.items() if fn(k) is not None}
+
+
 def _strip_prefix(sd: StateDict, prefix: str) -> StateDict:
-    return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
+    return _rekey(sd, lambda k: k[len(prefix):] if k.startswith(prefix) else k)
 
 
 def _ln(sd: StateDict, name: str) -> dict:
@@ -96,10 +146,11 @@ def dinov2_tree(sd: StateDict, depth: int, num_register_tokens: int = 4) -> dict
     return params
 
 
-def _clip_block(sd: StateDict, b: str, linear_in_proj: bool) -> dict:
+def _clip_block(sd: StateDict, b: str) -> dict:
     """CLIP's MultiheadAttention packs qkv as in_proj_weight/in_proj_bias;
-    AlphaCLIP's visual tower uses an nn.Linear in_proj."""
-    qkv = (_dense(sd, f"{b}.attn.in_proj") if linear_in_proj else
+    AlphaCLIP's visual tower uses an nn.Linear in_proj (in_proj.weight),
+    and the AlphaCLIP zoo renames its base checkpoint's text tower so."""
+    qkv = (_dense(sd, f"{b}.attn.in_proj") if f"{b}.attn.in_proj.weight" in sd else
            {"kernel": _t(sd[f"{b}.attn.in_proj_weight"]), "bias": sd[f"{b}.attn.in_proj_bias"]})
     return {
         "ln1": _ln(sd, f"{b}.ln_1"),
@@ -111,7 +162,7 @@ def _clip_block(sd: StateDict, b: str, linear_in_proj: bool) -> dict:
 
 def clip_visual_tree(sd: StateDict, depth: int, alpha: bool = False) -> dict:
     """CLIP (or, with ``alpha``, AlphaCLIP) visual tower under ``visual.``."""
-    v = _strip_prefix({k: x for k, x in sd.items() if k.startswith("visual.")}, "visual.")
+    v = _prefixed(sd, "visual.")
     params = {
         "patch_embed": {"kernel": _conv(v["conv1.weight"])},
         "class_embedding": v["class_embedding"],
@@ -123,7 +174,7 @@ def clip_visual_tree(sd: StateDict, depth: int, alpha: bool = False) -> dict:
     if alpha:
         params["patch_embed_alpha"] = {"kernel": _conv(v["conv1_alpha.weight"])}
     for i in range(depth):
-        params[f"block{i}"] = _clip_block(v, f"transformer.resblocks.{i}", linear_in_proj=alpha)
+        params[f"block{i}"] = _clip_block(v, f"transformer.resblocks.{i}")
     return params
 
 
@@ -135,12 +186,12 @@ def clip_text_tree(sd: StateDict, depth: int) -> dict:
         "text_projection": sd["text_projection"],
     }
     for i in range(depth):
-        params[f"block{i}"] = _clip_block(sd, f"transformer.resblocks.{i}", linear_in_proj=False)
+        params[f"block{i}"] = _clip_block(sd, f"transformer.resblocks.{i}")
     return params
 
 
 def _prefixed(sd: StateDict, prefix: str) -> StateDict:
-    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return _rekey(sd, lambda k: k[len(prefix):] if k.startswith(prefix) else None)
 
 
 def sam_encoder_tree(sd: StateDict, depth: int) -> dict:
@@ -290,3 +341,137 @@ def from_reference_state_dict(sd: StateDict, tower: str, depth: int = 0,
 
 def logit_scale(sd: StateDict, device="cpu") -> torch.Tensor:
     return torch.tensor(float(np.asarray(sd["logit_scale"])), dtype=torch.float32, device=device)
+
+
+def leaf_shapes(tree, prefix: str = "") -> dict:
+    """Nested dict of arrays or of shape tuples → {dotted path: shape}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_shapes(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = tuple(v) if isinstance(v, tuple) else tuple(np.shape(v))
+    return out
+
+
+def audit_conversion(fn, sd, *args, expected=None):
+    """``fn(sd, *args)`` with consumption tracking (the JAX package's
+    ``audit_conversion``) → (tree, report): ``unconsumed`` checkpoint keys
+    (of this call's dict; with an ``AuditedStateDict`` shared by several
+    calls, of all of them so far), and against ``expected`` (a tree of
+    shapes) the leaf paths ``missing``, ``extra`` and ``shape_mismatch``."""
+    asd = sd if isinstance(sd, AuditedStateDict) else AuditedStateDict(sd)
+    tree = fn(asd, *args)
+    report = {"unconsumed": sorted(set(asd.keys()) - asd.consumed)}
+    if expected is not None:
+        got, want = leaf_shapes(tree), leaf_shapes(expected)
+        report["missing"] = sorted(set(want) - set(got))
+        report["extra"] = sorted(set(got) - set(want))
+        report["shape_mismatch"] = sorted((p, got[p], want[p]) for p in set(got) & set(want)
+                                          if got[p] != want[p])
+    return tree, report
+
+
+def audited_trees(sd: StateDict, parts: dict, ignore=()) -> dict:
+    """Run each of ``parts`` {name: (converter, args, expected shapes)} on
+    one audited checkpoint → {name: numpy tree}.  Raises ``ValueError``
+    when a key is left that no converter read (``ignore``: the keys the
+    reference itself drops, such as a JIT archive's scalars) or a tree
+    differs from its expected shapes."""
+    asd = AuditedStateDict(sd)
+    trees, faults = {}, []
+    for name, (fn, args, expected) in parts.items():
+        trees[name], report = audit_conversion(fn, asd, *args, expected=expected)
+        faults += [f"{name} {kind}: {report[kind][:5]}"
+                   for kind in ("missing", "extra", "shape_mismatch") if report[kind]]
+    unconsumed = sorted(set(asd.keys()) - asd.consumed - set(ignore))
+    if unconsumed:
+        faults.append(f"unconsumed: {unconsumed[:5]} ({len(unconsumed)} keys)")
+    if faults:
+        raise ValueError("checkpoint conversion: " + "; ".join(faults))
+    return trees
+
+
+def _host(a) -> np.ndarray:
+    return np.ascontiguousarray(a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                                else np.asarray(a))
+
+
+def _put_ln(out: dict, name: str, leaf: dict) -> None:
+    out[f"{name}.weight"], out[f"{name}.bias"] = _host(leaf["scale"]), _host(leaf["bias"])
+
+
+def _put_dense(out: dict, name: str, leaf: dict) -> None:
+    out[f"{name}.weight"] = np.ascontiguousarray(_host(leaf["kernel"]).T)
+    if "bias" in leaf:
+        out[f"{name}.bias"] = _host(leaf["bias"])
+
+
+def _unconv(kernel) -> np.ndarray:
+    """HWIO (kh, kw, I, O) → torch Conv2d (O, I, kh, kw), ``_conv``'s inverse."""
+    return np.ascontiguousarray(np.transpose(_host(kernel), (3, 2, 0, 1)))
+
+
+def _put_clip_block(out: dict, b: str, blk: dict, linear_in_proj: bool) -> None:
+    _put_ln(out, f"{b}.ln_1", blk["ln1"])
+    _put_ln(out, f"{b}.ln_2", blk["ln2"])
+    if linear_in_proj:
+        _put_dense(out, f"{b}.attn.in_proj", blk["attn"]["qkv"])
+    else:
+        out[f"{b}.attn.in_proj_weight"] = np.ascontiguousarray(
+            _host(blk["attn"]["qkv"]["kernel"]).T)
+        out[f"{b}.attn.in_proj_bias"] = _host(blk["attn"]["qkv"]["bias"])
+    _put_dense(out, f"{b}.attn.out_proj", blk["attn"]["proj"])
+    _put_dense(out, f"{b}.mlp.c_fc", blk["mlp"]["fc1"])
+    _put_dense(out, f"{b}.mlp.c_proj", blk["mlp"]["fc2"])
+
+
+def reference_state_dict(tree: dict, tower: str) -> StateDict:
+    """A parameter tree (tensors or arrays) → the reference's flat key names
+    and layouts for ``tower`` in {dinov2, clip_visual, alpha_clip_visual,
+    clip_text}: the inverse of ``dinov2_tree``, ``clip_visual_tree`` and
+    ``clip_text_tree`` (CLIP's visual keys under ``visual.``, AlphaCLIP's
+    with its ``nn.Linear`` in_proj)."""
+    out: StateDict = {}
+    blocks = sorted((k for k in tree if k.startswith("block")), key=lambda k: int(k[5:]))
+    if tower == "dinov2":
+        out["patch_embed.proj.weight"] = _unconv(tree["patch_embed"]["kernel"])
+        out["patch_embed.proj.bias"] = _host(tree["patch_embed"]["bias"])
+        for name in ("cls_token", "pos_embed", "register_tokens"):
+            if name in tree:
+                out[name] = _host(tree[name])
+        _put_ln(out, "norm", tree["norm"])
+        for k in blocks:
+            blk, b = tree[k], f"blocks.{k[5:]}"
+            _put_ln(out, f"{b}.norm1", blk["ln1"])
+            _put_ln(out, f"{b}.norm2", blk["ln2"])
+            for part in ("qkv", "proj"):
+                _put_dense(out, f"{b}.attn.{part}", blk["attn"][part])
+            for part in ("fc1", "fc2"):
+                _put_dense(out, f"{b}.mlp.{part}", blk["mlp"][part])
+            for ls in ("ls1", "ls2"):
+                if ls in blk:
+                    out[f"{b}.{ls}.gamma"] = _host(blk[ls]["gamma"])
+    elif tower in ("clip_visual", "alpha_clip_visual"):
+        alpha = tower == "alpha_clip_visual"
+        out["visual.conv1.weight"] = _unconv(tree["patch_embed"]["kernel"])
+        if alpha:
+            out["visual.conv1_alpha.weight"] = _unconv(tree["patch_embed_alpha"]["kernel"])
+        out["visual.class_embedding"] = _host(tree["class_embedding"])
+        out["visual.positional_embedding"] = np.ascontiguousarray(_host(tree["pos_embed"])[0])
+        _put_ln(out, "visual.ln_pre", tree["ln_pre"])
+        _put_ln(out, "visual.ln_post", tree["ln_post"])
+        out["visual.proj"] = _host(tree["proj"])
+        for k in blocks:
+            _put_clip_block(out, f"visual.transformer.resblocks.{k[5:]}", tree[k], alpha)
+    elif tower == "clip_text":
+        out["token_embedding.weight"] = _host(tree["token_embedding"]["embedding"])
+        out["positional_embedding"] = _host(tree["pos_embed"])
+        _put_ln(out, "ln_final", tree["ln_final"])
+        out["text_projection"] = _host(tree["text_projection"])
+        for k in blocks:
+            _put_clip_block(out, f"transformer.resblocks.{k[5:]}", tree[k], False)
+    else:
+        raise ValueError(f"unknown tower: {tower}")
+    return out
+

@@ -31,6 +31,16 @@ class DinoV2Config:
     interpolate_offset: float = 0.1
 
 
+# reference: dinov2/models/vision_transformer.py:381-437 (the JAX package's
+# table: vit_giant2 with the plain MLP of the others, mars_tpu/models/dinov2.py:42-47)
+DINOV2_VARIANTS = {
+    "vit_small": DinoV2Config(embed_dim=384, depth=12, num_heads=6),
+    "vit_base": DinoV2Config(embed_dim=768, depth=12, num_heads=12),
+    "vit_large": DinoV2Config(embed_dim=1024, depth=24, num_heads=16),
+    "vit_giant2": DinoV2Config(embed_dim=1536, depth=40, num_heads=24),
+}
+
+
 def forward_features(params, images, cfg: DinoV2Config, attn_tap_last_n: int = 0):
     """images: (B, H, W, 3) normalized, NHWC.
 

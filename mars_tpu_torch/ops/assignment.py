@@ -9,10 +9,12 @@ their prices (Bertsekas ε-scaling).
 
 On a CUDA tensor each phase is ONE launch of the hand-written Hopper kernel
 ``csrc/auction.cu`` (the whole loop on one cluster of 8 CTAs, each a slice
-of a small round's columns; its source note says what bounds it) or
-raises; on a CPU tensor it is ``_auction_phase_plain``, a host loop of
-vector rounds that mirrors the JAX package's XLA path (a dense
-round, or a gather of the bidder rows when at most ``small_k`` rows bid).
+of a small round's columns; its source note says what bounds it), its
+state in shared memory or, past that, partly or wholly in a global scratch
+buffer (``auction_variant``), or raises; on a CPU tensor it is
+``_auction_phase_plain``, a host loop of vector rounds that mirrors the JAX
+package's XLA path (a dense round, or a gather of the bidder rows when at
+most ``small_k`` rows bid).
 The two are bit-exact, and the plain version is bit-exact with the JAX
 package's ``auction_assignment(use_kernel=False)``.
 """
@@ -28,13 +30,35 @@ from mars_tpu_torch.ops import build
 
 NEG = -1e9
 SMALL_K = 16
+_CLUSTER = 8  # csrc/auction.cu CLUSTER: CTAs a launch, each with its replica of the state
 _MAX_SHARED = 227 * 1024  # csrc/auction.cu MAX_SMEM; the kernel holds 16 (T + N) bytes
 # and EXTRA_BYTES: the cluster's slice partials (2 rounds x 16 bidders x 8 CTAs
 # x 16 bytes) and their two mbarriers, the warps' append counts, the list
 # lengths
 _EXTRA_SHARED = 2 * 16 * 8 * 16 + 16 + 4 * (16 + 2)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_int] * 4
-             + [ctypes.c_void_p] * 4)
+             + [ctypes.c_void_p] * 5 + [ctypes.c_int])
+VARIANTS = ("shared", "rows_global", "global")
+
+
+def auction_variant(t: int, n: int) -> int:
+    """Where ``csrc/auction.cu`` keeps a (t, n) instance's state, its MODE
+    (an index into ``VARIANTS``): 0 all in shared memory (16 (t + n) bytes
+    and the exchange buffers fit), 1 the row side (16 t bytes) in global
+    replicas with the column side in shared memory (16 n bytes fit), 2 both
+    in global replicas.  A pure function of the size, as the JAX package's
+    ``_kernel_fits`` is."""
+    if 16 * (t + n) + _EXTRA_SHARED <= _MAX_SHARED:
+        return 0
+    if 16 * n + _EXTRA_SHARED <= _MAX_SHARED:
+        return 1
+    return 2
+
+
+def scratch_bytes(mode: int, t: int, n: int) -> int:
+    """The global scratch the kernel takes in ``mode``: a replica per CTA
+    of the cluster (the source's ``replica_bytes``)."""
+    return _CLUSTER * (0, 16 * t, 16 * (t + n))[mode]
 
 
 def _auction_phase_plain(scores, row_valid, prices, eps, max_rounds: int,
@@ -101,9 +125,7 @@ def _auction_phase_kernel(scores, row_valid, prices, eps, max_rounds: int,
     if row_valid.shape != (t,) or prices.shape != (n,):
         raise ValueError(f"row_valid {tuple(row_valid.shape)} / prices {tuple(prices.shape)} "
                          f"do not fit scores {tuple(scores.shape)}")
-    if 16 * (t + n) + _EXTRA_SHARED > _MAX_SHARED:
-        raise ValueError(f"auction of {t} x {n} exceeds the kernel's shared memory "
-                         f"(T + N <= {(_MAX_SHARED - _EXTRA_SHARED) // 16})")
+    mode = auction_variant(t, n)
     scores = scores.contiguous()
     valid_u8 = row_valid.to(torch.uint8).contiguous()
     prices = prices.contiguous()
@@ -111,12 +133,16 @@ def _auction_phase_kernel(scores, row_valid, prices, eps, max_rounds: int,
     col = torch.empty((t,), dtype=torch.int32, device=scores.device)
     prices_out = torch.empty_like(prices)
     stats = torch.zeros((4,), dtype=torch.int32, device=scores.device)
+    scratch = (torch.empty((scratch_bytes(mode, t, n),), dtype=torch.uint8, device=scores.device)
+               if mode else None)
     err = fn(scores.data_ptr(), valid_u8.data_ptr(), prices.data_ptr(), float(eps), t, n,
              int(max_rounds), -1 if small_k is None else int(small_k), col.data_ptr(),
              prices_out.data_ptr(), stats.data_ptr(),
-             torch.cuda.current_stream(scores.device).cuda_stream)
+             torch.cuda.current_stream(scores.device).cuda_stream,
+             None if scratch is None else scratch.data_ptr(), mode)
     if err != 0:
-        raise RuntimeError(f"auction kernel launch failed with CUDA error {err} ({t} x {n})")
+        raise RuntimeError(f"auction kernel ({VARIANTS[mode]}) launch failed with CUDA error "
+                           f"{err} ({t} x {n})")
     auction_assignment.launches += 1
     return col, prices_out, tuple(int(x) for x in stats.tolist())
 

@@ -85,3 +85,26 @@ def test_nms_keep_equals_jax(seed):
     got = tnms.nms_keep(torch.from_numpy(boxes), torch.from_numpy(scores),
                         torch.from_numpy(valid), 0.5)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("t,n,variant", [
+    (1369, 1369, "shared"),          # a one-shot matching instance
+    (1369, 6845, "shared"),          # five shots: the transposed forward, the reverse
+    (7133, 7133, "shared"),          # T + N = 14 266, the last that fits
+    (7133, 7134, "rows_global"),     # T + N = 14 267
+    (7225, 7225, "rows_global"),     # grid 85 (--input-size 1190)
+    (1, 14266, "rows_global"),       # 16 N + the exchange buffers: the last N in shared memory
+    (1, 14267, "global"),
+    (7225, 36125, "global"),         # five shots at grid 85
+])
+def test_kernel_variant_dispatch_by_size(t, n, variant):
+    """The wrapper's choice of where the kernel keeps its state is a pure
+    function of (T, N), with the bounds of the kernel's shared memory, and
+    the scratch it allocates is a replica of the moved side per CTA."""
+    mode = tasg.auction_variant(t, n)
+    assert tasg.VARIANTS[mode] == variant
+    assert tasg.scratch_bytes(mode, t, n) == tasg._CLUSTER * {
+        "shared": 0, "rows_global": 16 * t, "global": 16 * (t + n)}[variant]
+    shared = 16 * ((t if mode == 0 else 0) + (n if mode < 2 else 0)) + tasg._EXTRA_SHARED
+    assert shared <= tasg._MAX_SHARED
+

@@ -322,17 +322,21 @@ def test_emulation_fault_differs_from_plain(name, fault):
 
 
 def test_kernel_wrapper_shared_memory_bound():
-    """The wrapper refuses what the kernel's shared memory cannot hold
-    (16 (T + N) bytes and ``EXTRA_BYTES`` in the source)
-    before it builds anything."""
+    """The wrapper's bound is the kernel's shared memory (16 (T + N) bytes
+    and ``EXTRA_BYTES`` in the source): at it the state stays in shared
+    memory, one byte-row past it the row side moves to the global scratch,
+    and the scratch holds one replica per CTA of the cluster."""
     limit = (tasg._MAX_SHARED - tasg._EXTRA_SHARED) // 16
     with open(tasg.build.CSRC_DIR + "/auction.cu") as f:
         source = f.read()
     for line in ("constexpr int CLUSTER = 8;", "constexpr int THREADS = 512;",
                  "constexpr int PART_BYTES = 2 * WARPS * CLUSTER * (int)sizeof(Part) + 16;",
-                 "constexpr int EXTRA_BYTES = PART_BYTES + 4 * (WARPS + 2);"):
+                 "constexpr int EXTRA_BYTES = PART_BYTES + 4 * (WARPS + 2);",
+                 "constexpr int MAX_SMEM = 227 * 1024;"):
         assert line in source
     assert tasg._EXTRA_SHARED == 2 * 16 * 8 * 16 + 16 + 4 * (16 + 2)
-    with pytest.raises(ValueError, match=f"T \\+ N <= {limit}"):
-        tasg._auction_phase_kernel(torch.zeros((1, limit)), torch.ones((1,), dtype=torch.bool),
-                                   torch.zeros((limit,)), 1e-3, 10)
+    assert limit == 14266
+    assert tasg.auction_variant(1, limit - 1) == 0
+    assert tasg.auction_variant(1, limit) == 1
+    assert tasg.scratch_bytes(0, 1, limit - 1) == 0
+    assert tasg.scratch_bytes(1, 1, limit) == tasg._CLUSTER * 16

@@ -79,13 +79,12 @@ def tiny_port(monkeypatch, trees):
                 tclip.ClipVisualConfig(width=64, depth=depth, num_heads=1, output_dim=16,
                                        pos_embed_grid=7, alpha_channel=alpha), tcfg)
 
-    monkeypatch.setattr(zoo, "build_dinov2", lambda seed=0, device=None: (
+    monkeypatch.setattr(zoo, "build_dinov2", lambda *a, **k: (
         _port(trees["dino"]), tdino.DinoV2Config(**DINO)))
-    monkeypatch.setattr(zoo, "build_clip", lambda seed=1, device=None: clip_pair("clip.", 3,
-                                                                                 False))
-    monkeypatch.setattr(zoo, "build_alpha_clip", lambda seed=2, device=None: clip_pair(
+    monkeypatch.setattr(zoo, "build_clip", lambda *a, **k: clip_pair("clip.", 3, False))
+    monkeypatch.setattr(zoo, "build_alpha_clip", lambda *a, **k: clip_pair(
         "aclip.", 2, True))
-    monkeypatch.setattr(zoo, "build_sam", lambda variant="vit_h", seed=3, device=None: (
+    monkeypatch.setattr(zoo, "build_sam", lambda *a, **k: (
         _port(trees["sam"]), tsam.SamConfig(**SAM)))
     monkeypatch.setattr(tamg, "AmgConfig", functools.partial(tamg.AmgConfig, **AMG))
 

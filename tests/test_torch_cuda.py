@@ -250,6 +250,40 @@ def test_auction_kernel_reruns_bitwise(dev):
     assert _bitwise_equal(runs[0], runs[2])
 
 
+# past the kernel's shared memory and at the five-shot shapes: (T, N, the
+# variant the wrapper picks, quantized scores for long wars)
+AUCTION_LARGE = [(7133, 7133, "shared", False),       # T + N = 14 266, the last that fits
+                 (7133, 7134, "rows_global", False),  # T + N = 14 267
+                 (7225, 7225, "rows_global", False),  # grid 85 (--input-size 1190)
+                 (7225, 7225, "rows_global", True),
+                 (6845, 1369, "shared", False),       # five shots: the forward, footprint <= L
+                 (1369, 6845, "shared", True),        # the transposed forward and the reverse
+                 (2916, 14580, "global", False),      # the reverse at five shots, grid 54
+                 (2916, 14580, "global", True)]
+
+
+@pytest.mark.parametrize("t,n,variant,quantized", AUCTION_LARGE)
+def test_auction_large_instances_equal_plain_on_card(dev, t, n, variant, quantized):
+    """A matching-like instance (30 % of the rows bid, 15 % where T > N,
+    compacted first as the Matcher's row_chunk does), one phase: the kernel in the variant its
+    size selects and the plain version on the card, bit for bit."""
+    from mars_tpu_torch.ops import assignment as asg
+
+    assert asg.VARIANTS[asg.auction_variant(t, n)] == variant
+    rng = np.random.RandomState(t + n)
+    s = (rng.randint(0, 4, (t, n)).astype(np.float32) / 4.0 if quantized
+         else rng.rand(t, n).astype(np.float32))
+    valid = rng.rand(t) < (0.3 if t <= n else 0.15)  # never more bidders than columns
+    scores, valid, _, eps = asg.phase_inputs(torch.from_numpy(s).to(dev),
+                                             torch.from_numpy(valid).to(dev), 1, 128)
+    before = asg.auction_assignment.launches
+    got = _phases_on_card(asg._auction_phase_kernel, scores, valid, eps)
+    assert asg.auction_assignment.launches == before + 1
+    want = _phases_on_card(asg._auction_phase_plain, scores, valid, eps)
+    assert _bitwise_equal(got, want)
+    assert int((got[0][0] >= 0).sum()) == int(valid.sum())
+
+
 def _quant_inputs(fmt, m, din, dout, dtype, dev, seed=0):
     from mars_tpu_torch.models import quantization as TQ
 

@@ -249,12 +249,11 @@ def test_cli_generate_proposals_on_cpu(monkeypatch, capsys):
 
     dino = (tconvert.from_reference_state_dict(_sub(ep_sd, "dino."), "dinov2", 3),
             tdino.DinoV2Config(embed_dim=32, depth=3, num_heads=2, pos_embed_grid=8))
-    monkeypatch.setattr(zoo, "build_dinov2", lambda seed=0, device=None: dino)
-    monkeypatch.setattr(zoo, "build_clip", lambda seed=1, device=None: clip_pair("clip.", 3,
-                                                                                 False))
-    monkeypatch.setattr(zoo, "build_alpha_clip", lambda seed=2, device=None: clip_pair(
+    monkeypatch.setattr(zoo, "build_dinov2", lambda *a, **k: dino)
+    monkeypatch.setattr(zoo, "build_clip", lambda *a, **k: clip_pair("clip.", 3, False))
+    monkeypatch.setattr(zoo, "build_alpha_clip", lambda *a, **k: clip_pair(
         "aclip.", 2, True))
-    monkeypatch.setattr(zoo, "build_sam", lambda variant="vit_h", seed=3, device=None:
+    monkeypatch.setattr(zoo, "build_sam", lambda *a, **k:
                         _tiny_sam(_sub(sd, "sam.")))
     res = tcli.main(["--episodes", "1", "--gt-class-names", "--generate-proposals",
                      "--input-size", "112", "--proposal-bucket", "16", "--device", "cpu"])

@@ -168,7 +168,7 @@ def main(argv):
                     st = torch.zeros((24,), dtype=torch.int32, device="cuda")
                     err = fn(scores.data_ptr(), valid.data_ptr(), prices.data_ptr(), float(e), t,
                              n, 20000, asg.SMALL_K, col.data_ptr(), out.data_ptr(),
-                             st.data_ptr(), stream)
+                             st.data_ptr(), stream, None, 0)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")
                     prices = out
