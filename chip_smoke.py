@@ -36,8 +36,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
  10. one ranking episode, then one proposal-plus-ranking episode, under
      torch.profiler: device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
-     7B's shapes (decode rows 1, 4 and 8, prefill rows ~2330) and a ragged
-     one, in bfloat16, rerun for bitwise equality, beside their bound and
+     7B's shapes (decode rows 1, 4 and 8, prefill rows ~2330, and on a
+     LLaMA layer's three shapes a speculative verify's rows 9, 18, 36 and
+     72) and a
+     ragged one, in bfloat16, rerun for bitwise equality, beside their bound and
      cuBLAS on the dense weight; decode rows also timed with the device
      held while the calls are enqueued, warm and cold (the calls rotate
      through >= 100 MB of weight copies, twice the L2), kernel and cuBLAS;
@@ -76,7 +78,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
  20. one bf16 proposal-plus-ranking episode under torch.profiler, with
      both switches on, then with both off (the default route), then a
      five-shot one with both on;
- 21. the kernels line.
+ 21. the text path through the CLI: ``cli.main`` without --gt-class-names
+     at full width (the ranking towers as in phase 7; ViP-LLaVA-7B on
+     seeded random weights in place of ``cli.build_retriever``'s checkpoint,
+     the stand-in processor, prompt-lookup speculation at JAX's defaults;
+     WordNet on tests/nltk_minicorpus.py's tree through --nltk-path): one
+     block of four episodes in int4, then in NF4, then two episodes with
+     --pipelined-text; the 4-bit launches (GEMV and GEMM) equal 146 per
+     vision call + 224 per LLaMA forward as the decode loop counts them, the
+     tap 31 per episode; each block's speculative streams against the same
+     requests decoded plainly, a split allowed only where the plain step's
+     top-two logit gap is under 2^-7 of the top logit;
+ 22. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -173,6 +186,10 @@ QUANT_SHAPES = (("llama_qkvo", 4096, 4096), ("llama_gate_up", 4096, 11008),
                 ("llama_down", 11008, 4096), ("projector_1", 5120, 4096),
                 ("clip_fc1", 1024, 4096), ("ragged", 1984, 999))
 QUANT_ROWS = (1, 4, 8, 2330)
+# a speculative verify forward's rows: B x (K + 1) at K = 8 draft tokens,
+# B = 1, 2, 4 and 8, on every dense shape of a LLaMA layer
+VERIFY_ROWS = (9, 18, 36, 72)
+VERIFY_SHAPES = ("llama_qkvo", "llama_gate_up", "llama_down")
 COLD_BYTES = 100e6  # weight copies a cold timing rotates through: twice the 50 MB L2
 QUANT_REL_TOL = 2 ** -7  # bf16 output: one rounding of the largest output
 # quantized denses per image prefill (CLIP-L: 24 layers x q, k, v, out,
@@ -183,6 +200,12 @@ TEXT_ROWS = 4
 TEXT_PREFIX = "Human: <image>\n"
 LOGITS_PROMPT = ("Human: <image>\nWhat is the name of the object inside the red mask contour?"
                  "\nAssistant:")
+# the text CLI phase: one block at the default depth, then the pipelined stage
+TEXT_CLI_ARGS = ["--benchmark", "synthetic", "--proposal-bucket", "128", "--input-size", "518",
+                 "--seed", "0"]
+TEXT_CLI_EPISODES = 4
+PIPELINED_EPISODES = 2
+SPLIT_REL_GAP = 2 ** -7  # bf16: a stream may split only where the top-two gap is this small
 
 
 def emit(obj):
@@ -1050,8 +1073,8 @@ def phase_bf16_path(state):
         row, out, ep = _zero_thresholds(bf16=True)
         got, want = launches(), _matcher_launches(1)
         failures += [] if got == want else [("zero_thresholds", got, want)]
-        model = cli.build_model(cli.parse_args(["--input-size", "518", "--bf16"]),
-                                torch.device("cuda"))
+        model = cli.build_model(cli.parse_args(["--input-size", "518", "--bf16",
+                                                "--gt-class-names"]), torch.device("cuda"))
         rec = SyntheticFSS(seed=0)[0]
         start()
         t0 = time.perf_counter()
@@ -1301,7 +1324,7 @@ def _profile_proposals(bf16, shots=1):
     from mars_tpu_torch.data.synthetic import SyntheticFSS
 
     dev = torch.device("cuda")
-    args = cli.parse_args(["--input-size", "518", "--nshot", str(shots)]
+    args = cli.parse_args(["--input-size", "518", "--nshot", str(shots), "--gt-class-names"]
                           + (["--bf16"] if bf16 else []))
     model = cli.build_model(args, dev)
     generate = cli.make_inline_generator(args, (model.dino_params, model.dino_cfg), dev)
@@ -1354,7 +1377,7 @@ def phase_profile(state):
     from mars_tpu_torch.data.synthetic import SyntheticFSS
 
     dev = torch.device("cuda")
-    model = cli.build_model(cli.parse_args(["--input-size", "518"]), dev)
+    model = cli.build_model(cli.parse_args(["--input-size", "518", "--gt-class-names"]), dev)
     rec = SyntheticFSS(seed=0)[0]
     ep = to_device_episode(rec, 518, 1, dev)
     props = cli.synthetic_proposals(rec, 518, 128, np.random.RandomState(0), dev)
@@ -1407,7 +1430,7 @@ def phase_4bit_kernels(state):
                 packed, scale = leaf["nf4"], leaf["bscale"]
             dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
             weights, denses = cold_copies((packed, scale)), cold_copies((dense,))
-            for m in QUANT_ROWS:
+            for m in QUANT_ROWS + (VERIFY_ROWS if name in VERIFY_SHAPES else ()):
                 x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
                 got, want = fn(x, packed, scale), plain(x, packed, scale)
                 rerun_equal = bool(torch.equal(got, fn(x, packed, scale)))
@@ -1459,7 +1482,7 @@ class StandInProcessor:
     image processor are not in the repository): ``<image>`` becomes the
     tower's 576 image slots, text one id per 4 characters (a newline its own
     id, so "Human: <image>\\n" is a token prefix of every prompt), pixels
-    the image over 255."""
+    the image brought to the tower's 336² (bilinear) over 255."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -1478,10 +1501,16 @@ class StandInProcessor:
     def __call__(self, text, images, return_tensors="np"):
         import numpy as np
 
+        import torch
+        import torch.nn.functional as F
+
         g = (self.cfg.image_size // self.cfg.patch_size) ** 2
         left, _, right = text.partition("<image>")
         ids = [1] + self._ids(left) + [self.cfg.image_token_index] * g + self._ids(right)
         pix = np.asarray(images, np.float32)[None].transpose(0, 3, 1, 2) / 255.0
+        if pix.shape[2:] != (self.cfg.image_size,) * 2:
+            pix = F.interpolate(torch.from_numpy(pix), size=(self.cfg.image_size,) * 2,
+                                mode="bilinear", align_corners=False).numpy()
         return {"input_ids": np.asarray([ids], np.int64), "pixel_values": pix}
 
 
@@ -1528,7 +1557,7 @@ def phase_text_path(state):
     for fmt in ("affine", "nf4"):
         params, cfg = zoo.build_vip_llava(0, 4, fmt)
         proc = StandInProcessor(cfg)
-        vlm = TorchVipLlava(params=params, cfg=cfg, processor=proc)
+        vlm = TorchVipLlava(params=params, cfg=cfg, processor=proc, draft_tokens=0)
         images = [(rs.rand(cfg.image_size, cfg.image_size, 3) * 255).astype(np.uint8)
                   for _ in range(TEXT_ROWS)]
         real_prefill, prefill_ms = vl.prefill_prefix, []
@@ -1612,7 +1641,7 @@ def phase_profile_text(state):
     from mars_tpu_torch.text.retriever import TorchVipLlava
 
     params, cfg = zoo.build_vip_llava(0, 4, "affine")
-    vlm = TorchVipLlava(params=params, cfg=cfg, processor=StandInProcessor(cfg))
+    vlm = TorchVipLlava(params=params, cfg=cfg, processor=StandInProcessor(cfg), draft_tokens=0)
     rs = np.random.RandomState(1)
     images = [(rs.rand(cfg.image_size, cfg.image_size, 3) * 255).astype(np.uint8)
               for _ in range(TEXT_ROWS)]
@@ -1628,6 +1657,177 @@ def phase_profile_text(state):
           "kernel_launches": launches, "top_kernels": top})
     del vlm, params
     torch.cuda.empty_cache()
+
+
+def _seeded_retriever(args):
+    """``cli.build_retriever``'s place in the script: ViP-LLaVA-7B on seeded
+    random weights in the format of ``--vlm4bit`` / ``--vlm4bit-nf4`` on
+    ``--device``, the stand-in processor, speculation and prompts as the
+    flags say."""
+    from mars_tpu_torch import cli
+    from mars_tpu_torch import device as device_lib
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.text import retriever as R
+
+    params, cfg = zoo.build_vip_llava(0, 4, "nf4" if args.vlm4bit_nf4 else "affine",
+                                      device=device_lib.resolve(args.device))
+    vlm = R.TorchVipLlava(args.vlm_path, params=params, cfg=cfg, processor=StandInProcessor(cfg),
+                          draft_tokens=args.vlm_draft_tokens,
+                          kv_bits=8 if args.vlm_kv8 else None)
+    gen_cfg, ensemble = cli.retriever_configs(args)
+    return R.TextRetriever(vlm, gen_cfg=gen_cfg, ensemble=ensemble)
+
+
+def _plain_splits(vlm, calls):
+    """Rerun each recorded ``generate_batch`` call with speculation off and
+    the plain steps' logits watched; → (rows compared, rows that split,
+    largest top-two gap / |top-1| at a split)."""
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    rows = splits = 0
+    worst = 0.0
+    draft, vlm.draft_tokens = vlm.draft_tokens, 0
+    argmax, generate = vl._argmax_first, vl.generate_greedy
+    tops, starts = [], []
+
+    def watched_argmax(x):  # every token choice of a plain decode
+        tops.append(torch.topk(x.float(), 2, dim=-1).values.cpu())
+        return argmax(x)
+
+    def watched_generate(*a, **kw):  # one call a chunk of rows
+        starts.append(len(tops))
+        return generate(*a, **kw)
+
+    vl._argmax_first, vl.generate_greedy = watched_argmax, watched_generate
+    try:
+        for images, prompts, kw, spec_out in list(calls):
+            tops.clear()
+            starts.clear()
+            decoded = len(vlm.processor.tokenizer.rows)
+            TorchVipLlava.generate_batch(vlm, images, prompts, **kw)  # not the recorder
+            plain_rows = vlm.processor.tokenizer.rows[decoded:]
+            spec_rows = [r for r in spec_out]
+            # chunk c holds rows [c * chunk, (c + 1) * chunk); its token
+            # choices start at starts[c]
+            for r, (want, got) in enumerate(zip(plain_rows, spec_rows)):
+                rows += 1
+                if want == got:
+                    continue
+                splits += 1
+                t = next(j for j in range(min(len(want), len(got)) + 1)
+                         if j >= min(len(want), len(got)) or want[j] != got[j])
+                chunk = vlm.MAX_PREFIX_BATCH if kw.get("shared_prefix") else vlm.MAX_DECODE_BATCH
+                step = tops[starts[r // chunk] + t][r % chunk]
+                worst = max(worst, float(step[0] - step[1]) / max(abs(float(step[0])), 1e-30))
+    finally:
+        vl._argmax_first, vl.generate_greedy = argmax, generate
+        vlm.draft_tokens = draft
+    return rows, splits, worst
+
+
+def phase_text_cli(state):
+    """``cli.main`` without --gt-class-names at full width: the ranking
+    towers as in the main path, ViP-LLaVA-7B (seeded random weights, bf16,
+    through ``cli.build_retriever``'s place) naming the class with
+    prompt-lookup speculation at JAX's defaults, WordNet on the mini tree of
+    tests/nltk_minicorpus.py through --nltk-path.  One block at the default
+    depth in int4, then in NF4, then two episodes with --pipelined-text;
+    every count set to 0 just before each run and read just after: the
+    4-bit launches (GEMV and GEMM) equal 146 per vision call + 224 per LLaMA
+    forward as the decode loop counts them; each block's speculative
+    streams against the same requests decoded plainly."""
+    import gc
+    import math
+    import tempfile
+
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.models import vip_llava as vl
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from nltk_minicorpus import ensure_minicorpus
+
+    nltk_root = ensure_minicorpus(tempfile.mkdtemp(prefix="nltk_mini_"))
+    runs = (("int4", ["--vlm4bit"], TEXT_CLI_EPISODES),
+            ("nf4", ["--vlm4bit", "--vlm4bit-nf4"], TEXT_CLI_EPISODES),
+            ("int4_pipelined", ["--vlm4bit", "--pipelined-text"], PIPELINED_EPISODES))
+    real_build, launches_by_fmt, failures = cli.build_retriever, {}, []
+    for label, flags, episodes in runs:
+        made, calls = {}, []
+
+        def build(args):
+            r = _seeded_retriever(args)
+            made["vlm"] = vlm = r.vlm
+            batch = vlm.generate_batch
+
+            def recorded(images, prompts, **kw):
+                out = batch(images, prompts, **kw)
+                calls.append((images, prompts, kw, vlm.processor.tokenizer.rows[-len(images):]))
+                return out
+
+            vlm.generate_batch = recorded
+            return r
+
+        cli.build_retriever = build
+        m_rows, launch = [], im._launch
+
+        def logged(fmt, x, *a):  # the rows of each 4-bit launch: GEMV or GEMM
+            m_rows.append(x.shape[0])
+            return launch(fmt, x, *a)
+
+        im._launch = logged
+        for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
+            fn.launches = 0
+        for k in vl.STATS:
+            vl.STATS[k] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res = cli.main(TEXT_CLI_ARGS + ["--episodes", str(episodes), "--nltk-path", nltk_root]
+                           + flags)
+        finally:
+            cli.build_retriever, im._launch = real_build, launch
+        counts = res["text_counts"]
+        gemv = sum(m <= im.GEMV_MAX_ROWS for m in m_rows)
+        kernel = "matmul_nf4" if label == "nf4" else "matmul_int4"
+        want = VISION_DENSES * counts["vision"] + LLAMA_DENSES * counts["forwards"]
+        tap_want = TAPPED_BLOCKS * episodes
+        rows, splits, worst = (_plain_splits(made["vlm"], calls) if episodes > 2
+                               else (None, None, None))
+        row = {"phase": "text_cli", "run": label, "episodes": episodes,
+               "text_ms": res["text_ms"], "ranking_ms": res["episode_ms"],
+               "names": [n[:40] for n in res["names"]], "definitions": res["descriptions"],
+               "vlm_calls": len(calls), "vision_calls": counts["vision"],
+               "llama_forwards": counts["forwards"], "spec_rounds": counts["rounds"],
+               "verify_rounds": counts["verify_rounds"], "accepted_drafts": counts["accepted"],
+               "gemv_launches": gemv, "gemm_launches": len(m_rows) - gemv,
+               "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
+               "launches_expected": {kernel: want},
+               "tap_launches": res["launches"]["attention_with_tap"], "tap_expected": tap_want,
+               "rows_compared": rows, "rows_split": splits, "max_split_rel_gap": worst,
+               "split_limit": SPLIT_REL_GAP,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "miou": res["miou"], "masks_binary": res["masks_binary"]}
+        emit(row)
+        launches_by_fmt[f"cli_{label}"] = counts[kernel]
+        ok = (counts[kernel] == want and len(m_rows) == want
+              and sum(counts[k] for k in cli.TEXT_KERNELS) == want
+              and res["launches"]["attention_with_tap"] == tap_want
+              and len(res["names"]) == episodes and res["masks_binary"]
+              and math.isfinite(res["miou"]) and (worst is None or worst < SPLIT_REL_GAP))
+        if not ok:
+            failures.append(label)
+        del made, calls
+        gc.collect()  # the recorded wrapper and the model hold each other
+    state["text_cli_launches"] = launches_by_fmt
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"text CLI runs failed: {failures}")
 
 
 def kernels_line(state):
@@ -1720,10 +1920,15 @@ def _quant_entry(state, fmt, line):
                  {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     cold = ("held_ms", "cold_ms", "library_held_ms", "library_cold_ms")
+    paths = {"text_block": state.get("text_launches", {}).get(f"matmul_{fmt}", 0),
+             **{path: n for path, n in state.get("text_cli_launches", {}).items()
+                if (path == "cli_nf4") == (fmt == "nf4")}}
+    verify = [r for r in rows if r["shape"][0] in VERIFY_ROWS]
     return {"name": f"matmul_{fmt}", "route": "cuda",
             "source": "mars_tpu_torch/csrc/int4_matmul.cu",
             "replaces": f"mars_tpu/ops/int4_matmul.py:{line}",
-            "launches": state.get("text_launches", {}).get(f"matmul_{fmt}", 0),
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "verify_gemm": [{k: r.get(k) for k in ("geometry", "shape") + keys} for r in verify],
             "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
             **{k: first.get(k) for k in keys + cold}, "shape": first.get("shape"),
             "dtype": "bfloat16",
@@ -1753,7 +1958,7 @@ def main():
                   phase_models_path, phase_backbones, phase_profile,
                   phase_profile_proposals, phase_profile_bf16, phase_profile_five_shot,
                   phase_4bit_kernels,
-                  phase_text_path, phase_profile_text):
+                  phase_text_path, phase_profile_text, phase_text_cli):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -14,7 +14,7 @@ Quantized leaves replace a dense ``kernel`` with a dict, which
 The int4 and NF4 products go through ``ops.int4_matmul`` (the hand-written
 kernels on a CUDA tensor); int8 is a float32 product of the int8 values
 with the scale after it.  The ``act8`` (W8A8) marker of the JAX package is
-not ported yet (ROADMAP Queue 1 item 15).
+not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -99,7 +99,7 @@ def quantized_dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     k = p["kernel"]
     if "act8" in k:
         raise NotImplementedError("W8A8 (act8) kernels are not ported yet: ROADMAP Queue 1 "
-                                  "item 15")
+                                  "item 5")
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if "nf4" in k:

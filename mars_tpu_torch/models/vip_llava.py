@@ -8,26 +8,29 @@
     without CLS, concatenated over channels) and the LayerNorm → Linear →
     GELU → Linear projector;
   - LLaMA decoder: RMSNorm, half-rotation RoPE, grouped-query attention,
-    SwiGLU MLP, a bf16 KV cache written in place;
+    SwiGLU MLP, a KV cache written in place (in the model's type, or int8
+    with per-token per-head scales);
   - greedy decoding: a fixed-trip loop, or HF ``generate``'s EOS semantics
     (rows freeze at EOS, the loop stops once every row has), with per-row
     prompt lengths and EOS floors, shared-prefix resume and the in-place
-    chained name → definition flow.
+    chained name → definition flow; and prompt-lookup speculative decoding
+    (B = 1 and batched, with the acceptance and laggard gates), which is
+    exact greedy.
 
 Parameters are nested dicts in the JAX package's layout (dense kernels
 (in, out)); a dense kernel that is a dict is weight-only quantized and its
 products run through ``ops.int4_matmul`` (``layers.dense``).  Every entry
-point runs on the device its parameters lie on and holds no state.
-
-Not ported yet (ROADMAP Queue 1 item 13): prompt-lookup speculative
-decoding (``draft_tokens > 0``; it is exact greedy, so ``draft_tokens=0``
-gives the same tokens) and the int8 KV cache (``kv_bits=8``).
+point runs on the device its parameters lie on and holds no state but
+``STATS``, the counts the decode loops keep (LLaMA forwards, speculative
+rounds, verify rounds and accepted drafts; vision-tower calls), which a
+caller may reset.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,7 +40,9 @@ from mars_tpu_torch.models import layers as L
 from mars_tpu_torch.models import quantization as Q
 from mars_tpu_torch.ops import int4_matmul
 
-_NOT_PORTED = "ROADMAP Queue 1 item 13"
+# vision-tower calls, LLaMA forwards, speculative loop rounds, verify rounds
+# among them, draft tokens accepted: counted where they run
+STATS = {"vision": 0, "forwards": 0, "rounds": 0, "verify_rounds": 0, "accepted": 0}
 
 
 @dataclass(frozen=True)
@@ -106,6 +111,7 @@ def _hf_attn(p, x, num_heads: int):
 
 def image_features(p, pixel_values, cfg: VipLlavaConfig):
     """Multi-layer feature selection + projector → (B, P, hidden)."""
+    STATS["vision"] += 1
     states = vision_hidden_states(p["vision"], pixel_values, cfg)
     feats = torch.cat([states[i][:, 1:] for i in cfg.vision_feature_layers], dim=-1)
     mp = p["projector"]
@@ -133,12 +139,22 @@ def _rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _kv_quant(x):
+    """Per-token per-head symmetric int8: (B, L, KVH, hd) → int8 values and
+    (B, L, KVH, 1) float32 dequant scales (amax / 127 over the head dim)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    return torch.round(xf * (127.0 / s)).to(torch.int8), s * (1.0 / 127.0)
+
+
 def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_pos=None):
     """Self-attention with RoPE and GQA.  With ``kv_cache`` = (K, V), each
     (B, MAX, KVH, hd), the new keys and values are written IN PLACE at
     ``cache_pos`` (an int, or a (B,) tensor for per-row positions, which
     scatters only the written slots) and attention runs over the whole
-    cache, masked beyond each query's position."""
+    cache, masked beyond each query's position.  A 4-tuple (K_i8, V_i8,
+    k_scale, v_scale) is the int8 cache: keys and values are quantized per
+    token and head as they are written and dequantized for the read."""
     b, l, d = x.shape
     hd = d // cfg.heads
     q = _rope(L.dense(p["q"], x).reshape(b, l, cfg.heads, hd), positions, cfg.rope_theta)
@@ -148,19 +164,31 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
     if kv_cache is None:
         keys, values, kv_positions = k, v, positions
     else:
-        if len(kv_cache) != 2:
-            raise NotImplementedError(f"the int8 KV cache is not ported yet: {_NOT_PORTED}")
-        ck, cv = kv_cache
+        quant = len(kv_cache) == 4
+        if quant:
+            (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+            news = (kq, vq, ks, vs)
+        else:
+            news = (k, v)
         if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
             rows = torch.arange(b, device=x.device)[:, None]
             cols = cache_pos[:, None] + torch.arange(l, device=x.device)[None]
-            ck[rows, cols] = k.to(ck.dtype)
-            cv[rows, cols] = v.to(cv.dtype)
+            if l > 1:
+                # a frozen row of the batched speculative loop may verify
+                # past the buffer; its writes land in the last slot, which
+                # no live query attends (JAX drops them)
+                cols = cols.clamp(max=kv_cache[0].shape[1] - 1)
+            for buf, new in zip(kv_cache, news):
+                buf[rows, cols] = new.to(buf.dtype)
         else:
-            ck[:, cache_pos:cache_pos + l] = k.to(ck.dtype)
-            cv[:, cache_pos:cache_pos + l] = v.to(cv.dtype)
-        keys, values = ck, cv
-        kv_positions = torch.arange(ck.shape[1], device=x.device)[None]
+            for buf, new in zip(kv_cache, news):
+                buf[:, cache_pos:cache_pos + l] = new.to(buf.dtype)
+        if quant:
+            keys = (kv_cache[0].float() * kv_cache[2]).to(x.dtype)
+            values = (kv_cache[1].float() * kv_cache[3]).to(x.dtype)
+        else:
+            keys, values = kv_cache
+        kv_positions = torch.arange(keys.shape[1], device=x.device)[None]
 
     rep = cfg.heads // cfg.kv_heads
     if rep > 1:
@@ -189,6 +217,7 @@ def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None):
 
 def llama_forward(p, embeds, positions, cfg: VipLlavaConfig, kv_caches=None, cache_pos=None):
     """embeds (B, L, D) → (logits (B, L, V), the caches, written in place)."""
+    STATS["forwards"] += 1
     x = embeds
     for i in range(cfg.layers):
         cache = None if kv_caches is None else kv_caches[i]
@@ -216,13 +245,18 @@ def embed_multimodal(p, input_ids, pixel_values, cfg: VipLlavaConfig):
 
 
 def _alloc_cache(b: int, length: int, cfg: VipLlavaConfig, dtype, device, kv_bits=None):
-    """One layer's zeroed (K, V) cache."""
+    """One layer's zeroed cache: (K, V) in ``dtype``, or with ``kv_bits=8``
+    the int8 4-tuple (K_i8, V_i8, k_scale, v_scale) (zero scales at
+    unwritten slots are inert: the causal mask excludes them)."""
+    shape = (b, length, cfg.kv_heads, cfg.hidden // cfg.heads)
     if kv_bits == 8:
-        raise NotImplementedError(f"the int8 KV cache (kv_bits=8) is not ported yet: "
-                                  f"{_NOT_PORTED}")
+        sshape = shape[:3] + (1,)
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device))
     if kv_bits not in (None, 16):
         raise ValueError(f"kv_bits must be None/16/8, got {kv_bits}")
-    shape = (b, length, cfg.kv_heads, cfg.hidden // cfg.heads)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -257,9 +291,9 @@ def _argmax_first(x):
 @torch.no_grad()
 def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tokens: int = 20,
                     true_length=None, eos_id: Optional[int] = None, min_new_tokens=0,
-                    draft_tokens: int = 0, prefix_kv=None, prefix_len: int = 0,
-                    inplace_prefix: bool = False, return_caches: bool = False,
-                    kv_bits: Optional[int] = None):
+                    draft_tokens: int = 0, ngram: int = 3, draft_gate: int = 2,
+                    prefix_kv=None, prefix_len: int = 0, inplace_prefix: bool = False,
+                    return_caches: bool = False, kv_bits: Optional[int] = None):
     """Greedy decode → (B, max_new_tokens) token ids (and the caches when
     ``return_caches``).
 
@@ -270,22 +304,21 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
     stops once every row is done; ``min_new_tokens`` (an int or a per-row
     tuple) masks EOS for the first N emitted tokens.  ``eos_id=None`` runs a
     fixed trip of ``max_new_tokens - 1`` decode steps.
+    ``draft_tokens=K > 0``: prompt-lookup speculative decoding, exact
+    greedy (``_speculative_greedy_batched``, every B),
+    gated by ``draft_gate`` consecutive hits of the ``ngram`` lookup.
     ``prefix_kv`` + ``prefix_len``: resume from ``prefill_prefix``;
     ``input_ids`` is then the text-only suffix.  Without ``inplace_prefix``
-    the prefix is COPIED into fresh decode caches and ``prefix_kv`` is left
-    as it was; with it, the decode writes into ``prefix_kv`` itself (sized by
+    the prefix is COPIED into fresh decode caches (of the prefix's format,
+    whatever ``kv_bits`` says) and ``prefix_kv`` is left as it was; with it,
+    the decode writes into ``prefix_kv`` itself (sized by
     ``prefill_prefix(max_len=…)``), which is returned with
     ``return_caches=True`` and chains into the next query.
+    ``kv_bits=8``: the int8 KV cache (``_kv_quant``).
 
     The EOS loop reads ``all(done)`` on the host after every step: one
     small copy per step, and exactly the decode steps of the JAX package's
     ``lax.while_loop`` (none past the step where the last row finishes)."""
-    if draft_tokens > 0:
-        raise NotImplementedError(f"speculative decoding (draft_tokens > 0) is not ported yet: "
-                                  f"{_NOT_PORTED}; draft_tokens=0 gives the same tokens")
-    if kv_bits == 8:
-        raise NotImplementedError(f"the int8 KV cache (kv_bits=8) is not ported yet: "
-                                  f"{_NOT_PORTED}")
     lang = p["language"]
     dev = lang["embed_tokens"].device
     b, l0 = input_ids.shape
@@ -294,7 +327,8 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
     else:
         embeds = embed_multimodal(p, input_ids, pixel_values, cfg)
     positions = (prefix_len + torch.arange(l0, device=dev))[None].expand(b, l0)
-    max_len = prefix_len + l0 + max_new_tokens
+    # a verify forward writes K + 1 slots past the accepted length
+    max_len = prefix_len + l0 + max_new_tokens + (draft_tokens + 1 if draft_tokens else 0)
     if inplace_prefix:
         if prefix_kv is None:
             raise ValueError("inplace_prefix needs prefix_kv")
@@ -303,9 +337,8 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
                              f"{max_len} (prefill with max_len >= this)")
         caches = prefix_kv
     else:
-        if prefix_kv is not None and len(prefix_kv[0]) != 2:
-            raise NotImplementedError(f"the int8 KV cache is not ported yet: {_NOT_PORTED}")
-        caches = [_alloc_cache(b, max_len, cfg, embeds.dtype, dev, kv_bits)
+        bits = (8 if len(prefix_kv[0]) == 4 else None) if prefix_kv is not None else kv_bits
+        caches = [_alloc_cache(b, max_len, cfg, embeds.dtype, dev, bits)
                   for _ in range(cfg.layers)]
         if prefix_kv is not None:
             for cache, pcache in zip(caches, prefix_kv):
@@ -339,6 +372,15 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
             start = prefix_len + int(tl)
         next_tok = pick_next(last, 0)
 
+    if draft_tokens > 0:
+        # the lookup buffer holds the (suffix) input_ids, so it indexes at
+        # buffer-relative positions; cache writes stay absolute
+        rel = (start.cpu().numpy() if per_row else np.full((b,), start)) - prefix_len
+        out = _speculative_greedy_batched(lang, cfg, input_ids.cpu().numpy(), caches,
+                                          next_tok.cpu().numpy(), rel, max_new_tokens, eos_id,
+                                          mins, draft_tokens, ngram, prefix_len, draft_gate)
+        return (out, caches) if return_caches else out
+
     def advance(tok, i):
         pos = start + i
         emb = lang["embed_tokens"][tok][:, None]
@@ -364,6 +406,147 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
         # frozen rows keep streaming EOS; their KV writes are never read
         tok = torch.where(done, eos_id, advance(tok, i))
     return (buf, caches) if return_caches else buf
+
+
+def _prompt_lookup_draft(seq: np.ndarray, end: int, n: int, k: int) -> np.ndarray:
+    """K draft tokens by n-gram self-lookup: the K tokens that followed the
+    most recent earlier occurrence of ``seq[end-n+1 .. end]``.  No match (or
+    a continuation that runs past ``end``) drafts stale tokens, which the
+    verify rejects.  Slices clamp as ``lax.dynamic_slice`` does."""
+    size = seq.shape[0]
+    g0 = min(max(end - n + 1, 0), size - n)
+    gram = seq[g0:g0 + n]
+    idx = np.arange(size)
+    ok = (idx >= n - 1) & (idx < end)
+    for t in range(n):  # ok[j] ⇔ seq[j-n+1 .. j] == gram
+        ok &= np.roll(seq, t) == gram[n - 1 - t]
+    q = int(np.max(np.where(ok, idx, -1)))
+    s0 = min(max(q + 1, 0), size - k)
+    return seq[s0:s0 + k]
+
+
+def _spec_argmax(lang, cfg, ids, cache_pos, emit0, mins, eos_id, caches):
+    """One forward of ``ids`` (B, L) at per-row cache positions ``cache_pos``
+    (B,) (an int for B = 1), EOS masked where the emitted slot
+    ``emit0 + j`` is under the row's floor → the (B, L) greedy tokens on the
+    host: the round's one sync."""
+    dev = lang["embed_tokens"].device
+    b, l = ids.shape
+    pos = np.asarray(cache_pos).reshape(-1, 1) + np.arange(l)[None]
+    positions = torch.from_numpy(np.array(np.broadcast_to(pos, (b, l)))).to(dev)
+    cp = cache_pos if isinstance(cache_pos, int) else torch.from_numpy(
+        np.asarray(cache_pos, np.int64)).to(dev)
+    low = None
+    if eos_id is not None and max(mins) > 0:
+        low = torch.from_numpy((np.asarray(emit0).reshape(-1, 1) + np.arange(l)[None])
+                               < np.asarray(mins).reshape(-1, 1)).to(dev)
+    # a draft copied from the lookup buffer's unwritten tail is -1: it
+    # indexes the last embedding row, as JAX's wrapping gather does, and
+    # never matches a greedy token
+    emb = lang["embed_tokens"][torch.from_numpy(np.mod(ids, cfg.vocab)).to(dev)]
+    logits, _ = llama_forward(lang, emb, positions, cfg, caches, cp)
+    lg = logits.float()
+    if low is not None:
+        lg[..., eos_id] = lg[..., eos_id].masked_fill(low, float("-inf"))
+    return _argmax_first(lg).cpu().numpy()
+
+
+def _accepted(d, g, eos_id, k: int):
+    """Per row, the drafts of ``d`` (B, K) that the greedy tokens ``g``
+    (B, K+1) confirm: the matching prefix, cut at an EOS inside it (that
+    EOS becomes the carry)."""
+    a = np.cumprod(d == g[:, :-1], axis=1).sum(axis=1)
+    if eos_id is None:
+        return a
+    j = np.arange(k + 1)[None]
+    f = np.where((g == eos_id) & (j <= a[:, None]), j, k + 1).min(axis=1)
+    return np.minimum(a, f)
+
+
+def _speculative_greedy_batched(lang, cfg, input_ids, caches, next_tok, start,
+                                max_new_tokens: int, eos_id, mins, k: int, n: int,
+                                cache_offset: int = 0, gate: int = 0):
+    """Prompt-lookup speculative greedy (``mars_tpu``'s
+    ``_speculative_greedy_batched``, and at B = 1 its
+    ``_speculative_greedy``, whose rounds this loop makes there): per-row
+    emitted counts, lookup buffers and done flags; the carry is a correct
+    greedy token not yet emitted, and each round emits it, then one
+    (B, K+1)-position verify forward at per-row cache positions extends
+    each row by its accepted drafts, or yields the next carry.  Finished
+    rows ride along frozen.  The bookkeeping lives on the host, the
+    forwards and argmaxes on the device: one sync a round.  ``start`` is
+    relative to ``input_ids``; ``cache_offset`` shifts the cache positions
+    of a prefix resume.
+
+    ``gate > 0``: a round verifies only when every laggard (a live row of
+    least progress) is in verify mode and some live row is; otherwise it is
+    a plain (B, 1) step.  A verify round scores each live row on its own
+    acceptance (one that accepts nothing drops back to probing), a probe
+    round counts each row's lookup hits."""
+    bsz, l0 = input_ids.shape
+    big_n = max_new_tokens
+    fill = eos_id if eos_id is not None else 0
+    mins = np.asarray(mins, np.int64)
+    # a frozen row's progress may sit at up to N + K and its ignored writes
+    # index K past that
+    seq = np.full((bsz, l0 + big_n + 2 * k + 1), -1, np.int64)
+    seq[:, :l0] = input_ids
+    buf = np.full((bsz, big_n + 2 * k), fill, np.int64)
+    rows = np.arange(bsz)
+    start = np.asarray(start, np.int64)
+    tok = np.asarray(next_tok, np.int64)
+    i = np.zeros((bsz,), np.int64)
+    done = np.zeros((bsz,), bool)
+    score = np.zeros((bsz,), np.int64)
+    kk = np.arange(k)
+    while np.any(~done & (i < big_n)):
+        active = ~done & (i < big_n)
+        buf[rows, i] = np.where(active, tok, buf[rows, i])
+        if eos_id is not None:
+            done = done | (active & (tok == eos_id))
+        end = start + i
+        seq[rows, end] = np.where(active, tok, seq[rows, end])
+        live = ~done & (i + 1 < big_n)
+        d = np.stack([_prompt_lookup_draft(seq[r], int(end[r]), n, k) for r in rows])
+        if gate > 0:
+            spec = score >= gate
+            lag = live & (i == np.where(live, i, np.iinfo(np.int64).max).min())
+            verify = bool(np.any(live & spec)) and not np.any(lag & ~spec)
+        else:
+            verify = True
+        if not live.any():
+            # the last emissions: no forward result would be used (JAX runs
+            # one and discards it)
+            w, carry, gd = np.zeros((bsz,), np.int64), tok, np.full((bsz, k), fill, np.int64)
+        elif verify:
+            g = _spec_argmax(lang, cfg, np.concatenate([tok[:, None], d], axis=1),
+                             cache_offset + end, i + 1, mins, eos_id, caches)
+            w = np.where(live, _accepted(d, g, eos_id, k), 0)
+            carry = np.where(live, g[rows, w], tok)
+            gd = np.where(live[:, None], g[:, :k], fill)
+            STATS["verify_rounds"] += 1
+            STATS["accepted"] += int(w.sum())
+        else:
+            g0 = _spec_argmax(lang, cfg, tok[:, None], cache_offset + end, i + 1, mins, eos_id,
+                              caches)[:, 0]
+            w = np.zeros((bsz,), np.int64)
+            carry = np.where(live, g0, tok)
+            gd = np.full((bsz, k), fill, np.int64)
+        if gate > 0:
+            score = np.where(~live, score,
+                             np.where(w > 0, np.maximum(score, gate), 0) if verify
+                             else np.where(d[:, 0] == carry, score + 1, 0))
+        seq[rows[:, None], end[:, None] + 1 + kk[None]] = gd
+        bcols = i[:, None] + 1 + kk[None]
+        inb = bcols < buf.shape[1]  # JAX drops the writes past the buffer
+        keep = np.where(kk[None] < w[:, None], gd, buf[rows[:, None], np.minimum(
+            bcols, buf.shape[1] - 1)])
+        buf[np.broadcast_to(rows[:, None], bcols.shape)[inb], bcols[inb]] = keep[inb]
+        i = i + np.where(active, 1 + w, 0)
+        tok = carry
+        STATS["rounds"] += 1
+    dev = lang["embed_tokens"].device
+    return torch.from_numpy(buf[:, :big_n]).to(dev)
 
 
 @torch.no_grad()

@@ -1,13 +1,12 @@
-"""The MARS orchestrator: one ranking episode (port of
-``mars_tpu/pipeline/mars.py``, with a known class name).
+"""The MARS orchestrator: one episode (port of ``mars_tpu/pipeline/mars.py``).
 
-  1. VVA prior (DINOv2, 24 tapped blocks on the query)
-  2. VTA prior (CLIP Grad-CAM, 7 tapped prefinal blocks), nearest-resized
+  1. class name and definition from the support set (the VLM retriever on
+     the host's drawn prompts, WordNet), unless the caller gives the name
+  2. VVA prior (DINOv2, 24 tapped blocks on the query)
+  3. VTA prior (CLIP Grad-CAM, 7 tapped prefinal blocks), nearest-resized
      to the VVA grid and min-max scaled (reference mars/MARS.py:77-82)
-  3. AlphaCLIP text "a {name}, {description}." (:84-89)
-  4. proposal scoring, filtering and merging
-The VLM retriever (class name from the support set) is not ported yet:
-``class_name`` is required.
+  4. AlphaCLIP text "a {name}, {description}." (:84-89)
+  5. proposal scoring, filtering and merging
 """
 from __future__ import annotations
 
@@ -40,15 +39,32 @@ class Mars:
     dino:       (params, DinoV2Config)
     clip:       (visual_params, text_params, logit_scale, vcfg, tcfg)
     alpha_clip: (visual_params, text_params, logit_scale, vcfg, tcfg)
+    retriever:  ``text.retriever.TextRetriever`` (VLM + WordNet), or None
+                when every caller gives the class name
     Parameters must already lie on ``device`` (``None`` = the card).
     """
 
-    def __init__(self, dino, clip, alpha_clip, cfg: MarsConfig = MarsConfig(), device=None):
+    def __init__(self, dino, clip, alpha_clip, cfg: MarsConfig = MarsConfig(), device=None,
+                 retriever=None):
         self.device = device_lib.resolve(device)
         self.dino_params, self.dino_cfg = dino
         (self.clip_v, self.clip_t, self.clip_scale, self.clip_vcfg, self.clip_tcfg) = clip
         (self.ac_v, self.ac_t, self.ac_scale, self.ac_vcfg, self.ac_tcfg) = alpha_clip
         self.cfg = cfg
+        self.retriever = retriever
+
+    def support_host_arrays(self, episode: Episode):
+        """The valid support shots as host uint8 images and float masks, the
+        retriever's input (JAX's clip and cast: x * 255 in float32, clipped
+        to [0, 255], truncated)."""
+        imgs = (episode.support_images * 255).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        masks = episode.support_masks.cpu().numpy()
+        n = int(episode.support_valid.sum())
+        return [imgs[i] for i in range(n)], [masks[i] for i in range(n)]
+
+    def conceptual_information(self, episode: Episode):
+        """(class name, definition) of the support set, by the retriever."""
+        return self.retriever.get_conceptual_information(*self.support_host_arrays(episode))
 
     def _tokens(self, texts):
         return torch.from_numpy(tokenizer.tokenize(texts)).to(self.device)
@@ -98,9 +114,10 @@ class Mars:
     def predict(self, episode: Episode, proposals: Proposals,
                 class_name: Optional[str] = None, class_description: str = "") -> torch.Tensor:
         """→ (H, W) float mask in {0, 1} on the device, not yet synced
-        (reference MARS.predict :33-104)."""
+        (reference MARS.predict :33-104).  Without ``class_name`` the
+        retriever names the support set's class first."""
         if class_name is None:
-            raise NotImplementedError("the VLM retriever is not ported yet: pass class_name")
+            class_name, class_description = self.conceptual_information(episode)
         return self._run(episode, proposals, class_name, class_description)["merged"]
 
     def predict_debug(self, episode: Episode, proposals: Proposals, class_name: str,

@@ -16,7 +16,12 @@ PORTED = ["benchmark", "datapath", "annotations_datapath", "models_path", "nshot
           "vta_refinement_box_threshold", "last_n_attn_for_vta_refinement", "vva_backbone",
           "dino_backbone", "num_regs", "vva_refinement_box_threshold",
           "last_n_attn_for_vva_refinement", "static_threshold", "dynamic_threshold",
-          "alpha_coverage"]
+          "alpha_coverage",
+          # the text path (mars_tpu/cli.py:398-499)
+          "nltk_path", "prompt_type", "zoom_percentage", "color", "alpha_blending", "thickness",
+          "ensemble_prompts", "ensemble_prompts_list", "ensemble_zoom", "ensemble_zoom_list",
+          "ensemble_colors", "ensemble_colors_list", "vlm4bit", "vlm4bit_nf4", "vlm8bit",
+          "vlm_kv8", "vlm_draft_tokens", "pipelined_text", "text_block", "vlm_path", "jax_vlm"]
 # the flags cli_proposals shares with it (mars_tpu/cli_proposals.py:30-57)
 PROPOSAL_FLAGS = ["benchmark", "datapath", "models_path", "fold", "nshot", "input_size",
                   "episodes", "sam_size", "dino_backbone", "num_regs", "bf16", "seed"]

@@ -346,6 +346,17 @@ def test_4bit_gemm_bf16_is_deterministic(dev, fmt):
     assert torch.equal(got, fn(x, packed, scale))
 
 
+# a speculative verify forward's rows, B x (K + 1) at K = 8 and B = 1, 2, 4,
+# 8, on every dense shape of the 7B's LLaMA layer (q, k, v, o; gate, up;
+# down): the GEMM's route (M > 8), one launch a call
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+@pytest.mark.parametrize("din,dout", [(4096, 4096), (4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("m", [9, 18, 36, 72])
+def test_4bit_gemm_bf16_verify_rows_match_plain(dev, fmt, din, dout, m):
+    rng, packed, scale = _gemv_inputs(fmt, din, dout, dev, seed=m)
+    _check_gemv(fmt, rng, packed, scale, m, dev)
+
+
 def _gemv_inputs(fmt, din, dout, dev, seed=0, offset=0):
     """Weights quantized on the card (the 7B's shapes are slow on the host);
     ``offset`` > 0 puts the packed codes ``offset`` bytes into a larger

@@ -229,13 +229,16 @@ def test_argmax_takes_the_first_of_tied_maxima():
 
 
 def test_unported_options_raise(tiny_random):
+    """Speculation and the int8 KV cache are ported (test_torch_speculative*);
+    what still raises: a ViP-LLaVA without its checkpoint and processor
+    files (not in the repository), and a KV width other than 8 or 16."""
     _, tp, ids, pix, _ = tiny_random
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tvl.generate_greedy(tp, torch.from_numpy(ids), torch.from_numpy(pix), tvl.TINY,
-                            draft_tokens=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(ValueError, match="kv_bits"):
         tvl.prefill_prefix(tp, torch.from_numpy(ids), torch.from_numpy(pix), tvl.TINY,
-                           kv_bits=8)
+                           kv_bits=4)
+    with pytest.raises(ValueError, match="inplace_prefix needs prefix_kv"):
+        tvl.generate_greedy(tp, torch.from_numpy(ids), torch.from_numpy(pix), tvl.TINY,
+                            draft_tokens=3, inplace_prefix=True)
     with pytest.raises(FileNotFoundError, match="checkpoint"):
         tret.TorchVipLlava()
 
