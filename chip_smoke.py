@@ -8,13 +8,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      nvcc per source, all started together): ptxas' registers and spill
      stores, and each library's tensor-core instructions in its SASS
      (``cuobjdump -sass``: HGMMA for wgmma, HMMA for mma.sync); fails if a
-     bfloat16 attention or 4-bit GEMM kernel has none, or if one of their
-     libraries spills;
+     bfloat16 attention or 4-bit GEMM kernel, or a float32 grid kernel
+     (split TF32), has none, or if one of their libraries spills;
   2. ``attention_with_tap`` against its plain version at the ranking path's
      shapes, in float32 and bfloat16, rerun for bitwise equality, timed with
      CUDA events beside its bound and a PyTorch yardstick;
   3. ``grid_attention`` the same way at SAM ViT-H's and ViT-B's
-     global-layer shapes and a ragged grid;
+     global-layer shapes and a ragged grid (float32 beside its split-TF32
+     bound and its CUDA-core one);
   4. ``auction`` against its plain version, bit-exact, and rerun for
      bitwise equality, on the five test instances, a dense contested one
      (1369², every row valid, five phases) and the full-width forward and
@@ -33,6 +34,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      ranking), launch counts read around it;
   9. one full-width ``matcher.generate_proposals`` with zero selection
      thresholds, so decode, NMS, EMD scoring and the bucket see live masks;
+     then the same call with ``grid_attention_plain`` in the float32 grid
+     kernel's place: the ViT-H embeddings' difference, the proposals equal
+     in count and matched at IoU >= 0.99;
  10. one ranking episode, then one proposal-plus-ranking episode, under
      torch.profiler: device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
@@ -127,7 +131,7 @@ SWITCHES_OFF = {name: "xla" for name in SWITCHES}  # the default route
 BF16_EPISODES = 2
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on CUDA cores, bf16 on
 # tensor cores, HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 GEOMETRIES = (("dinov2_l_518", 16, 1374, 64), ("clip_b16_528", 12, 1090, 64))
 # the tap at the other backbones' shapes (--dino-backbone vit_small, vit_base,
@@ -140,6 +144,8 @@ TAP_TOL = 1e-5  # the tap (float32 in both types) and the float32 output
 GRID_GEOMETRIES = (("sam_vit_h_global", 16, 64, 64, 80), ("sam_vit_b_global", 12, 64, 64, 64),
                    ("ragged_5x7", 2, 5, 7, 24))
 GRID_TOL = 2e-5
+GRID_PASSES = 3  # the float32 grid kernel's TF32 passes a product (split TF32)
+GRID_IOU = 0.99  # proposals of the float32 kernel's encode against the plain version's
 # (name, B, H, L, D): an AlphaCLIP-L/14@336 chunk, DINOv2-L @518 and CLIP-B/16
 # @528 at B = 1, and the widest head dim the kernel takes (two panels)
 NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518", 1, 16, 1374, 64),
@@ -328,18 +334,21 @@ def _tensor_core_sass(path):
     return out
 
 
-# the tensor-core kernels (bfloat16): each must hold HGMMA or HMMA in its SASS;
-# notap, windowed and grid have one instantiation per width of the second
-# head-dim panel (0, 16, 64; the resident windowed kernel takes 0 and 16),
-# grid also one per way of taking the bias (0 general, 1 W = 64, 2 wide);
-# the 4-bit library's bf16 prefill GEMM and decode GEMV, int4 (0) and NF4 (1)
+# the tensor-core kernels (bfloat16, and float32 grid): each must hold HGMMA
+# or HMMA in its SASS; notap, windowed and grid have one instantiation per
+# width of the second head-dim panel (0, 16, 64; the resident windowed kernel
+# takes 0 and 16), grid also one per way of taking the bias (0 general, 1
+# W = 64, 2 wide); the float32 grid kernel one per padded head dim (32, 64,
+# 80, 128) and bias mode (0, 2); the 4-bit library's bf16 prefill GEMM and
+# decode GEMV, int4 (0) and NF4 (1)
 TENSOR_CORE_KERNELS = {
     "attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
     "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64)),
     "sam_windowed_attention": tuple(f"windowed_bf16_residentILi{r}E" for r in (0, 16))
     + tuple(f"windowed_bf16_streamedILi{r}E" for r in (0, 16, 64)),
     "sam_grid_attention": tuple(f"grid_bf16ILi{r}ELi{mode}EE" for r in (0, 16, 64)
-                                for mode in (0, 1, 2)),
+                                for mode in (0, 1, 2))
+    + tuple(f"grid_f32ILi{dp}ELi{mode}EE" for dp in (32, 64, 80, 128) for mode in (0, 2)),
     "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1", "gemv_bf16ILi0",
                     "gemv_bf16ILi1")}
 
@@ -445,6 +454,9 @@ def phase_grid_attention(state):
             size = args[0].element_size()
             flops = 4.0 * nh * l * l * d
             nbytes = (4 * nh * l * d + nh * l * (h + w)) * size
+            # float32: split TF32, three passes a product on the tensor cores
+            bound, bound_by = (_bound(GRID_PASSES * flops, nbytes, "tf32") if dt == "float32"
+                               else _bound(flops, nbytes, dt))
             row = {"phase": "kernel", "kernel": "grid_attention", "geometry": name,
                    "shape": [nh, l, d], "grid": [h, w], "dtype": dt, **agree,
                    "rerun_equal": rerun_equal,
@@ -454,9 +466,9 @@ def phase_grid_attention(state):
                        q, k, v, attn_mask=mask)),
                    "library_call": "F.scaled_dot_product_attention with the bias expanded "
                                    "to (heads, L, L) outside the timing",
-                   "bound_ms": max(flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES) * 1e3,
-                   "bound_by": "operations" if flops / PEAK_FLOPS[dt] > nbytes / PEAK_BYTES
-                   else "bytes"}
+                   "bound_ms": bound, "bound_by": bound_by}
+            if dt == "float32":
+                row["bound_f32_cuda_core_ms"] = _bound(flops, nbytes, dt)[0]
             emit(row)
             rows.append(row)
             if (agree["err_over_tol"] > 1 or not rerun_equal
@@ -953,8 +965,40 @@ def _zero_thresholds(bf16):
 def phase_zero_thresholds(state):
     """With random weights the default 0.88 / 0.95 reject every mask, so
     only with the thresholds at 0 do decode, NMS, EMD scoring and the
-    bucket see live masks."""
-    emit(_zero_thresholds(bf16=False)[0])
+    bucket see live masks.  Then the same call with ``grid_attention_plain``
+    swapped in for the float32 grid kernel: ViT-H's embedding (its four
+    global layers the kernel's) against the plain version's, and the
+    proposals equal in count, each matched at IoU >= ``GRID_IOU``."""
+    import numpy as np
+
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    kernel, before = sa.grid_attention, sa.grid_attention.launches
+    row, out, _ = _zero_thresholds(bf16=False)
+    emit(row)
+    launched = kernel.launches - before
+    sa.grid_attention = sa.grid_attention_plain
+    try:
+        plain_row, plain, _ = _zero_thresholds(bf16=False)
+    finally:
+        sa.grid_attention = kernel
+    diff = (out["embedding"] - plain["embedding"]).abs().max().item()
+    live, plain_live = row["bucket_live"], plain_row["bucket_live"]
+    masks = out["bucket_masks"][:live].cpu().numpy().astype(bool)
+    plain_masks = plain["bucket_masks"][:plain_live].cpu().numpy().astype(bool)
+    matched = _greedy_match(_mask_iou(masks, plain_masks)) if live and plain_live else []
+    worst = min((iou for _, _, iou in matched), default=None)
+    cmp = {"phase": "grid_f32_encode", "embedding_shape": list(out["embedding"].shape),
+           "embedding_max_abs_diff": diff,
+           "embedding_max_rel_diff": diff / plain["embedding"].abs().max().item(),
+           "live_proposals": [row["live_proposals"], plain_row["live_proposals"]],
+           "bucket_live": [live, plain_live], "min_matched_iou": worst,
+           "iou_limit": GRID_IOU, "grid_launches": [launched, kernel.launches - before - launched]}
+    emit(cmp)
+    if (live != plain_live or row["live_proposals"] != plain_row["live_proposals"]
+            or worst is None or worst < GRID_IOU or not np.isfinite(diff)
+            or cmp["grid_launches"] != [SAM_GLOBAL_LAYERS, 0]):
+        raise AssertionError(f"the float32 grid kernel's encode departs from the plain one: {cmp}")
 
 
 @contextlib.contextmanager
@@ -1287,7 +1331,7 @@ def phase_backbones(state):
         raise AssertionError(f"backbone episodes failed: {failures}")
 
 
-HAND_KERNEL = re.compile(r"\(anonymous namespace\)::(tap_out|tap_mean|notap|grid_attention_kernel|"
+HAND_KERNEL = re.compile(r"\(anonymous namespace\)::(tap_out|tap_mean|notap|grid_f32|"
                          r"grid_bf16|windowed|auction_kernel|gemv_kernel|gemm_kernel|gemm_bf16)")
 
 
@@ -1872,11 +1916,12 @@ def kernels_line(state):
                            default=None),
         **{k: grid_first.get(k) for k in keys},
         "shape": grid_first.get("shape"), "dtype": "float32",
+        "bound_f32_cuda_core_ms": grid_first.get("bound_f32_cuda_core_ms"),
         "bf16_err_over_tol": max((r["err_over_tol"] for r in grid if r["dtype"] == "bfloat16"),
                                  default=None),
-        "geometries": [{k: r[k] for k in ("geometry", "shape", "dtype", "max_abs_err",
-                                          "err_over_tol", "rerun_equal") + keys}
-                       for r in grid],
+        "geometries": [{k: r.get(k) for k in ("geometry", "shape", "dtype", "max_abs_err",
+                                              "err_over_tol", "rerun_equal") + keys
+                        + ("bound_f32_cuda_core_ms",)} for r in grid],
     }, {
         "name": "auction", "route": "cuda", "source": "mars_tpu_torch/csrc/auction.cu",
         "replaces": "mars_tpu/ops/assignment.py:330",

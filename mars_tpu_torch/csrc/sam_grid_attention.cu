@@ -13,49 +13,70 @@
 //   Logits and the softmax are float32; with bfloat16 inputs P is rounded to
 //   bfloat16 before the P.V product, as the TPU kernel's probs.astype(v.dtype)
 //   does (here the unnormalised exp(s - running max) is rounded, then divided
-//   by the float32 row sum of the rounded values at the end).
+//   by the float32 row sum of the rounded values at the end); with float32
+//   inputs P is not rounded.
 //
 // What bounds it: at ViT-H @1024 (H = 16, L = 64 * 64 = 4096, d = 80) the two
 // products are 4 * H * L^2 * d = 85.9 GFLOP against ~38 MB of inputs and
 // output, so arithmetic bounds it, never the memory: 0.087 ms at the tensor
-// cores' bf16 rate, 1.28 ms at the CUDA cores' float32 rate.
+// cores' bf16 rate; in float32 0.521 ms for the three TF32 passes below at
+// the TF32 rate (1.28 ms on the CUDA cores).
 //
-// Design, both types: one CTA per (64-row query tile, head), 64 x 16 = 1024
-// CTAs at ViT-H, sweeps the keys once in tiles of 64 with a float32 online
-// softmax (running max and sum per row, output rescaled).  The logits are
+// Design, both types: a grid of (query tiles, heads); each CTA sweeps the
+// keys once in tiles with a float32 online softmax (running max and sum per
+// row, output rescaled) on the tensor cores (wgmma, csrc/sm90.cuh), one
+// warpgroup for each 64 query rows.  Q stays in shared memory; K and V
+// tiles arrive through cp.async; Q K^T is wgmma from shared memory; the
+// row's 4 threads share the running max (two shuffles); P is P.V's A
+// fragment straight from the accumulator registers.  The logits are
 // __fadd_rn(__fadd_rn(__fmul_rn(s, scale), bh), bw), the plain version's
-// expression in its order.
+// expression in its order.  The bias, by the grid's width W:
+//   W a multiple of the key tile (every SAM global layer: a 64 x 64 grid at
+//   1024 px for ViT-B, -L and -H).  Nothing is masked, and key tile t is
+//   part of one key row y, columns x0 to x0 + tile - 1: a thread adds
+//   bias_h at (its rows r0 and r0 + 8, y) and bias_w at (those rows,
+//   columns x0 + 8j + c2 + e, the accumulator layout of s).  y and x0 step
+//   with the tile: no division and no table in the loop.  No one-hot
+//   expander products either (the TPU kernel's _expanders fed its matrix
+//   unit): at this width they would add K steps to Q K^T's.
+//   Any other W (GENERAL): each key's row and column in per-tile tables, one
+//   lookup each per logit; keys past L are masked and query rows past L are
+//   computed on zeros and not stored.  Its own instantiation, so the aligned
+//   kernels carry none of it.
 //
-// bfloat16 (grid_bf16): notap_bf16's loop (csrc/attention_notap.cu) on the
-// tensor cores, one warpgroup a CTA (csrc/attention_sm90.cuh).  Q stays in
-// shared memory; K and V tiles arrive through cp.async, double buffered; Q K^T
-// is wgmma from shared memory; the row's 4 threads share the running max (two
-// shuffles); P = exp(s - max), rounded to bf16 in the accumulator registers,
-// is P.V's A fragment and the row sum adds the rounded values; V is read as an
-// MN-major operand.  Head dim 80 is an SW128 panel and a 16-wide interleaved
-// one.  The bias, by the grid's width W:
-//   W % 64 == 0 (every SAM global layer: a 64 x 64 grid at 1024 px for
-//   ViT-B, -L and -H).  L is a multiple of 64, so nothing is masked, and key
-//   tile t is part of one key row y = 64t / W, columns x0 = 64t mod W to
-//   x0 + 63.  The CTA's 64 rows of bias_h sit in shared memory as bf16: two
-//   loads a thread a tile, one per row half.  The 32 bias_w values a thread
-//   adds (rows r0 and r0 + 8, columns x0 + 8j + c2 + e, the accumulator
-//   layout of s) are the same on every tile at W = 64 and stay in registers
-//   as floats from before the key loop (W64); at W = 128, 192, ... the CTA's
-//   bias_w rows sit in shared memory as bf16, 16 paired loads a tile (WIDE).
-//   y and x0 step with the tile: no division and no table in the loop.
-//   No one-hot expander products either (the TPU kernel's _expanders fed its
-//   matrix unit): at this width they would add 4 + 4 K steps to Q K^T's 5,
-//   where the decomposition costs two shared loads a tile.
-//   Any other W (GENERAL): the bias rows in shared memory as above and each
-//   key's row and column in per-tile tables, one lookup each per logit; keys
-//   past L are masked and query rows past L are computed on zeros and not
-//   stored.  Its own instantiation, so the aligned kernels carry none of it.
+// float32 (grid_f32): split TF32 (sm90.cuh): each operand is hi + lo, two
+// TF32 values, and each product is three TF32 wgmma passes, a_lo b_hi, a_hi
+// b_lo, a_hi b_hi (the small terms first): products to ~2^-20, where one
+// TF32 pass (~2^-11) would break the 2e-5 float32 limit.  TF32 wgmma reads
+// both operands K-major, so P.V takes V^T: each V tile lands raw (cp.async)
+// and is split into hi and lo V^T tiles, keys permuted inside each group of
+// 8 (0, 2, 4, 6, 1, 3, 5, 7) so that the registers of s are P's A fragment
+// as they stand; K tiles are split likewise into hi and lo tiles, P in
+// registers.  What bounds it on the card is not the tensor cores but the
+// CUDA cores' share beside them: the splits, the softmax and P's split take
+// about as many instructions a tile as the passes take cycles.  So a CTA is
+// two warpgroups over 128 query rows, sharing each split tile (half the
+// splitting a row, and two warps a scheduler), and the splits run while the
+// tensor cores work: V's while Q K^T runs, the next K tile's while P.V does.
+// One raw K and one raw V tile and one split tile of each are all the
+// shared memory takes besides Q (~201 KB at d = 80, one CTA an SM); the bias
+// is read from device memory (bias_w's rows at W = 64 are the same every
+// tile, cached), each tile's issued before Q K^T.  The tensor cores' float32
+// adds truncate, so a tile's P.V is summed from zero in its own accumulator
+// and added to the output sum with an IEEE fma: one accumulator over the
+// 4096-key sweep reads 3.7e-5 off the plain version at ViT-H, past the
+// limit (tools/grid_f32_probe.py, one_acc).  Head dims pad to 32, 64, 80 or 128; K tiles are 64 keys, 32 at 128
+// (shared memory).
 //
-// float32 (grid_attention_kernel<float>): 256 threads on the CUDA cores (TF32
-// would break the 2e-5 float32 limits), a 4-row x 4-key register block a
-// thread, the bias rows in shared memory indexed per key through per-tile
-// tables, P through shared memory.
+// bfloat16 (grid_bf16): notap_bf16's loop (csrc/attention_notap.cu), 64
+// query rows a CTA (1024 CTAs at ViT-H), K and V double buffered, V read as
+// an MN-major operand, P rounded to bf16 in the accumulator registers and
+// the row sum adds the rounded values; head dim 80 is an SW128 panel and a
+// 16-wide interleaved one (attention_sm90.cuh).  The bias at an aligned W:
+// the CTA's 64 rows of bias_h in shared memory as bf16, two loads a thread
+// a tile; bias_w in registers as floats from before the key loop at W = 64
+// (W64), its rows in shared memory as bf16 at W = 128, 192, ... (WIDE), 16
+// paired loads a tile.  GENERAL: both bias rows in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,203 +86,399 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int DMAX = 128;     // head-dim capacity
-constexpr int THREADS = 256;  // 16 x 16: thread (ty, tx) owns rows 4ty..4ty+3
+constexpr int BQ = 64;     // query rows per CTA
+constexpr int DMAX = 128;  // head-dim capacity
 constexpr int MAX_SMEM = 227 * 1024;
+constexpr int MAX_GRID_Y = 65535;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+// How a kernel takes the bias, by the grid's width W
+constexpr int GENERAL = 0;  // any W: per-tile key tables
+constexpr int W64 = 1;      // bf16, W = 64: bias_w in registers
+constexpr int WIDE = 2;     // W a multiple of the key tile
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// Rows [row0, row0 + 64) of a (L, d) matrix into a (64, ld) float tile;
-// rows >= L and columns in [d, dp) are zero.
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* src, int row0, int L, int d, int dp) {
-  for (int idx = threadIdx.x; idx < BQ * dp; idx += THREADS) {
-    const int r = idx / dp, c = idx % dp, row = row0 + r;
-    dst[r * ld + c] = (row < L && c < d) ? to_f32(src[(size_t)row * d + c]) : 0.f;
+// ------------------------------------------------------------ float32
+// Two warpgroups a CTA, 64 query rows each, over one sweep of shared K and
+// V tiles: the tiles are split once for 128 query rows.
+constexpr int F32_THREADS = 256;
+constexpr int F32_ROWS = 128;
+
+// Tiles of a float32 kernel whose head dim is padded to DP.  A row-panel tile
+// (Q: 64 rows, K: KEYS rows, x DP) holds dims in SW128 panels of 32 floats
+// (rows x 128 bytes each) and, at DP = 80, a last panel of 16 interleaved (4
+// chunks a row); a V^T tile (DP rows, one per dim, x the tile's keys) holds
+// keys in SW128 panels of 32.  Raw tiles are row-major, DP floats a row.
+template <int DP> struct F32 {
+  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128, "DP is 32, 64, 80 or 128");
+  static constexpr int KEYS = DP > 80 ? 32 : 64;  // keys a tile
+  static constexpr int FULL = DP / 32;            // SW128 panels of a row-panel tile
+  static constexpr bool NARROW = DP % 32 != 0;    // and a 16-float interleaved one
+  static constexpr int CHUNKS = DP / 4;           // 16-byte chunks a row
+  static constexpr uint32_t Q_BYTES = 4u * BQ * DP;    // one warpgroup's Q, hi or lo
+  static constexpr uint32_t T_BYTES = 4u * KEYS * DP;  // K, V^T or raw
+};
+
+__host__ __device__ constexpr int f32_dp(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 80 ? 80 : 128;
+}
+
+// Byte offset of chunk c (4 floats) of row r in a row-panel tile of ``rows``
+// rows.
+template <int DP>
+__device__ __forceinline__ uint32_t panel_offset(int r, int c, int rows) {
+  constexpr int FULL = F32<DP>::FULL;
+  if (!F32<DP>::NARROW || c < 8 * FULL) return (c / 8) * rows * 128 + sm90::sw128(r, c % 8);
+  return FULL * rows * 128 + sm90::interleaved(r, c - 8 * FULL, 4);
+}
+
+// Rows [row0, row0 + rows) of an (L, d) float32 matrix into the raw tile
+// ``raw``; rows >= L and columns >= d are zero.  ``vec``: cp.async in
+// 16-byte chunks (d % 4 == 0, 16-byte aligned rows), else element by element.
+template <int DP>
+__device__ __forceinline__ void load_raw(float* raw, const float* src, int row0, int rows, int L,
+                                         int d, bool vec) {
+  if (vec) {
+    constexpr int C = F32<DP>::CHUNKS;
+    const uint32_t dst = sm90::smem_addr(raw);
+    for (int idx = threadIdx.x; idx < rows * C; idx += F32_THREADS) {
+      const int r = idx / C, c = idx % C, row = row0 + r;
+      const bool live = row < L && 4 * c < d;
+      sm90::cp_async16(dst + 16 * idx, live ? src + (size_t)row * d + 4 * c : src,
+                       live ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * DP; idx += F32_THREADS) {
+      const int r = idx / DP, c = idx % DP, row = row0 + r;
+      raw[idx] = row < L && c < d ? src[(size_t)row * d + c] : 0.f;
+    }
   }
 }
 
-// Shared-memory layout (floats unless noted) for head dim padded to dp and
-// bias widths hg, wg.
-struct Layout {
-  int ld, dp, hg, wg;
-  size_t q, k, v, p, bh, bw, ky, kx, bytes;
-  __host__ __device__ Layout(int d, int hg_, int wg_) : hg(hg_), wg(wg_) {
-    dp = (d + 15) / 16 * 16;
-    ld = dp + 1;
-    q = 0;
-    k = q + (size_t)BQ * ld;
-    v = k + (size_t)BK * ld;
-    p = v + (size_t)BK * ld;
-    bh = p + (size_t)BQ * (BK + 1);
-    bw = bh + (size_t)BQ * hg;
-    ky = bw + (size_t)BQ * wg;  // int
-    kx = ky + BK;               // int
-    bytes = (kx + BK) * sizeof(float);
+// A raw tile of ``rows`` rows split into the hi and lo row-panel tiles at
+// shared addresses ``hi`` and ``lo``.
+template <int DP>
+__device__ __forceinline__ void split_rows(uint32_t hi, uint32_t lo, const float* raw, int rows) {
+  constexpr int C = F32<DP>::CHUNKS;
+  for (int idx = threadIdx.x; idx < rows * C; idx += F32_THREADS) {
+    const float4 x = reinterpret_cast<const float4*>(raw)[idx];
+    uint32_t h[4], l[4];
+    sm90::split_tf32(x.x, h[0], l[0]);
+    sm90::split_tf32(x.y, h[1], l[1]);
+    sm90::split_tf32(x.z, h[2], l[2]);
+    sm90::split_tf32(x.w, h[3], l[3]);
+    const uint32_t off = panel_offset<DP>(idx / C, idx % C, rows);
+    sm90::st_shared16(hi + off, h[0], h[1], h[2], h[3]);
+    sm90::st_shared16(lo + off, l[0], l[1], l[2], l[3]);
   }
-};
+}
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-grid_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ bias_h, const T* __restrict__ bias_w,
-                      T* __restrict__ out, int L, int d, int hg, int wg, float scale) {
-  extern __shared__ float smem[];
-  const Layout lay(d, hg, wg);
-  const int ld = lay.ld, dp = lay.dp;
-  float* Qs = smem + lay.q;
-  float* Ks = smem + lay.k;
-  float* Vs = smem + lay.v;
-  float* Ps = smem + lay.p;
-  float* Bh = smem + lay.bh;
-  float* Bw = smem + lay.bw;
-  int* Ky = reinterpret_cast<int*>(smem + lay.ky);
-  int* Kx = reinterpret_cast<int*>(smem + lay.kx);
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int head = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const size_t hoff = (size_t)head * L * d;
-  const int ntiles = (L + BK - 1) / BK;
-  const int ncol = dp / 16;  // output columns per thread: tx + 16 * jj
-
-  load_tile(Qs, ld, q + hoff, q0, L, d, dp);
-  for (int idx = threadIdx.x; idx < BQ * hg; idx += THREADS) {
-    const int r = idx / hg, row = q0 + r;
-    Bh[idx] = row < L ? to_f32(bias_h[((size_t)head * L + row) * hg + idx % hg]) : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < BQ * wg; idx += THREADS) {
-    const int r = idx / wg, row = q0 + r;
-    Bw[idx] = row < L ? to_f32(bias_w[((size_t)head * L + row) * wg + idx % wg]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DMAX / 16];
+// A raw V tile split into the hi and lo V^T tiles.  Row n of V^T is dim n;
+// its k-positions 4 (c % 2) + e of key group c / 2 (16-byte chunk c) hold
+// key 8 (c / 2) + c % 2 + 2e: each group of 8 keys in the order 0, 2, 4, 6,
+// 1, 3, 5, 7, which puts the key pair (2u, 2u + 1) of a thread's s registers
+// at the k-positions (u, u + 4) of its A fragment.  A warp's lanes take
+// neighbouring dims: its raw reads and its swizzled stores are free of bank
+// conflicts.
+template <int DP>
+__device__ __forceinline__ void split_vt(uint32_t hi, uint32_t lo, const float* raw) {
+  constexpr int KEYS = F32<DP>::KEYS;
+  for (int idx = threadIdx.x; idx < DP * (KEYS / 4); idx += F32_THREADS) {
+    const int n = idx % DP, c = idx / DP, key = 8 * (c / 2) + c % 2;
+    uint32_t h[4], l[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+    for (int e = 0; e < 4; ++e) sm90::split_tf32(raw[(key + 2 * e) * DP + n], h[e], l[e]);
+    const uint32_t off = (c / 8) * DP * 128 + sm90::sw128(n, c % 8);
+    sm90::st_shared16(hi + off, h[0], h[1], h[2], h[3]);
+    sm90::st_shared16(lo + off, l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Issues s (+)= A B^T for one TF32 pass over the head dim: A a 64-row tile
+// (Q hi or lo), B a key tile (K hi or lo); ``first``: s starts at zero.
+template <int DP>
+__device__ __forceinline__ void qk_pass(float (&s)[F32<DP>::KEYS / 2], uint32_t a, uint32_t b,
+                                        bool first) {
+  constexpr int KEYS = F32<DP>::KEYS, FULL = F32<DP>::FULL;
 #pragma unroll
-    for (int jj = 0; jj < DMAX / 16; ++jj) acc[i][jj] = 0.f;
+  for (int p = 0; p < FULL; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_tf32_ss<KEYS>(s, sm90::desc_sw128(a + p * BQ * 128 + 32 * kk),
+                                sm90::desc_sw128(b + p * KEYS * 128 + 32 * kk),
+                                !first || p > 0 || kk > 0);
+  if constexpr (F32<DP>::NARROW) {
+    // K-major: chunk stride 128 leading, 8-row group stride 512; a K step is 2 chunks
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      sm90::wgmma_tf32_ss<KEYS>(s, sm90::desc_interleaved(a + FULL * BQ * 128 + 256 * kk, 128, 512),
+                                sm90::desc_interleaved(b + FULL * KEYS * 128 + 256 * kk, 128, 512),
+                                1);
+  }
+}
+
+// Issues o (+)= P V for one TF32 pass over the key tile: P (hi or lo, in
+// the accumulator layout of s) as the A fragment, V^T (hi or lo) as B;
+// ``first``: o starts at zero.
+template <int DP>
+__device__ __forceinline__ void pv_pass(float (&o)[DP / 2], const uint32_t (&p)[F32<DP>::KEYS / 2],
+                                        uint32_t vt, bool first) {
+#pragma unroll
+  for (int j = 0; j < F32<DP>::KEYS / 8; ++j) {
+    const uint32_t a[4] = {p[4 * j], p[4 * j + 2], p[4 * j + 1], p[4 * j + 3]};
+    sm90::wgmma_tf32_rs<DP>(o, a, sm90::desc_sw128(vt + (j / 4) * DP * 128 + 32 * (j % 4)),
+                            !first || j > 0);
+  }
+}
+
+// Dynamic shared memory: alignment slack, both warpgroups' Q hi and lo, K hi
+// and lo, V^T hi and lo, raw K and raw V, and GENERAL the tile's key tables.
+// The bias is read from device memory (each tile's, before Q K^T).
+template <int DP, int MODE> __host__ __device__ constexpr size_t f32_smem() {
+  return 1024 + 4 * (size_t)F32<DP>::Q_BYTES + 6 * (size_t)F32<DP>::T_BYTES +
+         (MODE == GENERAL ? 2 * sizeof(int) * F32<DP>::KEYS : 0);
+}
+
+template <int DP, int MODE>
+__global__ void __launch_bounds__(F32_THREADS)
+grid_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+         const float* __restrict__ bias_h, const float* __restrict__ bias_w,
+         float* __restrict__ out, int L, int d, int hg, int wg, float scale, int vec) {
+  using F = F32<DP>;
+  constexpr int KEYS = F::KEYS, NS = KEYS / 2;  // NS: registers of s
+  static_assert(MODE == GENERAL || MODE == WIDE, "float32 reads the bias from memory");
+  static_assert(f32_smem<DP, MODE>() <= MAX_SMEM, "the tiles fit in shared memory");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::aligned_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - sm90::smem_addr(smem_raw));  // base, generic
+  // Q hi and lo of warpgroup 0, then of warpgroup 1; K hi, K lo, V^T hi,
+  // V^T lo, raw K, raw V; the key tables
+  const int group = threadIdx.x / 128;
+  const uint32_t qh = base + 2 * F::Q_BYTES * group, ql = qh + F::Q_BYTES;
+  const uint32_t kh = base + 4 * F::Q_BYTES, kl = kh + F::T_BYTES;
+  const uint32_t vh = kl + F::T_BYTES, vl = vh + F::T_BYTES;
+  float* raw_k = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES + 4 * F::T_BYTES);
+  float* raw_v = raw_k + KEYS * DP;
+  int* ky = reinterpret_cast<int*>(raw_v + KEYS * DP);  // GENERAL: the tile's key rows
+  int* kx = ky + KEYS;                                  // and columns
+  const int q0 = blockIdx.x * F32_ROWS;
+  const size_t head = (size_t)blockIdx.y * L * d;
+  const size_t brow = (size_t)blockIdx.y * L;  // the head's first bias row
+  const float *qg = q + head, *kg = k + head, *vg = v + head;
+  const int ntiles = (L + KEYS - 1) / KEYS;
+  const int lane = threadIdx.x % 32;
+  // rows r0 and r0 + 8 of the warpgroup's 64 (the CTA's rows g0 + r0, + 8)
+  const int g0 = 64 * group, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);  // keys 8j + c2 and + 1 of a tile
+  bool live[2];                   // rows below L
+#pragma unroll
+  for (int half = 0; half < 2; ++half) live[half] = q0 + g0 + r0 + 8 * half < L;
+
+  // Q lands raw where the K, V^T and raw tiles go (6 T_BYTES >= 128 rows),
+  // then is split
+  float* raw_q = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES);
+  load_raw<DP>(raw_q, qg, q0, F32_ROWS, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  for (int g = 0; g < 2; ++g)
+    split_rows<DP>(base + 2 * F::Q_BYTES * g, base + 2 * F::Q_BYTES * g + F::Q_BYTES,
+                   raw_q + BQ * DP * g, BQ);
+  sm90::fence_async_smem();
+  __syncthreads();  // the raw tiles are free
+  load_raw<DP>(raw_k, kg, 0, KEYS, L, d, vec);
+  sm90::cp_async_commit();
+  load_raw<DP>(raw_v, vg, 0, KEYS, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<1>();
+  __syncthreads();
+  split_rows<DP>(kh, kl, raw_k, KEYS);
+  sm90::fence_async_smem();
+
+  // running max (shared by the row's 4 threads) and this thread's share of
+  // the row sum, per row half
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // o: the output sum; pv: a tile's P.V, which the tensor cores sum from
+  // zero, then added to o (their truncating adds over a whole sweep's chain
+  // of wgmma steps in one accumulator would break the limit)
+  float s[NS], o[DP / 2], pv[DP / 2];
+  uint32_t ph[NS], pl[NS];  // P hi and lo
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  int y = 0, x0 = 0;  // WIDE: tile t's key row and first column
+  const float* bhr[2];  // the thread's bias rows (r0 and r0 + 8)
+  const float* bwr[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const size_t row = brow + q0 + g0 + r0 + 8 * half;
+    bhr[half] = bias_h + row * hg;
+    bwr[half] = bias_w + row * wg;
   }
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is done with Ks, Vs, Ps, Ky, Kx
-    load_tile(Ks, ld, k + hoff, k0, L, d, dp);
-    load_tile(Vs, ld, v + hoff, k0, L, d, dp);
-    if (threadIdx.x < BK) {
-      const int key = k0 + threadIdx.x;
-      Ky[threadIdx.x] = key < L ? key / wg : 0;
-      Kx[threadIdx.x] = key < L ? key % wg : 0;
+    const bool next = t + 1 < ntiles;
+    if constexpr (MODE == GENERAL) {
+      // the previous tile's middle barrier has retired its tables
+      const int key = t * KEYS + threadIdx.x;
+      if (threadIdx.x < KEYS) {
+        ky[threadIdx.x] = key < L ? key / wg : 0;
+        kx[threadIdx.x] = key < L ? key % wg : 0;
+      }
     }
+    // WIDE: the tile's bias, in flight while Q K^T runs (rows past L take none)
+    float bh[2] = {0.f, 0.f}, bw[NS];
+    if constexpr (MODE == WIDE) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float2 w[KEYS / 8] = {};
+        if (live[half]) {
+          bh[half] = __ldg(bhr[half] + y);
+#pragma unroll
+          for (int j = 0; j < KEYS / 8; ++j)
+            w[j] = __ldg(reinterpret_cast<const float2*>(bwr[half] + x0 + 8 * j + c2));
+        }
+#pragma unroll
+        for (int j = 0; j < KEYS / 8; ++j) {
+          bw[4 * j + 2 * half] = w[j].x;
+          bw[4 * j + 2 * half + 1] = w[j].y;
+        }
+      }
+    }
+    sm90::cp_async_wait<0>();  // raw V tile t
+    // V tile t and the split K tile t in view; raw K and V^T free
     __syncthreads();
+    if (next) load_raw<DP>(raw_k, kg, (t + 1) * KEYS, KEYS, L, d, vec);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    qk_pass<DP>(s, ql, kh, true);  // the small terms first
+    qk_pass<DP>(s, qh, kl, false);
+    qk_pass<DP>(s, qh, kh, false);
+    sm90::wgmma_commit();
+    split_vt<DP>(vh, vl, raw_v);  // while Q K^T runs
+    sm90::fence_async_smem();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
 
-    // s[i][j]: row 4ty + i, key k0 + tx + 16j
-    float s[4][4] = {};
-    for (int dd = 0; dd < dp; ++dd) {
-      float qv[4], kv[4];
+    // logits: register i of s is (row r0 + 8 ((i / 2) % 2), key 8 (i / 4) + c2 + i % 2)
+    if constexpr (MODE == GENERAL) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * ld + dd];
+      for (int i = 0; i < NS; ++i) {
+        const int c = 8 * (i / 4) + c2 + (i & 1), half = (i / 2) & 1;
+        s[i] = t * KEYS + c < L
+                   ? __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale),
+                                         live[half] ? __ldg(bhr[half] + ky[c]) : 0.f),
+                               live[half] ? __ldg(bwr[half] + kx[c]) : 0.f)
+                   : -INFINITY;
+      }
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * ld + dd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int i = 0; i < NS; ++i)
+        s[i] = __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale), bh[(i / 2) & 1]), bw[i]);
+      x0 += KEYS;
+      if (x0 == wg) {
+        x0 = 0;
+        ++y;
+      }
     }
+
+    float corr[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
+    for (int half = 0; half < 2; ++half) {
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        if (k0 + c < L) {
-          s[i][j] = __fadd_rn(__fadd_rn(__fmul_rn(s[i][j], scale), Bh[r * hg + Ky[c]]),
-                              Bw[r * wg + Kx[c]]);
-        } else {
-          s[i][j] = -INFINITY;  // masked key
-        }
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      // the 16 threads (a half-warp) that share row r
+      for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);  // finite: tile 0 has a live key
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = to_f32(from_f32<T>(expf(s[i][j] - m_new)));
-        Ps[r * (BK + 1) + tx + 16 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) acc[i][jj] *= corr;
+        for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, s[4 * j + 2 * half + e]);
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[half], tmax);  // finite: every tile has a live key
+      corr[half] = __expf(m[half] - m_new);       // 0 on the first tile
+      m[half] = m_new;
     }
+    // P = exp(s - m) (masked keys give 0), split into hi and lo; the row sum
+    // adds P
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int half = (i / 2) & 1;
+      const float p = __expf(s[i] - m[half]);
+      psum[half] += p;
+      sm90::split_tf32(p, ph[i], pl[i]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + psum[half];
+
+    sm90::cp_async_wait<0>();  // raw K tile t + 1
+    // V^T in view; raw V free; every warp is done with the K tiles
     __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * (BK + 1) + c];
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) {
-        if (jj < ncol) {
-          const float vv = Vs[c * ld + tx + 16 * jj];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-        }
-      }
+    if (next) load_raw<DP>(raw_v, vg, (t + 1) * KEYS, KEYS, L, d, vec);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    pv_pass<DP>(pv, pl, vh, true);
+    pv_pass<DP>(pv, ph, vl, false);
+    pv_pass<DP>(pv, ph, vh, false);
+    sm90::wgmma_commit();
+    if (next) {  // while P.V runs
+      split_rows<DP>(kh, kl, raw_k, KEYS);
+      sm90::fence_async_smem();
     }
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(pv);
+    sm90::fence_regs(ph);
+    sm90::fence_regs(pl);
+    // o's register i is row r0 + 8 ((i / 2) % 2) as in s
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = fmaf(o[i], corr[(i / 2) & 1], pv[i]);
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= L) continue;
-    const float inv = 1.f / l[i];
+  for (int half = 0; half < 2; ++half) {
+    float li = l[half];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    inv[half] = 1.f / li;
+  }
+  float* dst = out + head + (size_t)(q0 + g0 + r0) * d;
 #pragma unroll
-    for (int jj = 0; jj < DMAX / 16; ++jj) {
-      const int dim = tx + 16 * jj;
-      if (jj < ncol && dim < d) out[hoff + (size_t)row * d + dim] = from_f32<T>(acc[i][jj] * inv);
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int half = (i / 2) & 1, dim = 8 * (i / 4) + c2;
+    if (!live[half] || dim >= d) continue;
+    float* at = dst + (size_t)8 * half * d + dim;
+    const float a = o[i] * inv[half], b = o[i + 1] * inv[half];
+    if (d % 2 == 0) {
+      *reinterpret_cast<float2*>(at) = make_float2(a, b);
+    } else {
+      at[0] = a;
+      if (dim + 1 < d) at[1] = b;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bh, const void* bw,
-           void* out, int H, int L, int d, int hg, int wg, float scale, void* stream) {
-  if (H < 1 || L < 1 || d < 1 || d > DMAX || hg < 1 || wg < 1 || hg * wg != L)
-    return (int)cudaErrorInvalidValue;
-  const Layout lay(d, hg, wg);
-  if (lay.bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(grid_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.bytes);
+template <int DP, int MODE>
+int launch_f32(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+               void* out, int H, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
+  constexpr size_t smem = f32_smem<DP, MODE>();
+  cudaError_t err = cudaFuncSetAttribute(grid_f32<DP, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + BQ - 1) / BQ, H);
-  grid_attention_kernel<T><<<grid, THREADS, lay.bytes, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)bh, (const T*)bw, (T*)out, L, d, hg, wg,
-      scale);
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  grid_f32<DP, MODE><<<dim3((L + F32_ROWS - 1) / F32_ROWS, H), F32_THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bh, (const float*)bw,
+      (float*)out, L, d, hg, wg, scale, vec);
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_f32_dp(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+                  void* out, int H, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
+  if (wg % F32<DP>::KEYS == 0)
+    return launch_f32<DP, WIDE>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, st);
+  return launch_f32<DP, GENERAL>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, st);
+}
+
 // ------------------------------------------------------------ bfloat16
-// How a bfloat16 kernel takes the bias, by the grid's width W
-constexpr int GENERAL = 0;  // any W: bias rows in shared memory, per-tile key tables
-constexpr int W64 = 1;      // W = 64: bias_w in registers
-constexpr int WIDE = 2;     // W = 128, 192, ...: bias rows in shared memory
-constexpr int MAX_GRID_Y = 65535;
+constexpr int BK = 64;  // keys per tile
 
 // Row strides (elements) of the bf16 bias rows in shared memory.  bias_h:
 // 2 mod 4, so the 8 rows a warp reads at once (one element each) fall in 8
@@ -465,8 +682,6 @@ grid_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
   if constexpr (R > 0) attn::store_rows(dst, o1, 64, q0 + r0, c2, L, d, inv, d % 2 == 0);
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 template <int R, int MODE>
 int launch_bf16(const void* q, const void* k, const void* v, const void* bh, const void* bw,
                 void* out, int H, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
@@ -498,7 +713,15 @@ int launch_bf16_panel(const void* q, const void* k, const void* v, const void* b
 extern "C" int mars_grid_attention_f32(const void* q, const void* k, const void* v,
                                        const void* bh, const void* bw, void* out, int H, int L,
                                        int d, int hg, int wg, float scale, void* stream) {
-  return launch<float>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, stream);
+  if (H < 1 || H > MAX_GRID_Y || L < 1 || d < 1 || d > DMAX || hg < 1 || wg < 1 || hg * wg != L)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (f32_dp(d)) {
+    case 32: return launch_f32_dp<32>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, st);
+    case 64: return launch_f32_dp<64>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, st);
+    case 80: return launch_f32_dp<80>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, st);
+    default: return launch_f32_dp<128>(q, k, v, bh, bw, out, H, L, d, hg, wg, scale, st);
+  }
 }
 
 extern "C" int mars_grid_attention_bf16(const void* q, const void* k, const void* v,

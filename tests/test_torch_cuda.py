@@ -104,8 +104,18 @@ def _grid_inputs(nh, h, w, d, dtype, dev, seed=0):
     return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrays]
 
 
-@pytest.mark.parametrize("nh,h,w,d", [(16, 64, 64, 80), (2, 5, 7, 24), (2, 16, 16, 16),
-                                      (3, 33, 31, 128)])
+# the float32 kernel's bias modes (WIDE at every W that is a multiple of the
+# key tile: 64, or 32 past head dim 80; GENERAL otherwise, and for a W whose
+# bias rows would not fit in shared memory) and its padded head dims (32, 64,
+# 80, 128): ViT-H and ViT-B global layers, ragged grids, d = 20 (element-wise
+# tile loads), W = 128 and 192, a 16 x 16 grid, d = 32 and 96 at W = 64, and
+# one row of 1024
+GRID_F32_SHAPES = [(16, 64, 64, 80), (2, 5, 7, 24), (2, 16, 16, 16), (3, 33, 31, 128),
+                   (12, 64, 64, 64), (2, 2, 128, 80), (2, 2, 192, 128), (2, 5, 7, 20),
+                   (2, 3, 64, 32), (2, 4, 64, 96), (2, 1, 1024, 80)]
+
+
+@pytest.mark.parametrize("nh,h,w,d", GRID_F32_SHAPES)
 def test_grid_attention_matches_plain_f32(dev, nh, h, w, d):
     from mars_tpu_torch.ops import sam_attention as sa
 
@@ -139,6 +149,14 @@ def test_grid_attention_matches_plain_bf16(dev, nh, h, w, d):
     want = sa.grid_attention_plain(*args, (h, w))
     _assert_bf16_attention(out, want, sa.grid_attention_plain(*args[:2], args[2].abs(), *args[3:],
                                                                (h, w)))
+
+
+@pytest.mark.parametrize("nh,h,w,d", [(16, 64, 64, 80), (2, 5, 7, 24), (3, 33, 31, 128)])
+def test_grid_attention_f32_is_deterministic(dev, nh, h, w, d):
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    args = _grid_inputs(nh, h, w, d, torch.float32, dev, seed=2)
+    assert torch.equal(sa.grid_attention(*args, (h, w)), sa.grid_attention(*args, (h, w)))
 
 
 @pytest.mark.parametrize("nh,h,w,d", [(16, 64, 64, 80), (2, 5, 7, 24)])

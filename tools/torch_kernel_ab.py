@@ -3,6 +3,7 @@
 
     python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --text-path PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --grid PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
 
 Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
 run one after another, in the order given (repeat them to alternate), each
@@ -11,7 +12,7 @@ events on the same seeded inputs, ``attention_with_tap`` at the ranking
 path's shapes, ``attention_notap`` at the untapped blocks' shapes (an
 AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and ``windowed_attention`` at SAM
 ViT-H's windowed layer (each in float32 and bfloat16), ``grid_attention`` at
-SAM ViT-H's global layer (both types) and ViT-B's (bfloat16), and
+SAM ViT-H's and ViT-B's global layers (both types), and
 the auction (``_auction_phase_kernel``, every ε-phase of an instance) on
 the forward and reverse matching instances of synthetic episode 0 and
 the dense contested instance of ``chip_smoke.py``, with its rounds, the
@@ -25,7 +26,10 @@ ways; the float32 GEMV at 4 x 4096 -> 11008; the bf16 prefill GEMM at
 ``chip_smoke.py``'s shapes (2330 rows).
 With ``--text-path`` each root runs ``chip_smoke.py``'s text-path phase
 instead (one ViP-LLaVA-7B text block per format, int4 then NF4, through that
-root's package): block ms, prefill ms and decode ms per step.
+root's package): block ms, prefill ms and decode ms per step.  With
+``--grid`` each root builds only its grid library and times only the
+``grid_attention`` rows, each with its largest difference from
+``grid_attention_plain``.
 The timers are this checkout's ``chip_smoke.py``'s, for every root:
 ``ms`` is CUDA events around 20 warm calls (``cuda_ms``; the auction's
 instances 5, every phase a call); the decode rows
@@ -46,7 +50,8 @@ TAP_SHAPES = ((16, 1374, 64), (12, 1090, 64))
 NOTAP_SHAPES = ((16, 16, 577, 64), (1, 16, 1374, 64), (1, 12, 1090, 64))
 WINDOW_SHAPES = ((25, 16, 14, 14, 80),)  # (windows, heads, Hw, Ww, hd)
 # (heads, grid H, grid W, hd, types): ViT-H and ViT-B global layers
-GRID_SHAPES = ((16, 64, 64, 80, ("float32", "bfloat16")), (12, 64, 64, 64, ("bfloat16",)))
+GRID_SHAPES = ((16, 64, 64, 80, ("float32", "bfloat16")),
+               (12, 64, 64, 64, ("float32", "bfloat16")))
 DECODE_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 DECODE_ROWS = (1, 4)
 PREFILL_SHAPES = DECODE_SHAPES + ((5120, 4096), (1024, 4096), (1984, 999))
@@ -124,6 +129,35 @@ def auction_rows(smoke, emit):
              ms=ms, us_per_round=ms * 1e3 / max(rounds, 1), digest=digest)
 
 
+def grid_rows(smoke, emit, gen):
+    import torch
+
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    for nh, hg, wg, d, dtypes in GRID_SHAPES:
+        for dt in dtypes:
+            l = hg * wg
+            args = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
+                    for shape in ((nh, l, d), (nh, l, d), (nh, l, d), (nh, l, hg), (nh, l, wg))]
+            err = (sa.grid_attention(*args, (hg, wg)).float()
+                   - sa.grid_attention_plain(*args, (hg, wg)).float()).abs().max().item()
+            emit(kernel="grid_attention", shape=[nh, l, d], grid=[hg, wg], dtype=dt,
+                 ms=smoke.cuda_ms(lambda: sa.grid_attention(*args, (hg, wg))),
+                 max_abs_err=err)
+
+
+def grid_worker(root):
+    import torch
+
+    smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch.ops import build
+
+    build.build_all(["sam_grid_attention"])
+    grid_rows(smoke, lambda **row: print(json.dumps({"root": root, **row}), flush=True),
+              torch.Generator(device="cuda").manual_seed(0))
+
+
 def worker(root):
     import torch
 
@@ -161,13 +195,7 @@ def worker(root):
                     ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, hw), (b, nh, l, ww))]
             emit(kernel="windowed_attention", shape=[b, nh, l, d], dtype=str(dtype)[6:],
                  ms=smoke.cuda_ms(lambda: sa.windowed_attention(*args, (hw, ww))))
-    for nh, hg, wg, d, dtypes in GRID_SHAPES:
-        for dt in dtypes:
-            l = hg * wg
-            args = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
-                    for shape in ((nh, l, d), (nh, l, d), (nh, l, d), (nh, l, hg), (nh, l, wg))]
-            emit(kernel="grid_attention", shape=[nh, l, d], grid=[hg, wg], dtype=dt,
-                 ms=smoke.cuda_ms(lambda: sa.grid_attention(*args, (hg, wg))))
+    grid_rows(smoke, emit, gen)
     gen = torch.Generator(device="cuda").manual_seed(4)
     for fmt in ("int4", "nf4"):
         fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
@@ -207,12 +235,13 @@ def worker(root):
 
 
 def main(argv):
-    if len(argv) >= 2 and argv[0] in ("--worker", "--text-worker"):
-        (worker if argv[0] == "--worker" else text_worker)(os.path.abspath(argv[1]))
+    workers = {"--worker": worker, "--text-worker": text_worker, "--grid-worker": grid_worker}
+    if len(argv) >= 2 and argv[0] in workers:
+        workers[argv[0]](os.path.abspath(argv[1]))
         return 0
     mode = "--worker"
-    if argv and argv[0] == "--text-path":
-        mode, argv = "--text-worker", argv[1:]
+    if argv and argv[0] in ("--text-path", "--grid"):
+        mode, argv = {"--text-path": "--text-worker", "--grid": "--grid-worker"}[argv[0]], argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
