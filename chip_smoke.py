@@ -8,8 +8,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      nvcc per source, all started together): ptxas' registers and spill
      stores, and each library's tensor-core instructions in its SASS
      (``cuobjdump -sass``: HGMMA for wgmma, HMMA for mma.sync); fails if a
-     bfloat16 attention or 4-bit GEMM kernel, or a float32 grid kernel
-     (split TF32), has none, or if one of their libraries spills;
+     bfloat16 attention or 4-bit GEMM kernel, or a float32 grid or notap
+     kernel (split TF32), has none, or if one of their libraries spills;
   2. ``attention_with_tap`` against its plain version at the ranking path's
      shapes, in float32 and bfloat16, rerun for bitwise equality, timed with
      CUDA events beside its bound and a PyTorch yardstick;
@@ -28,7 +28,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   7. the ranking path at full width: ``mars_tpu_torch.cli.main`` over three
      synthetic episodes with synthetic proposals (DINOv2-L/14 reg4 @518,
      CLIP-B/16 @528, AlphaCLIP-L/14@336, seeded random weights, bucket
-     128), the kernels' launch counts read around it;
+     128), the kernels' launch counts read around it; then the same three
+     episodes with MARS_ATTENTION_NOTAP_IMPL=pallas alone (the float32
+     towers' untapped blocks on ``notap_f32``): its launches exactly 28 + 24
+     per live AlphaCLIP chunk an episode, each merged mask matched to the
+     plain route's at IoU >= 0.99;
   8. the proposal path at full width: ``cli.main --generate-proposals`` over
      two episodes (the Matcher on DINOv2-L and SAM ViT-H @1024, then the
      ranking), launch counts read around it;
@@ -37,8 +41,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      then the same call with ``grid_attention_plain`` in the float32 grid
      kernel's place: the ViT-H embeddings' difference, the proposals equal
      in count and matched at IoU >= 0.99;
- 10. one ranking episode, then one proposal-plus-ranking episode, under
-     torch.profiler: device time by stage and by kernel, idle share;
+ 10. one ranking episode (switch off, then MARS_ATTENTION_NOTAP_IMPL=pallas:
+     the float32 notap kernel's device time and launches beside the plain
+     route's), then one proposal-plus-ranking episode, under torch.profiler:
+     device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
      7B's shapes (decode rows 1, 4 and 8, prefill rows ~2330, and on a
      LLaMA layer's three shapes a speculative verify's rows 9, 18, 36 and
@@ -55,9 +61,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      first forward's logits, kernel path against plain path;
  13. one int4 text block under torch.profiler;
  14. ``attention_notap`` against its plain version at the untapped blocks'
-     shapes (AlphaCLIP-L chunk, DINOv2-L, CLIP-B) and at head dim 128,
-     float32 and bfloat16, rerun for bitwise equality, beside its bound and
-     F.scaled_dot_product_attention;
+     shapes (AlphaCLIP-L chunk, DINOv2-L, CLIP-B, five DINOv2-L supports)
+     and at head dim 128, float32 and bfloat16, rerun for bitwise equality,
+     beside its bound (float32: split TF32's three passes, and the CUDA
+     cores' bound) and F.scaled_dot_product_attention;
  15. ``windowed_attention`` the same way at SAM ViT-H's windowed layer
      (400 window-heads of 196 tokens) and a ragged window;
  16. the production bf16 evaluation with both kernel switches on
@@ -128,6 +135,7 @@ MATCHER_UNTAPPED = 2 * 24
 SAM_WINDOWED_LAYERS = 28  # ViT-H's other 28 blocks, behind MARS_SAM_WINDOWED_IMPL=pallas
 SWITCHES = {"MARS_ATTENTION_NOTAP_IMPL": "pallas", "MARS_SAM_WINDOWED_IMPL": "pallas"}
 SWITCHES_OFF = {name: "xla" for name in SWITCHES}  # the default route
+NOTAP_ONLY = {"MARS_ATTENTION_NOTAP_IMPL": "pallas"}  # the float32 ranking path's switch
 BF16_EPISODES = 2
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on CUDA cores, bf16 on
 # tensor cores, HBM3
@@ -152,6 +160,8 @@ NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518",
                     ("clip_b16_528", 1, 12, 1090, 64), ("head_dim_128", 2, 8, 577, 128),
                     ("dinov2_l_518_5shot", 5, 16, 1374, 64))
 NOTAP_TOL = 2e-5
+NOTAP_PASSES = 3  # the float32 notap kernel's TF32 passes a product (split TF32)
+NOTAP_IOU = 0.99  # merged masks of the float32 notap route against the plain route's
 # (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer (64 x 64
 # grid padded to 70 x 70: 25 windows), a ragged window at ViT-B/L's head dim
 WINDOW_GEOMETRIES = (("sam_vit_h_window", 25, 16, 14, 14, 80), ("ragged_5x6", 2, 2, 5, 6, 64))
@@ -334,16 +344,18 @@ def _tensor_core_sass(path):
     return out
 
 
-# the tensor-core kernels (bfloat16, and float32 grid): each must hold HGMMA
-# or HMMA in its SASS; notap, windowed and grid have one instantiation per
-# width of the second head-dim panel (0, 16, 64; the resident windowed kernel
-# takes 0 and 16), grid also one per way of taking the bias (0 general, 1
-# W = 64, 2 wide); the float32 grid kernel one per padded head dim (32, 64,
-# 80, 128) and bias mode (0, 2); the 4-bit library's bf16 prefill GEMM and
+# the tensor-core kernels (bfloat16, and float32 grid and notap): each must
+# hold HGMMA or HMMA in its SASS; notap, windowed and grid have one
+# instantiation per width of the second head-dim panel (0, 16, 64; the
+# resident windowed kernel takes 0 and 16), grid also one per way of taking
+# the bias (0 general, 1 W = 64, 2 wide); the float32 notap kernel one per
+# padded head dim (32, 64, 80, 128), the float32 grid kernel one per padded
+# head dim and bias mode (0, 2); the 4-bit library's bf16 prefill GEMM and
 # decode GEMV, int4 (0) and NF4 (1)
 TENSOR_CORE_KERNELS = {
     "attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
-    "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64)),
+    "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64))
+    + tuple(f"notap_f32ILi{dp}E" for dp in (32, 64, 80, 128)),
     "sam_windowed_attention": tuple(f"windowed_bf16_residentILi{r}E" for r in (0, 16))
     + tuple(f"windowed_bf16_streamedILi{r}E" for r in (0, 16, 64)),
     "sam_grid_attention": tuple(f"grid_bf16ILi{r}ELi{mode}EE" for r in (0, 16, 64)
@@ -503,7 +515,10 @@ def phase_notap(state):
             torch.cuda.synchronize()
             agree = _agreement(out, want, NOTAP_TOL,
                                lambda: fa.attention_notap_plain(q, k, v.abs()))
-            bound, by = _bound(4.0 * b * h * l * l * d, 4.0 * b * h * l * d * q.element_size(), dt)
+            flops, nbytes = 4.0 * b * h * l * l * d, 4.0 * b * h * l * d * q.element_size()
+            # float32: split TF32, three passes a product on the tensor cores
+            bound, by = (_bound(NOTAP_PASSES * flops, nbytes, "tf32") if dt == "float32"
+                         else _bound(flops, nbytes, dt))
             row = {"phase": "kernel", "kernel": "attention_notap", "geometry": name,
                    "shape": [b, h, l, d], "dtype": dt, **agree, "rerun_equal": rerun_equal,
                    "ms": cuda_ms(lambda: fa.attention_notap(q, k, v)),
@@ -511,6 +526,8 @@ def phase_notap(state):
                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                    "library_call": "F.scaled_dot_product_attention",
                    "bound_ms": bound, "bound_by": by}
+            if dt == "float32":
+                row["bound_f32_cuda_core_ms"] = _bound(flops, nbytes, dt)[0]
             emit(row)
             rows.append(row)
             if (agree["err_over_tol"] > 1 or not rerun_equal
@@ -876,6 +893,46 @@ def phase_main_path(state):
                              f"expected {TAPPED_BLOCKS * EPISODES}")
     if not res["masks_binary"] or not math.isfinite(res["miou"]):
         raise AssertionError("main path produced a non-binary mask or a non-finite mIoU")
+
+
+def phase_f32_notap_path(state):
+    """``phase_main_path``'s three float32 episodes with
+    MARS_ATTENTION_NOTAP_IMPL=pallas alone, set for this run and restored
+    after: the towers' untapped blocks on the float32 notap kernel.  Every
+    kernel's count is set to 0 just before and read just after and must be
+    the switch's exact count; each merged mask must match the plain route's
+    (``phase_main_path``) at IoU >= ``NOTAP_IOU``."""
+    import math
+
+    import numpy as np
+
+    from mars_tpu_torch import cli
+
+    for fn in cli.KERNELS.values():
+        fn.launches = 0
+    with kernel_switches(NOTAP_ONLY):
+        res = cli.main(MAIN_PATH_ARGS, keep_masks=True)
+    launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+    want = _ranking_launches(res["live_proposals"])
+    plain = state["main_path_masks"]
+    ious = [float(_mask_iou(a[None], b[None])[0, 0]) for a, b in zip(res["masks"], plain)]
+    state["f32_notap_launches"] = {"ranking_f32_notap": launches}
+    ms = res["episode_ms"]
+    row = {"phase": "f32_notap_path", "switches": NOTAP_ONLY, "episodes": EPISODES,
+           "episode_ms": ms, "ms_per_episode_after_first": sum(ms[1:]) / len(ms[1:]),
+           "live_proposals": res["live_proposals"], "miou": res["miou"],
+           "masks_binary": res["masks_binary"], "iou_with_plain_route": ious,
+           "iou_limit": NOTAP_IOU,
+           "masks_equal_plain_route": [bool(np.array_equal(a, b))
+                                       for a, b in zip(res["masks"], plain)],
+           "launches": launches, "launches_expected": want}
+    emit(row)
+    if launches != want:
+        raise AssertionError(f"float32 notap path launches {launches}, expected {want}")
+    if len(ious) != EPISODES or min(ious) < NOTAP_IOU:
+        raise AssertionError(f"float32 notap path's masks depart from the plain route's: {ious}")
+    if not res["masks_binary"] or not math.isfinite(res["miou"]):
+        raise AssertionError("float32 notap path produced a non-binary mask or a non-finite mIoU")
 
 
 def phase_proposal_path(state):
@@ -1411,7 +1468,9 @@ def phase_profile_five_shot(state):
 def phase_profile(state):
     """One full-width episode (after a warm-up one) under torch.profiler:
     device time by stage span (``mars.*``) and by kernel, and the device's
-    idle share of the episode's wall time (profiler on)."""
+    idle share of the episode's wall time (profiler on); with the notap
+    switch off (the default route), then on (``NOTAP_ONLY``), each with the
+    notap kernel's device time and launches."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1425,15 +1484,21 @@ def phase_profile(state):
     rec = SyntheticFSS(seed=0)[0]
     ep = to_device_episode(rec, 518, 1, dev)
     props = cli.synthetic_proposals(rec, 518, 128, np.random.RandomState(0), dev)
-    model.predict(ep, props, class_name=rec.class_name)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.predict(ep, props, class_name=rec.class_name)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, launches, spans, top = _profile_summary(prof, ("mars.",))
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
-          "stage_device_span_ms": spans, "top_kernels": top})
+    for values in ({name: "xla" for name in NOTAP_ONLY}, NOTAP_ONLY):
+        with kernel_switches(values):
+            model.predict(ep, props, class_name=rec.class_name)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.predict(ep, props, class_name=rec.class_name)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, launches, spans, top = _profile_summary(prof, ("mars.",))
+        notap = [k for k in top if "notap" in k["name"]]
+        emit({"phase": "profile", "switches": values, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+              "kernel_launches": launches,
+              "notap_device_ms": sum(k["device_ms"] for k in notap),
+              "notap_launches": sum(k["count"] for k in notap),
+              "stage_device_span_ms": spans, "top_kernels": top})
 
 
 def _bound_ms(nbytes, flops):
@@ -1879,7 +1944,8 @@ def kernels_line(state):
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
                   and r["dtype"] == "float32"), {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"ranking": state.get("launches", {}), "proposal": state.get("proposal_launches", {}),
+    paths = {"ranking": state.get("launches", {}), **state.get("f32_notap_launches", {}),
+             "proposal": state.get("proposal_launches", {}),
              **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
              "models_path": state.get("models_path_launches", {}),
              **state.get("backbone_launches", {})}
@@ -1932,28 +1998,33 @@ def kernels_line(state):
         "instances": [{k: r[k] for k in ("instance", "shape", "variant", "equal", "rerun_equal",
                                          "rounds", "bidder_rows", "us_per_round") + keys}
                       for r in auc],
-    }, _attention_entry(state, "attention_notap", "notap_rows", "dinov2_l_518",
+    }, _attention_entry(state, "attention_notap", "notap_rows", "alphaclip_l_336_chunk",
                         "mars_tpu_torch/csrc/attention_notap.cu",
-                        "mars_tpu/ops/flash_attention.py:187", launches, by_path),
+                        "mars_tpu/ops/flash_attention.py:187", launches, by_path, "float32"),
         _attention_entry(state, "windowed_attention", "window_rows", "sam_vit_h_window",
                          "mars_tpu_torch/csrc/sam_windowed_attention.cu",
-                         "mars_tpu/ops/sam_attention.py:178", launches, by_path),
+                         "mars_tpu/ops/sam_attention.py:178", launches, by_path, "bfloat16"),
     ] + [_quant_entry(state, fmt, line) for fmt, line in (("int4", 229), ("nf4", 139))]}
 
 
-def _attention_entry(state, name, rows_key, geometry, source, replaces, launches, by_path):
-    """The path's shape in bfloat16 (the type the switches' path runs)
-    stands for the kernel; every measured geometry and type is listed."""
+def _attention_entry(state, name, rows_key, geometry, source, replaces, launches, by_path,
+                     dtype):
+    """A path's shape in ``dtype`` stands for the kernel (notap: float32,
+    whose redesign the float32 ranking path runs, with both bounds;
+    windowed: bfloat16, the type the switches' path runs); every measured
+    geometry and type is listed."""
     rows = state.get(rows_key, [])
-    first = next((r for r in rows if r["geometry"] == geometry and r["dtype"] == "bfloat16"), {})
+    first = next((r for r in rows if r["geometry"] == geometry and r["dtype"] == dtype), {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("bound_f32_cuda_core_ms",)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches(name), "launches_by_path": by_path(name),
             "max_abs_err": first.get("max_abs_err"), **{k: first.get(k) for k in keys},
-            "shape": first.get("shape"), "dtype": "bfloat16",
-            "geometries": [{k: r[k] for k in ("geometry", "shape", "dtype", "max_abs_err", "tol",
-                                              "err_over_tol", "rerun_equal") + keys}
-                           for r in rows]}
+            "shape": first.get("shape"), "dtype": dtype,
+            **{k: first[k] for k in extra if k in first},
+            "geometries": [{k: r.get(k) for k in ("geometry", "shape", "dtype", "max_abs_err",
+                                                  "tol", "err_over_tol", "rerun_equal")
+                            + keys + extra if k in r} for r in rows]}
 
 
 def _quant_entry(state, fmt, line):
@@ -1999,10 +2070,10 @@ def main():
     state, failed = {}, []
     for phase in (phase_build, phase_kernels, phase_grid_attention, phase_notap, phase_windowed,
                   phase_auction, phase_golden, phase_golden_matcher, phase_main_path,
-                  phase_proposal_path, phase_zero_thresholds, phase_bf16_path, phase_five_shot,
-                  phase_models_path, phase_backbones, phase_profile,
-                  phase_profile_proposals, phase_profile_bf16, phase_profile_five_shot,
-                  phase_4bit_kernels,
+                  phase_f32_notap_path, phase_proposal_path, phase_zero_thresholds,
+                  phase_bf16_path, phase_five_shot, phase_models_path, phase_backbones,
+                  phase_profile, phase_profile_proposals, phase_profile_bf16,
+                  phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli):
         t0 = time.perf_counter()
         try:

@@ -14,177 +14,211 @@
 //   (float32 outputs do not).  The TPU kernel's heads_per_step only sized
 //   Mosaic's grid steps; nothing here corresponds to it.
 //
-// What bounds it: at the path's shapes (DINOv2-L: BH = 16, L = 1374, d = 64;
-// CLIP-B/16 @528: BH = 12, L = 1090; AlphaCLIP-L/14@336: BH = 16 x 16, L =
-// 577) the two products are 4 * BH * L^2 * d operations (7.7, 3.6 and 21.8
-// GFLOP) against 14-38 MB of inputs and output: in float32 the CUDA cores'
-// arithmetic rate bounds it, in bfloat16 the tensor cores' (DINOv2-L, CLIP-B)
-// or the bytes (an AlphaCLIP chunk, 0.023 ms).
+// What bounds it: the two products are 4 * BH * L^2 * d operations against
+// 16 * BH * L * d bytes of float32 inputs and output, so arithmetic bounds it
+// at every path shape, never the memory.  On an H100 (495 TFLOP/s TF32,
+// 67 TFLOP/s float32 on the CUDA cores, 3.35 TB/s):
+//   shape (B x H x L x d)          GFLOP   3 x TF32   CUDA cores   bytes
+//   AlphaCLIP-L chunk 16x16x577x64  21.8   0.132 ms   0.326 ms     0.011 ms
+//   DINOv2-L @518 1x16x1374x64       7.7   0.047      0.115        0.002
+//   CLIP-B/16 @528 1x12x1090x64      3.7   0.022      0.054        0.001
+//   five supports 5x16x1374x64      38.7   0.234      0.577        0.009
+// In bfloat16 the tensor cores' rate bounds it (DINOv2-L, CLIP-B) or the
+// bytes (an AlphaCLIP chunk, 0.023 ms).
 //
-// Design.  One launch over the (B.H) batch, grid (64-row query tiles, BH):
-// 352 CTAs for DINOv2-L at B = 1, 216 for CLIP-B, 2560 for an AlphaCLIP
-// chunk.  Each CTA sweeps the keys once in tiles of 64 with a float32 online
-// softmax; keys past L are masked, query rows past L are computed on zeros
-// and not stored.
-//   bfloat16: one warpgroup on the tensor cores (csrc/attention_sm90.cuh).
-//   Q stays in shared memory; K and V tiles arrive through cp.async, double
-//   buffered.  Q K^T is wgmma from shared memory; the row's tile max is
-//   shared by the 4 threads that hold the row (two shuffles) before
-//   P = exp(s - running max) is formed and rounded to bf16 in the
+// Design.  One launch over the (B.H) batch, grid (query tiles, BH); each CTA
+// sweeps the keys once in tiles with a float32 online softmax (running max
+// and sum per row, output rescaled) on the tensor cores (wgmma,
+// csrc/sm90.cuh); the row's 4 threads share the running max (two shuffles)
+// and P is P.V's A fragment straight from the accumulator registers.  Keys
+// past L are masked, query rows past L are computed on zeros and not stored.
+//   float32 (notap_f32): grid_f32's general loop (csrc/sam_grid_attention.cu)
+//   without the bias, on the split-TF32 tiles of attention_tf32.cuh: each
+//   product is three TF32 passes (a_lo b_hi, a_hi b_lo, a_hi b_hi: products
+//   to ~2^-20, where one TF32 pass, ~2^-11, would break the 2e-5 float32
+//   limit).  What bounds it is the CUDA cores' share beside the tensor
+//   cores: splitting K, V^T and P and the softmax take about as many
+//   instructions a tile as the passes take cycles.  So a CTA is two
+//   warpgroups over 128 query rows sharing each split tile, and the splits
+//   run while the tensor cores work (V's while Q K^T runs, the next K
+//   tile's while P.V does).  Q hi and lo, one raw K and V tile and one split
+//   tile of each take ~161 KB at d = 64: one CTA an SM, 1280 CTAs for an
+//   AlphaCLIP chunk and 880 for five supports (several waves on 132 SMs),
+//   176 for DINOv2-L at B = 1 (1.33 waves: the second a third full) and 108
+//   for CLIP-B (one wave, 24 SMs idle).  The tensor cores' float32 adds
+//   truncate, so a tile's P.V is summed from zero in its own accumulator and
+//   added to the output sum with an IEEE fma (one accumulator over a
+//   4096-key sweep reads 3.7e-5 off the plain version, past the limit:
+//   tools/grid_f32_probe.py, one_acc).  Head dims pad to 32, 64, 80 or 128;
+//   K tiles are 64 keys, 32 at 128.  The mask costs only the last tile.
+//   bfloat16 (notap_bf16): one warpgroup, 64 query rows a CTA (352 CTAs for
+//   DINOv2-L at B = 1, 216 for CLIP-B, 2560 for an AlphaCLIP chunk), key
+//   tiles of 64 (csrc/attention_sm90.cuh).  Q stays in shared memory; K and
+//   V tiles arrive through cp.async, double buffered.  Q K^T is wgmma from
+//   shared memory; P = exp(s - running max) is rounded to bf16 in the
 //   accumulator registers, which are the A fragment of P.V, so P never
 //   touches shared memory; V is read as an MN-major operand (no transpose).
 //   The output accumulator is rescaled by exp(m_old - m_new) after the
 //   previous P.V has completed.  Head dims past 64 take a second panel
 //   (the tile note of attention_sm90.cuh).
-//   float32: 256 threads on the CUDA cores (TF32 would break the 2e-5
-//   float32 limits), a 4-row x 4-key register block a thread, P through
-//   shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;     // query rows per CTA
-constexpr int BK = 64;     // keys per tile
+constexpr int BQ = 64;     // bfloat16: query rows per CTA
+constexpr int BK = 64;     // bfloat16: keys per tile
 constexpr int DMAX = 128;  // head-dim capacity
+constexpr int MAX_SMEM = 227 * 1024;
 constexpr int MAX_GRID_Y = 65535;
 
 // ------------------------------------------------------------ float32
-constexpr int F_THREADS = 256;  // 16 x 16: thread (ty, tx) owns rows 4ty..4ty+3
-
-// Rows [row0, row0 + 64) of an (L, d) matrix into a (64, ld) tile; rows >= L
-// and columns in [d, dp) are zero.
-__device__ void load_tile_f32(float* dst, int ld, const float* src, int row0, int L, int d,
-                              int dp) {
-  for (int idx = threadIdx.x; idx < BQ * dp; idx += F_THREADS) {
-    const int r = idx / dp, c = idx % dp, row = row0 + r;
-    dst[r * ld + c] = (row < L && c < d) ? src[(size_t)row * d + c] : 0.f;
-  }
-}
-
-// Shared-memory layout (floats) for the head dim padded to dp.
-struct Layout {
-  int ld, dp;
-  size_t q, k, v, p, bytes;
-  __host__ __device__ explicit Layout(int d) {
-    dp = (d + 15) / 16 * 16;
-    ld = dp + 1;
-    q = 0;
-    k = q + (size_t)BQ * ld;
-    v = k + (size_t)BK * ld;
-    p = v + (size_t)BK * ld;
-    bytes = (p + (size_t)BQ * (BK + 1)) * sizeof(float);
-  }
-};
-
-__global__ void __launch_bounds__(F_THREADS)
+template <int DP>
+__global__ void __launch_bounds__(tf32::THREADS)
 notap_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          float* __restrict__ out, int L, int d, float scale) {
-  extern __shared__ float smem[];
-  const Layout lay(d);
-  const int ld = lay.ld, dp = lay.dp;
-  float* Qs = smem + lay.q;
-  float* Ks = smem + lay.k;
-  float* Vs = smem + lay.v;
-  float* Ps = smem + lay.p;
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t hoff = (size_t)blockIdx.y * L * d;
-  const int q0 = blockIdx.x * BQ;
-  const int ntiles = (L + BK - 1) / BK;
-  const int ncol = dp / 16;  // output columns per thread: tx + 16 * jj
-
-  load_tile_f32(Qs, ld, q + hoff, q0, L, d, dp);
-
-  float m[4], l[4], acc[4][DMAX / 16];
+          float* __restrict__ out, int L, int d, float scale, int vec) {
+  using F = tf32::F32<DP>;
+  constexpr int KEYS = F::KEYS, NS = KEYS / 2;  // NS: registers of s
+  static_assert(tf32::tile_smem<DP>() <= MAX_SMEM, "the tiles fit in shared memory");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::aligned_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - sm90::smem_addr(smem_raw));  // base, generic
+  // Q hi and lo of warpgroup 0, then of warpgroup 1; K hi, K lo, V^T hi,
+  // V^T lo, raw K, raw V
+  const int group = threadIdx.x / 128;
+  const uint32_t qh = base + 2 * F::Q_BYTES * group, ql = qh + F::Q_BYTES;
+  const uint32_t kh = base + 4 * F::Q_BYTES, kl = kh + F::T_BYTES;
+  const uint32_t vh = kl + F::T_BYTES, vl = vh + F::T_BYTES;
+  float* raw_k = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES + 4 * F::T_BYTES);
+  float* raw_v = raw_k + KEYS * DP;
+  const int q0 = blockIdx.x * tf32::ROWS;
+  const size_t head = (size_t)blockIdx.y * L * d;
+  const float *qg = q + head, *kg = k + head, *vg = v + head;
+  const int ntiles = (L + KEYS - 1) / KEYS;
+  const int lane = threadIdx.x % 32;
+  // rows r0 and r0 + 8 of the warpgroup's 64 (the CTA's rows g0 + r0, + 8)
+  const int g0 = 64 * group, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);  // keys 8j + c2 and + 1 of a tile
+  bool live[2];                   // rows below L
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int half = 0; half < 2; ++half) live[half] = q0 + g0 + r0 + 8 * half < L;
+
+  // Q lands raw where the K, V^T and raw tiles go (6 T_BYTES >= 128 rows),
+  // then is split
+  float* raw_q = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES);
+  tf32::load_raw<DP>(raw_q, qg, q0, tf32::ROWS, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  for (int g = 0; g < 2; ++g)
+    tf32::split_rows<DP>(base + 2 * F::Q_BYTES * g, base + 2 * F::Q_BYTES * g + F::Q_BYTES,
+                         raw_q + tf32::BQ * DP * g, tf32::BQ);
+  sm90::fence_async_smem();
+  __syncthreads();  // the raw tiles are free
+  tf32::load_raw<DP>(raw_k, kg, 0, KEYS, L, d, vec);
+  sm90::cp_async_commit();
+  tf32::load_raw<DP>(raw_v, vg, 0, KEYS, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<1>();
+  __syncthreads();
+  tf32::split_rows<DP>(kh, kl, raw_k, KEYS);
+  sm90::fence_async_smem();
+
+  // running max (shared by the row's 4 threads) and this thread's share of
+  // the row sum, per row half
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // o: the output sum; pv: a tile's P.V, which the tensor cores sum from
+  // zero, then added to o (their truncating adds over a whole sweep's chain
+  // of wgmma steps in one accumulator would break the limit)
+  float s[NS], o[DP / 2], pv[DP / 2];
+  uint32_t ph[NS], pl[NS];  // P hi and lo
 #pragma unroll
-    for (int jj = 0; jj < DMAX / 16; ++jj) acc[i][jj] = 0.f;
-  }
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is done with Ks, Vs, Ps
-    load_tile_f32(Ks, ld, k + hoff, k0, L, d, dp);
-    load_tile_f32(Vs, ld, v + hoff, k0, L, d, dp);
+    const bool next = t + 1 < ntiles;
+    sm90::cp_async_wait<0>();  // raw V tile t
+    // V tile t and the split K tile t in view; raw K and V^T free
     __syncthreads();
+    if (next) tf32::load_raw<DP>(raw_k, kg, (t + 1) * KEYS, KEYS, L, d, vec);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    tf32::qk_pass<DP>(s, ql, kh, true);  // the small terms first
+    tf32::qk_pass<DP>(s, qh, kl, false);
+    tf32::qk_pass<DP>(s, qh, kh, false);
+    sm90::wgmma_commit();
+    tf32::split_vt<DP>(vh, vl, raw_v);  // while Q K^T runs
+    sm90::fence_async_smem();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
 
-    // s[i][j]: row 4ty + i, key k0 + tx + 16j
-    float s[4][4] = {};
-    for (int dd = 0; dd < dp; ++dd) {
-      float qv[4], kv[4];
+    // logits: register i of s is (row r0 + 8 ((i / 2) % 2), key 8 (i / 4) + c2 + i % 2);
+    // only the last tile holds keys past L
+    if (next || L % KEYS == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * ld + dd];
+      for (int i = 0; i < NS; ++i) s[i] = __fmul_rn(s[i], scale);
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * ld + dd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int i = 0; i < NS; ++i)
+        s[i] = t * KEYS + 8 * (i / 4) + c2 + (i & 1) < L ? __fmul_rn(s[i], scale) : -INFINITY;
     }
+
+    float corr[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
+    for (int half = 0; half < 2; ++half) {
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = (k0 + tx + 16 * j < L) ? __fmul_rn(s[i][j], scale) : -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      // the 16 threads (a half-warp) that share row r
+      for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);  // finite: tile 0 has a live key
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[r * (BK + 1) + tx + 16 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) acc[i][jj] *= corr;
+        for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, s[4 * j + 2 * half + e]);
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[half], tmax);  // finite: every tile has a live key
+      corr[half] = __expf(m[half] - m_new);       // 0 on the first tile
+      m[half] = m_new;
     }
+    // P = exp(s - m) (masked keys give 0), split into hi and lo; the row sum
+    // adds P
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int half = (i / 2) & 1;
+      const float p = __expf(s[i] - m[half]);
+      psum[half] += p;
+      sm90::split_tf32(p, ph[i], pl[i]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + psum[half];
+
+    sm90::cp_async_wait<0>();  // raw K tile t + 1
+    // V^T in view; raw V free; every warp is done with the K tiles
     __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * (BK + 1) + c];
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) {
-        if (jj < ncol) {
-          const float vv = Vs[c * ld + tx + 16 * jj];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-        }
-      }
+    if (next) tf32::load_raw<DP>(raw_v, vg, (t + 1) * KEYS, KEYS, L, d, vec);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    tf32::pv_pass<DP>(pv, pl, vh, true);
+    tf32::pv_pass<DP>(pv, ph, vl, false);
+    tf32::pv_pass<DP>(pv, ph, vh, false);
+    sm90::wgmma_commit();
+    if (next) {  // while P.V runs
+      tf32::split_rows<DP>(kh, kl, raw_k, KEYS);
+      sm90::fence_async_smem();
     }
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(pv);
+    sm90::fence_regs(ph);
+    sm90::fence_regs(pl);
+    // o's register i is row r0 + 8 ((i / 2) % 2) as in s
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = fmaf(o[i], corr[(i / 2) & 1], pv[i]);
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= L) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int jj = 0; jj < DMAX / 16; ++jj) {
-      const int dim = tx + 16 * jj;
-      if (jj < ncol && dim < d) out[hoff + (size_t)row * d + dim] = acc[i][jj] * inv;
-    }
-  }
+  tf32::store_rows<DP>(out + head + (size_t)(q0 + g0 + r0) * d, o, l, live, c2, d);
 }
 
 // ------------------------------------------------------------ bfloat16
@@ -292,14 +326,16 @@ notap_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, int L, int d,
                float scale, cudaStream_t st) {
-  const Layout lay(d);
-  cudaError_t err = cudaFuncSetAttribute(notap_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.bytes);
+  constexpr size_t smem = tf32::tile_smem<DP>();
+  cudaError_t err = cudaFuncSetAttribute(notap_f32<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  notap_f32<<<dim3((L + BQ - 1) / BQ, BH), F_THREADS, lay.bytes, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, L, d, scale);
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  notap_f32<DP><<<dim3((L + tf32::ROWS - 1) / tf32::ROWS, BH), tf32::THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, L, d, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -326,7 +362,13 @@ bool valid(int BH, int L, int d) {
 extern "C" int mars_attention_notap_f32(const void* q, const void* k, const void* v, void* out,
                                         int BH, int L, int d, float scale, void* stream) {
   if (!valid(BH, L, d)) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, out, BH, L, d, scale, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (tf32::f32_dp(d)) {
+    case 32: return launch_f32<32>(q, k, v, out, BH, L, d, scale, st);
+    case 64: return launch_f32<64>(q, k, v, out, BH, L, d, scale, st);
+    case 80: return launch_f32<80>(q, k, v, out, BH, L, d, scale, st);
+    default: return launch_f32<128>(q, k, v, out, BH, L, d, scale, st);
+  }
 }
 
 extern "C" int mars_attention_notap_bf16(const void* q, const void* k, const void* v, void* out,

@@ -44,7 +44,8 @@
 //   computed on zeros and not stored.  Its own instantiation, so the aligned
 //   kernels carry none of it.
 //
-// float32 (grid_f32): split TF32 (sm90.cuh): each operand is hi + lo, two
+// float32 (grid_f32): split TF32 (sm90.cuh) on the tiles of attention_tf32.cuh,
+// which csrc/attention_notap.cu's notap_f32 shares: each operand is hi + lo, two
 // TF32 values, and each product is three TF32 wgmma passes, a_lo b_hi, a_hi
 // b_lo, a_hi b_hi (the small terms first): products to ~2^-20, where one
 // TF32 pass (~2^-11) would break the 2e-5 float32 limit.  TF32 wgmma reads
@@ -83,6 +84,7 @@
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -100,143 +102,22 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ------------------------------------------------------------ float32
 // Two warpgroups a CTA, 64 query rows each, over one sweep of shared K and
-// V tiles: the tiles are split once for 128 query rows.
-constexpr int F32_THREADS = 256;
-constexpr int F32_ROWS = 128;
+// V tiles: the tiles are split once for 128 query rows (attention_tf32.cuh).
+constexpr int F32_THREADS = tf32::THREADS;
+constexpr int F32_ROWS = tf32::ROWS;
+using tf32::F32;
+using tf32::f32_dp;
+using tf32::load_raw;
+using tf32::pv_pass;
+using tf32::qk_pass;
+using tf32::split_rows;
+using tf32::split_vt;
 
-// Tiles of a float32 kernel whose head dim is padded to DP.  A row-panel tile
-// (Q: 64 rows, K: KEYS rows, x DP) holds dims in SW128 panels of 32 floats
-// (rows x 128 bytes each) and, at DP = 80, a last panel of 16 interleaved (4
-// chunks a row); a V^T tile (DP rows, one per dim, x the tile's keys) holds
-// keys in SW128 panels of 32.  Raw tiles are row-major, DP floats a row.
-template <int DP> struct F32 {
-  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128, "DP is 32, 64, 80 or 128");
-  static constexpr int KEYS = DP > 80 ? 32 : 64;  // keys a tile
-  static constexpr int FULL = DP / 32;            // SW128 panels of a row-panel tile
-  static constexpr bool NARROW = DP % 32 != 0;    // and a 16-float interleaved one
-  static constexpr int CHUNKS = DP / 4;           // 16-byte chunks a row
-  static constexpr uint32_t Q_BYTES = 4u * BQ * DP;    // one warpgroup's Q, hi or lo
-  static constexpr uint32_t T_BYTES = 4u * KEYS * DP;  // K, V^T or raw
-};
-
-__host__ __device__ constexpr int f32_dp(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 80 ? 80 : 128;
-}
-
-// Byte offset of chunk c (4 floats) of row r in a row-panel tile of ``rows``
-// rows.
-template <int DP>
-__device__ __forceinline__ uint32_t panel_offset(int r, int c, int rows) {
-  constexpr int FULL = F32<DP>::FULL;
-  if (!F32<DP>::NARROW || c < 8 * FULL) return (c / 8) * rows * 128 + sm90::sw128(r, c % 8);
-  return FULL * rows * 128 + sm90::interleaved(r, c - 8 * FULL, 4);
-}
-
-// Rows [row0, row0 + rows) of an (L, d) float32 matrix into the raw tile
-// ``raw``; rows >= L and columns >= d are zero.  ``vec``: cp.async in
-// 16-byte chunks (d % 4 == 0, 16-byte aligned rows), else element by element.
-template <int DP>
-__device__ __forceinline__ void load_raw(float* raw, const float* src, int row0, int rows, int L,
-                                         int d, bool vec) {
-  if (vec) {
-    constexpr int C = F32<DP>::CHUNKS;
-    const uint32_t dst = sm90::smem_addr(raw);
-    for (int idx = threadIdx.x; idx < rows * C; idx += F32_THREADS) {
-      const int r = idx / C, c = idx % C, row = row0 + r;
-      const bool live = row < L && 4 * c < d;
-      sm90::cp_async16(dst + 16 * idx, live ? src + (size_t)row * d + 4 * c : src,
-                       live ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * DP; idx += F32_THREADS) {
-      const int r = idx / DP, c = idx % DP, row = row0 + r;
-      raw[idx] = row < L && c < d ? src[(size_t)row * d + c] : 0.f;
-    }
-  }
-}
-
-// A raw tile of ``rows`` rows split into the hi and lo row-panel tiles at
-// shared addresses ``hi`` and ``lo``.
-template <int DP>
-__device__ __forceinline__ void split_rows(uint32_t hi, uint32_t lo, const float* raw, int rows) {
-  constexpr int C = F32<DP>::CHUNKS;
-  for (int idx = threadIdx.x; idx < rows * C; idx += F32_THREADS) {
-    const float4 x = reinterpret_cast<const float4*>(raw)[idx];
-    uint32_t h[4], l[4];
-    sm90::split_tf32(x.x, h[0], l[0]);
-    sm90::split_tf32(x.y, h[1], l[1]);
-    sm90::split_tf32(x.z, h[2], l[2]);
-    sm90::split_tf32(x.w, h[3], l[3]);
-    const uint32_t off = panel_offset<DP>(idx / C, idx % C, rows);
-    sm90::st_shared16(hi + off, h[0], h[1], h[2], h[3]);
-    sm90::st_shared16(lo + off, l[0], l[1], l[2], l[3]);
-  }
-}
-
-// A raw V tile split into the hi and lo V^T tiles.  Row n of V^T is dim n;
-// its k-positions 4 (c % 2) + e of key group c / 2 (16-byte chunk c) hold
-// key 8 (c / 2) + c % 2 + 2e: each group of 8 keys in the order 0, 2, 4, 6,
-// 1, 3, 5, 7, which puts the key pair (2u, 2u + 1) of a thread's s registers
-// at the k-positions (u, u + 4) of its A fragment.  A warp's lanes take
-// neighbouring dims: its raw reads and its swizzled stores are free of bank
-// conflicts.
-template <int DP>
-__device__ __forceinline__ void split_vt(uint32_t hi, uint32_t lo, const float* raw) {
-  constexpr int KEYS = F32<DP>::KEYS;
-  for (int idx = threadIdx.x; idx < DP * (KEYS / 4); idx += F32_THREADS) {
-    const int n = idx % DP, c = idx / DP, key = 8 * (c / 2) + c % 2;
-    uint32_t h[4], l[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sm90::split_tf32(raw[(key + 2 * e) * DP + n], h[e], l[e]);
-    const uint32_t off = (c / 8) * DP * 128 + sm90::sw128(n, c % 8);
-    sm90::st_shared16(hi + off, h[0], h[1], h[2], h[3]);
-    sm90::st_shared16(lo + off, l[0], l[1], l[2], l[3]);
-  }
-}
-
-// Issues s (+)= A B^T for one TF32 pass over the head dim: A a 64-row tile
-// (Q hi or lo), B a key tile (K hi or lo); ``first``: s starts at zero.
-template <int DP>
-__device__ __forceinline__ void qk_pass(float (&s)[F32<DP>::KEYS / 2], uint32_t a, uint32_t b,
-                                        bool first) {
-  constexpr int KEYS = F32<DP>::KEYS, FULL = F32<DP>::FULL;
-#pragma unroll
-  for (int p = 0; p < FULL; ++p)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_tf32_ss<KEYS>(s, sm90::desc_sw128(a + p * BQ * 128 + 32 * kk),
-                                sm90::desc_sw128(b + p * KEYS * 128 + 32 * kk),
-                                !first || p > 0 || kk > 0);
-  if constexpr (F32<DP>::NARROW) {
-    // K-major: chunk stride 128 leading, 8-row group stride 512; a K step is 2 chunks
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      sm90::wgmma_tf32_ss<KEYS>(s, sm90::desc_interleaved(a + FULL * BQ * 128 + 256 * kk, 128, 512),
-                                sm90::desc_interleaved(b + FULL * KEYS * 128 + 256 * kk, 128, 512),
-                                1);
-  }
-}
-
-// Issues o (+)= P V for one TF32 pass over the key tile: P (hi or lo, in
-// the accumulator layout of s) as the A fragment, V^T (hi or lo) as B;
-// ``first``: o starts at zero.
-template <int DP>
-__device__ __forceinline__ void pv_pass(float (&o)[DP / 2], const uint32_t (&p)[F32<DP>::KEYS / 2],
-                                        uint32_t vt, bool first) {
-#pragma unroll
-  for (int j = 0; j < F32<DP>::KEYS / 8; ++j) {
-    const uint32_t a[4] = {p[4 * j], p[4 * j + 2], p[4 * j + 1], p[4 * j + 3]};
-    sm90::wgmma_tf32_rs<DP>(o, a, sm90::desc_sw128(vt + (j / 4) * DP * 128 + 32 * (j % 4)),
-                            !first || j > 0);
-  }
-}
-
-// Dynamic shared memory: alignment slack, both warpgroups' Q hi and lo, K hi
-// and lo, V^T hi and lo, raw K and raw V, and GENERAL the tile's key tables.
-// The bias is read from device memory (each tile's, before Q K^T).
+// Dynamic shared memory: the tiles (attention_tf32.cuh) and, GENERAL, the
+// tile's key tables.  The bias is read from device memory (each tile's,
+// before Q K^T).
 template <int DP, int MODE> __host__ __device__ constexpr size_t f32_smem() {
-  return 1024 + 4 * (size_t)F32<DP>::Q_BYTES + 6 * (size_t)F32<DP>::T_BYTES +
-         (MODE == GENERAL ? 2 * sizeof(int) * F32<DP>::KEYS : 0);
+  return tf32::tile_smem<DP>() + (MODE == GENERAL ? 2 * sizeof(int) * F32<DP>::KEYS : 0);
 }
 
 template <int DP, int MODE>
@@ -431,28 +312,7 @@ grid_f32(const float* __restrict__ q, const float* __restrict__ k, const float* 
     for (int i = 0; i < DP / 2; ++i) o[i] = fmaf(o[i], corr[(i / 2) & 1], pv[i]);
   }
 
-  float inv[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float li = l[half];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    inv[half] = 1.f / li;
-  }
-  float* dst = out + head + (size_t)(q0 + g0 + r0) * d;
-#pragma unroll
-  for (int i = 0; i < DP / 2; i += 2) {
-    const int half = (i / 2) & 1, dim = 8 * (i / 4) + c2;
-    if (!live[half] || dim >= d) continue;
-    float* at = dst + (size_t)8 * half * d + dim;
-    const float a = o[i] * inv[half], b = o[i + 1] * inv[half];
-    if (d % 2 == 0) {
-      *reinterpret_cast<float2*>(at) = make_float2(a, b);
-    } else {
-      at[0] = a;
-      if (dim + 1 < d) at[1] = b;
-    }
-  }
+  tf32::store_rows<DP>(out + head + (size_t)(q0 + g0 + r0) * d, o, l, live, c2, d);
 }
 
 template <int DP, int MODE>

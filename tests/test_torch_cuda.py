@@ -496,10 +496,14 @@ def _bhld(b, h, l, d, dtype, dev, seed=0):
             for _ in range(3)]
 
 
-# (B, H, L, D): DINOv2-L and CLIP-B at B = 1, an AlphaCLIP-L chunk, ragged
-# tiles, the widest head dim and a single key
+# (B, H, L, D): DINOv2-L and CLIP-B at B = 1, an AlphaCLIP-L chunk, five
+# DINOv2-L supports, ragged tiles, the widest head dim (32-key float32 tiles),
+# a single key, d = 80 (float32: the 16-float interleaved panel; bf16: the
+# 16-wide second panel), d = 20 (element-wise tile loads in bf16) and d = 17
+# (element-wise in both types)
 NOTAP_SHAPES = [(1, 16, 1374, 64), (1, 12, 1090, 64), (16, 16, 577, 64), (2, 3, 200, 32),
-                (1, 2, 17, 128), (3, 1, 1, 8)]
+                (1, 2, 17, 128), (3, 1, 1, 8), (5, 16, 1374, 64), (2, 2, 100, 80),
+                (1, 3, 70, 20), (2, 3, 130, 17)]
 
 
 @pytest.mark.parametrize("b,h,l,d", NOTAP_SHAPES)
@@ -514,11 +518,11 @@ def test_notap_matches_plain_f32(dev, b, h, l, d):
     torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("b,h,l,d", NOTAP_SHAPES + [(2, 2, 100, 80), (1, 3, 70, 20)])
+@pytest.mark.parametrize("b,h,l,d", NOTAP_SHAPES)
 def test_notap_matches_plain_bf16(dev, b, h, l, d):
-    """The tensor-core kernel at every float32 shape, and at d = 80 (the
-    16-wide interleaved second panel) and d = 20 (element-wise tile loads);
-    d = 128 takes two SW128 panels."""
+    """The tensor-core kernel at every float32 shape: d = 80 takes the
+    16-wide interleaved second panel, d = 20 element-wise tile loads, d = 128
+    two SW128 panels."""
     q, k, v = _bhld(b, h, l, d, torch.bfloat16, dev)
     before = fa.attention_notap.launches
     out = fa.attention_notap(q, k, v)
@@ -532,6 +536,14 @@ def test_notap_matches_plain_bf16(dev, b, h, l, d):
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_notap_bf16_is_deterministic(dev, d):
     q, k, v = _bhld(2, 4, 300, d, torch.bfloat16, dev, seed=3)
+    assert torch.equal(fa.attention_notap(q, k, v), fa.attention_notap(q, k, v))
+
+
+@pytest.mark.parametrize("d", [17, 64, 80, 128])
+def test_notap_f32_is_deterministic(dev, d):
+    """The split-TF32 kernel at every padded head dim (32, 64, 80, 128; d = 17
+    with element-wise tile loads)."""
+    q, k, v = _bhld(2, 4, 300, d, torch.float32, dev, seed=3)
     assert torch.equal(fa.attention_notap(q, k, v), fa.attention_notap(q, k, v))
 
 

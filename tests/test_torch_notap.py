@@ -8,6 +8,13 @@ absolute on outputs of order 1).  Bfloat16: both round P to bfloat16 and
 the output to bfloat16 from float32 sums taken in other orders, so a
 value may land one bfloat16 rounding apart (2^-8 relative, 1.6e-2 at the
 largest outputs here).
+
+The float32 kernel (``csrc/attention_notap.cu``, ``notap_f32``) computes
+each product as three TF32 passes of split operands (``csrc/sm90.cuh``):
+``_notap_f32`` emulates its arithmetic (64-key tiles, 32 past head dim 80;
+each tile's P·V in the kernel's order of keys inside each group of 8,
+summed from zero and added to the output sum) and holds it to half the
+card's 2e-5 limit; one TF32 pass and a lost key tile both break the limit.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +28,8 @@ from mars_tpu_torch.models import clip as tclip, convert as tconvert, layers as 
 from mars_tpu_torch.ops import flash_attention as tfa
 
 BF16_TOL = dict(atol=1.6e-2, rtol=2 ** -7)
+NOTAP_TOL = 2e-5  # the float32 kernel's limit on the card (chip_smoke.py, test_torch_cuda.py)
+PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)  # notap_f32's keys inside each group of 8 in P.V
 
 
 def _qkv(rng, shape):
@@ -85,6 +94,86 @@ def test_bf16_card_limit_separates_rounding_from_a_lost_tile(l):
 
     assert worst(_flash_bf16(q, k, v)) < 0.5
     assert worst(_flash_bf16(q, k, v, skip_tile=1)) > 2
+
+
+def _bits(x, add):
+    """float32 ``x`` plus ``add`` on its bits, the low 13 bits cleared."""
+    u = x.contiguous().numpy().view(np.uint32).astype(np.uint64)
+    return torch.from_numpy(((u + add) & 0xFFFFE000).astype(np.uint32).view(np.float32))
+
+
+def _split(x):
+    """``sm90::split_tf32``: hi = x rounded to TF32 (11 significant bits),
+    to nearest with ties away from zero; lo = x - hi truncated to TF32."""
+    hi = _bits(x, 0x1000)
+    return hi, _bits(x - hi, 0)
+
+
+def _tf32_product(a, b, mode):
+    """``a @ b`` as the kernel's TF32 wgmma passes, summed from zero in one
+    float32 accumulator: "tf32x3" a_lo b_hi, a_hi b_lo, a_hi b_hi (the small
+    terms first), "tf32" only a_hi b_hi."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if mode == "tf32":
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _notap_f32(q, k, v, mode="tf32x3", skip_tile=None):
+    """``notap_f32``'s arithmetic on (B, H, L, D) float32 inputs: key tiles of
+    64 (32 past head dim 80), logits scaled after the product, a running max
+    and sum per row, each tile's P·V (keys in the kernel's order) summed from
+    zero, then added to the rescaled output sum; ``mode`` "tf32" is one TF32
+    pass a product and ``skip_tile`` drops one key tile: the faults the card's
+    limit has to catch."""
+    d, l = q.shape[-1], k.shape[-2]
+    tile = 32 if d > 80 else 64
+    order = torch.tensor([8 * (i // 8) + PV_ORDER[i % 8] for i in range(tile)])
+    m = torch.full(q.shape[:-1], -torch.inf)
+    total = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for t, k0 in enumerate(range(0, l, tile)):
+        keys = torch.arange(k0, min(k0 + tile, l))  # keys past L are not attended
+        if t == skip_tile:
+            continue
+        s = _tf32_product(q, k[..., keys, :].transpose(-1, -2), mode) * d ** -0.5
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        total = total * corr + p.sum(-1)
+        live = order[order < len(keys)]
+        acc = torch.addcmul(_tf32_product(p[..., live], v[..., keys[live], :], mode), acc,
+                            corr[..., None])
+        m = m_new
+    return acc * (1 / total)[..., None]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 577, 64), (1, 4, 1374, 64), (2, 2, 200, 32),
+                                   (1, 2, 17, 128), (3, 1, 1, 8)])
+def test_f32_tile_emulation_within_half_the_limit(shape):
+    """The split form, emulated, at an AlphaCLIP-L chunk's and DINOv2-L's
+    length, a ragged tile, the widest head dim (32-key tiles) and one key."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(np.random.RandomState(8), shape))
+    err = (_notap_f32(q, k, v) - tfa.attention_notap_plain(q, k, v)).abs().max().item()
+    assert err < NOTAP_TOL / 2
+
+
+@pytest.mark.parametrize("fault", [dict(mode="tf32"), dict(skip_tile=1)])
+def test_f32_card_limit_catches_one_pass_or_a_lost_tile(fault):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(np.random.RandomState(9), (2, 3, 577, 64)))
+    err = (_notap_f32(q, k, v, **fault) - tfa.attention_notap_plain(q, k, v)).abs().max().item()
+    assert err > NOTAP_TOL
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 200, 32), (1, 2, 577, 64)])
+def test_f32_tile_emulation_matches_pallas(shape):
+    """The split-TF32 emulation against JAX's kernel in float32 (interpret
+    mode), within the card's limit."""
+    q, k, v = _qkv(np.random.RandomState(10), shape)
+    want = jfa.attention_notap(*map(jnp.asarray, (q, k, v)), interpret=True)
+    assert want.dtype == jnp.float32
+    got = _notap_f32(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=NOTAP_TOL, rtol=0)
 
 
 def test_cpu_takes_plain_without_counting():

@@ -4,6 +4,8 @@
     python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --text-path PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --grid PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --notap PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --profile PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
 
 Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
 run one after another, in the order given (repeat them to alternate), each
@@ -29,7 +31,19 @@ instead (one ViP-LLaVA-7B text block per format, int4 then NF4, through that
 root's package): block ms, prefill ms and decode ms per step.  With
 ``--grid`` each root builds only its grid library and times only the
 ``grid_attention`` rows, each with its largest difference from
-``grid_attention_plain``.
+``grid_attention_plain`` and a digest of its output (equal digests: bitwise
+equal outputs).  With ``--notap`` each root builds only its notap library
+and times only ``attention_notap``, in both types at every
+``chip_smoke.NOTAP_GEOMETRIES`` shape and at (1, 12, 1374, 64), whose 132
+float32 CTAs fill the card's 132 SMs once (the time of one full wave, which
+DINOv2-L's 176 CTAs at B = 1 take twice), each row with its largest
+difference from ``attention_notap_plain``, a digest and its time with the
+device held (``held_ms``: a ~40 µs kernel's ``ms`` may read the host's
+enqueue pace), then a digest of
+each notap kernel's machine code (its SASS instructions, addresses left
+out: equal digests, the same code).  With ``--profile`` each root runs
+``chip_smoke.py``'s ``phase_profile``: one float32 ranking episode under
+torch.profiler with the notap switch off, then on.
 The timers are this checkout's ``chip_smoke.py``'s, for every root:
 ``ms`` is CUDA events around 20 warm calls (``cuda_ms``; the auction's
 instances 5, every phase a call); the decode rows
@@ -57,6 +71,8 @@ DECODE_ROWS = (1, 4)
 PREFILL_SHAPES = DECODE_SHAPES + ((5120, 4096), (1024, 4096), (1984, 999))
 PREFILL_ROWS = 2330
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (name, B, H, L, D): one full wave of the float32 notap kernel's 128-row CTAs
+NOTAP_WAVE = (("one_wave_132_ctas", 1, 12, 1374, 64),)
 
 
 def _chip_smoke():
@@ -129,6 +145,15 @@ def auction_rows(smoke, emit):
              ms=ms, us_per_round=ms * 1e3 / max(rounds, 1), digest=digest)
 
 
+def digest(t):
+    """A hash of a tensor's bytes: equal digests, bitwise equal tensors."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
 def grid_rows(smoke, emit, gen):
     import torch
 
@@ -139,11 +164,12 @@ def grid_rows(smoke, emit, gen):
             l = hg * wg
             args = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
                     for shape in ((nh, l, d), (nh, l, d), (nh, l, d), (nh, l, hg), (nh, l, wg))]
-            err = (sa.grid_attention(*args, (hg, wg)).float()
-                   - sa.grid_attention_plain(*args, (hg, wg)).float()).abs().max().item()
+            out = sa.grid_attention(*args, (hg, wg))
+            want = sa.grid_attention_plain(*args, (hg, wg))
+            err = (out.float() - want.float()).abs().max().item()
             emit(kernel="grid_attention", shape=[nh, l, d], grid=[hg, wg], dtype=dt,
                  ms=smoke.cuda_ms(lambda: sa.grid_attention(*args, (hg, wg))),
-                 max_abs_err=err)
+                 max_abs_err=err, digest=digest(out))
 
 
 def grid_worker(root):
@@ -156,6 +182,75 @@ def grid_worker(root):
     build.build_all(["sam_grid_attention"])
     grid_rows(smoke, lambda **row: print(json.dumps({"root": root, **row}), flush=True),
               torch.Generator(device="cuda").manual_seed(0))
+
+
+def notap_rows(smoke, emit, gen):
+    import torch
+
+    from mars_tpu_torch.ops import flash_attention as fa
+
+    for name, b, h, l, d in smoke.NOTAP_GEOMETRIES + NOTAP_WAVE:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            out = fa.attention_notap(q, k, v)
+            err = (out.float() - fa.attention_notap_plain(q, k, v).float()).abs().max().item()
+            emit(kernel="attention_notap", geometry=name, shape=[b, h, l, d], dtype=dt,
+                 ms=smoke.cuda_ms(lambda: fa.attention_notap(q, k, v)),
+                 held_ms=smoke.held_ms(lambda: fa.attention_notap(q, k, v)), max_abs_err=err,
+                 digest=digest(out))
+
+
+def sass_digests(path):
+    """{notap kernel instantiation: digest of its SASS instructions} for
+    one library, the instructions' addresses left out."""
+    import hashlib
+    import re
+
+    from mars_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    code, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            m = re.search(r"Function : \S*?(notap_(?:bf16|f32)ILi\d+E)", ln)
+            fn = m.group(1) if m else None
+            if fn:
+                code[fn] = []
+        elif fn and "/*" in ln:
+            code[fn].append(re.sub(r"/\*.*?\*/", "", ln).strip())
+    return {k: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16] for k, v in code.items()}
+
+
+def notap_worker(root):
+    import torch
+
+    smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch.ops import build
+
+    build.build_all(["attention_notap"])
+
+    def emit(**row):
+        print(json.dumps({"root": root, **row}), flush=True)
+
+    notap_rows(smoke, emit, torch.Generator(device="cuda").manual_seed(0))
+    emit(kernel="attention_notap", sass=sass_digests(build.library_path("attention_notap")))
+
+
+def profile_worker(root):
+    """chip_smoke.phase_profile on ``root``'s package: its rows tagged with
+    the root."""
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch import device as device_lib
+
+    device_lib.resolve("cuda")
+    chip_smoke.emit = lambda obj: print(json.dumps({"root": root, **obj}), flush=True)
+    chip_smoke.phase_profile({})
 
 
 def worker(root):
@@ -235,13 +330,16 @@ def worker(root):
 
 
 def main(argv):
-    workers = {"--worker": worker, "--text-worker": text_worker, "--grid-worker": grid_worker}
+    workers = {"--worker": worker, "--text-worker": text_worker, "--grid-worker": grid_worker,
+               "--notap-worker": notap_worker, "--profile-worker": profile_worker}
     if len(argv) >= 2 and argv[0] in workers:
         workers[argv[0]](os.path.abspath(argv[1]))
         return 0
     mode = "--worker"
-    if argv and argv[0] in ("--text-path", "--grid"):
-        mode, argv = {"--text-path": "--text-worker", "--grid": "--grid-worker"}[argv[0]], argv[1:]
+    modes = {"--text-path": "--text-worker", "--grid": "--grid-worker",
+             "--notap": "--notap-worker", "--profile": "--profile-worker"}
+    if argv and argv[0] in modes:
+        mode, argv = modes[argv[0]], argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
