@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      nvcc per source, all started together): ptxas' registers and spill
      stores, and each library's tensor-core instructions in its SASS
      (``cuobjdump -sass``: HGMMA for wgmma, HMMA for mma.sync); fails if a
-     bfloat16 attention or 4-bit GEMM kernel, or a float32 grid or notap
-     kernel (split TF32), has none, or if one of their libraries spills;
+     bfloat16 attention or 4-bit GEMM kernel, or a float32 grid, notap or
+     windowed kernel (split TF32), has none, or if one of their libraries
+     spills;
   2. ``attention_with_tap`` against its plain version at the ranking path's
      shapes, in float32 and bfloat16, rerun for bitwise equality, timed with
      CUDA events beside its bound and a PyTorch yardstick;
@@ -40,11 +41,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
      thresholds, so decode, NMS, EMD scoring and the bucket see live masks;
      then the same call with ``grid_attention_plain`` in the float32 grid
      kernel's place: the ViT-H embeddings' difference, the proposals equal
-     in count and matched at IoU >= 0.99;
+     in count and matched at IoU >= 0.99; then the same call with
+     MARS_SAM_WINDOWED_IMPL=pallas alone (ViT-H's 28 windowed layers on the
+     float32 windowed kernel, the grid kernel on in both runs): exactly 28
+     windowed and 4 grid launches, the embedding's difference from the
+     switch-off run, the proposals equal in count and matched at IoU >= 0.99;
  10. one ranking episode (switch off, then MARS_ATTENTION_NOTAP_IMPL=pallas:
      the float32 notap kernel's device time and launches beside the plain
-     route's), then one proposal-plus-ranking episode, under torch.profiler:
-     device time by stage and by kernel, idle share;
+     route's), then one proposal-plus-ranking episode (switch off, then
+     MARS_SAM_WINDOWED_IMPL=pallas: the float32 windowed kernel's), under
+     torch.profiler: device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
      7B's shapes (decode rows 1, 4 and 8, prefill rows ~2330, and on a
      LLaMA layer's three shapes a speculative verify's rows 9, 18, 36 and
@@ -65,8 +71,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      and at head dim 128, float32 and bfloat16, rerun for bitwise equality,
      beside its bound (float32: split TF32's three passes, and the CUDA
      cores' bound) and F.scaled_dot_product_attention;
- 15. ``windowed_attention`` the same way at SAM ViT-H's windowed layer
-     (400 window-heads of 196 tokens) and a ragged window;
+ 15. ``windowed_attention`` the same way at SAM ViT-H's and ViT-B's windowed
+     layers (400 and 300 window-heads of 196 tokens) and a ragged window;
  16. the production bf16 evaluation with both kernel switches on
      (MARS_ATTENTION_NOTAP_IMPL=pallas, MARS_SAM_WINDOWED_IMPL=pallas, for
      this phase only): ``cli_proposals.main --bf16`` over two episodes into
@@ -162,10 +168,15 @@ NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518",
 NOTAP_TOL = 2e-5
 NOTAP_PASSES = 3  # the float32 notap kernel's TF32 passes a product (split TF32)
 NOTAP_IOU = 0.99  # merged masks of the float32 notap route against the plain route's
-# (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer (64 x 64
-# grid padded to 70 x 70: 25 windows), a ragged window at ViT-B/L's head dim
-WINDOW_GEOMETRIES = (("sam_vit_h_window", 25, 16, 14, 14, 80), ("ragged_5x6", 2, 2, 5, 6, 64))
+# (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's and ViT-B @1024's
+# windowed layers (64 x 64 grid padded to 70 x 70: 25 windows), a ragged
+# window at ViT-B/L's head dim
+WINDOW_GEOMETRIES = (("sam_vit_h_window", 25, 16, 14, 14, 80), ("ragged_5x6", 2, 2, 5, 6, 64),
+                     ("sam_vit_b_window", 25, 12, 14, 14, 64))
 WINDOW_TOL = 2e-5  # float32: the same sums in other orders
+WINDOW_PASSES = 3  # the float32 windowed kernel's TF32 passes a product (split TF32)
+WINDOW_IOU = 0.99  # proposals of the float32 windowed kernel's encode against the plain route's
+WINDOWED_ONLY = {"MARS_SAM_WINDOWED_IMPL": "pallas"}  # the float32 proposal path's switch
 # bfloat16 attention outputs, element by element.  Each side rounds P to
 # bf16 (the flash kernels the unnormalised exp(s - running max), whose
 # float32 row sum carries the same roundings: the weights end up at most
@@ -344,20 +355,24 @@ def _tensor_core_sass(path):
     return out
 
 
-# the tensor-core kernels (bfloat16, and float32 grid and notap): each must
-# hold HGMMA or HMMA in its SASS; notap, windowed and grid have one
-# instantiation per width of the second head-dim panel (0, 16, 64; the
+# the tensor-core kernels (bfloat16, and float32 grid, notap and windowed):
+# each must hold HGMMA or HMMA in its SASS; notap, windowed and grid have one
+# bf16 instantiation per width of the second head-dim panel (0, 16, 64; the
 # resident windowed kernel takes 0 and 16), grid also one per way of taking
 # the bias (0 general, 1 W = 64, 2 wide); the float32 notap kernel one per
 # padded head dim (32, 64, 80, 128), the float32 grid kernel one per padded
-# head dim and bias mode (0, 2); the 4-bit library's bf16 prefill GEMM and
-# decode GEMV, int4 (0) and NF4 (1)
+# head dim and bias mode (0, 2), the float32 windowed kernel one per padded
+# head dim through the key tables (0) and, up to head dim 80, one in tiles
+# of 4 key rows of SAM's 14-wide window (2); the 4-bit library's bf16
+# prefill GEMM and decode GEMV, int4 (0) and NF4 (1)
 TENSOR_CORE_KERNELS = {
     "attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
     "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64))
     + tuple(f"notap_f32ILi{dp}E" for dp in (32, 64, 80, 128)),
     "sam_windowed_attention": tuple(f"windowed_bf16_residentILi{r}E" for r in (0, 16))
-    + tuple(f"windowed_bf16_streamedILi{r}E" for r in (0, 16, 64)),
+    + tuple(f"windowed_bf16_streamedILi{r}E" for r in (0, 16, 64))
+    + tuple(f"windowed_f32ILi{dp}ELi0EE" for dp in (32, 64, 80, 128))
+    + tuple(f"windowed_f32ILi{dp}ELi2EE" for dp in (32, 64, 80)),
     "sam_grid_attention": tuple(f"grid_bf16ILi{r}ELi{mode}EE" for r in (0, 16, 64)
                                 for mode in (0, 1, 2))
     + tuple(f"grid_f32ILi{dp}ELi{mode}EE" for dp in (32, 64, 80, 128) for mode in (0, 2)),
@@ -537,9 +552,10 @@ def phase_notap(state):
 
 
 def phase_windowed(state):
-    """``windowed_attention`` against its plain version at SAM ViT-H's
-    windowed layer and a ragged window, float32 and bfloat16, beside its
-    bound and SDPA with the bias expanded."""
+    """``windowed_attention`` against its plain version at SAM ViT-H's and
+    ViT-B's windowed layers and a ragged window, float32 and bfloat16, beside
+    its bound (float32: split TF32's three passes, and the CUDA cores'
+    bound) and SDPA with the bias expanded."""
     import torch
     import torch.nn.functional as F
 
@@ -562,9 +578,11 @@ def phase_windowed(state):
             # the yardstick's input: the decomposed bias expanded to (B, nh, L, L)
             cols = torch.arange(l, device="cuda")
             mask = args[3][..., cols // w] + args[4][..., cols % w]
-            bound, by = _bound(4.0 * b * nh * l * l * d,
-                               (4 * b * nh * l * d + b * nh * l * (h + w)) * args[0].element_size(),
-                               dt)
+            flops = 4.0 * b * nh * l * l * d
+            nbytes = (4 * b * nh * l * d + b * nh * l * (h + w)) * args[0].element_size()
+            # float32: split TF32, three passes a product on the tensor cores
+            bound, by = (_bound(WINDOW_PASSES * flops, nbytes, "tf32") if dt == "float32"
+                         else _bound(flops, nbytes, dt))
             row = {"phase": "kernel", "kernel": "windowed_attention", "geometry": name,
                    "shape": [b, nh, l, d], "window": [h, w], "dtype": dt, **agree,
                    "rerun_equal": rerun_equal,
@@ -576,6 +594,8 @@ def phase_windowed(state):
                    "library_call": "F.scaled_dot_product_attention with the bias expanded "
                                    "to (B, heads, L, L) outside the timing",
                    "bound_ms": bound, "bound_by": by}
+            if dt == "float32":
+                row["bound_f32_cuda_core_ms"] = _bound(flops, nbytes, dt)[0]
             emit(row)
             rows.append(row)
             if (agree["err_over_tol"] > 1 or not rerun_equal
@@ -1026,36 +1046,78 @@ def phase_zero_thresholds(state):
     swapped in for the float32 grid kernel: ViT-H's embedding (its four
     global layers the kernel's) against the plain version's, and the
     proposals equal in count, each matched at IoU >= ``GRID_IOU``."""
-    import numpy as np
-
     from mars_tpu_torch.ops import sam_attention as sa
 
     kernel, before = sa.grid_attention, sa.grid_attention.launches
     row, out, _ = _zero_thresholds(bf16=False)
     emit(row)
+    state["zero_thresholds"] = (row, out)
     launched = kernel.launches - before
     sa.grid_attention = sa.grid_attention_plain
     try:
         plain_row, plain, _ = _zero_thresholds(bf16=False)
     finally:
         sa.grid_attention = kernel
-    diff = (out["embedding"] - plain["embedding"]).abs().max().item()
-    live, plain_live = row["bucket_live"], plain_row["bucket_live"]
-    masks = out["bucket_masks"][:live].cpu().numpy().astype(bool)
-    plain_masks = plain["bucket_masks"][:plain_live].cpu().numpy().astype(bool)
-    matched = _greedy_match(_mask_iou(masks, plain_masks)) if live and plain_live else []
-    worst = min((iou for _, _, iou in matched), default=None)
-    cmp = {"phase": "grid_f32_encode", "embedding_shape": list(out["embedding"].shape),
-           "embedding_max_abs_diff": diff,
-           "embedding_max_rel_diff": diff / plain["embedding"].abs().max().item(),
-           "live_proposals": [row["live_proposals"], plain_row["live_proposals"]],
-           "bucket_live": [live, plain_live], "min_matched_iou": worst,
-           "iou_limit": GRID_IOU, "grid_launches": [launched, kernel.launches - before - launched]}
+    agree, ok = _proposal_agreement(row, out, plain_row, plain, GRID_IOU)
+    cmp = {"phase": "grid_f32_encode", **agree,
+           "grid_launches": [launched, kernel.launches - before - launched]}
     emit(cmp)
-    if (live != plain_live or row["live_proposals"] != plain_row["live_proposals"]
-            or worst is None or worst < GRID_IOU or not np.isfinite(diff)
-            or cmp["grid_launches"] != [SAM_GLOBAL_LAYERS, 0]):
+    if not ok or cmp["grid_launches"] != [SAM_GLOBAL_LAYERS, 0]:
         raise AssertionError(f"the float32 grid kernel's encode departs from the plain one: {cmp}")
+
+
+def _proposal_agreement(row, out, ref_row, ref, iou_limit):
+    """One zero-threshold call (``_zero_thresholds``) against a reference
+    call: ViT-H's embedding difference, the proposals' counts and their
+    greedy matching by IoU → (fields, whether they agree: equal counts,
+    every match at IoU >= ``iou_limit``, a finite difference)."""
+    import numpy as np
+
+    diff = (out["embedding"] - ref["embedding"]).abs().max().item()
+    live, ref_live = row["bucket_live"], ref_row["bucket_live"]
+    masks = out["bucket_masks"][:live].cpu().numpy().astype(bool)
+    ref_masks = ref["bucket_masks"][:ref_live].cpu().numpy().astype(bool)
+    matched = _greedy_match(_mask_iou(masks, ref_masks)) if live and ref_live else []
+    worst = min((iou for _, _, iou in matched), default=None)
+    fields = {"embedding_shape": list(out["embedding"].shape), "embedding_max_abs_diff": diff,
+              "embedding_max_rel_diff": diff / ref["embedding"].abs().max().item(),
+              "live_proposals": [row["live_proposals"], ref_row["live_proposals"]],
+              "bucket_live": [live, ref_live], "min_matched_iou": worst,
+              "iou_limit": iou_limit}
+    ok = (live == ref_live and row["live_proposals"] == ref_row["live_proposals"]
+          and worst is not None and worst >= iou_limit and bool(np.isfinite(diff)))
+    return fields, ok
+
+
+def phase_f32_windowed_path(state):
+    """``phase_zero_thresholds``' float32 Matcher call with
+    MARS_SAM_WINDOWED_IMPL=pallas alone, set for this run and restored after:
+    ViT-H's 28 windowed layers on the float32 windowed kernel, its 4 global
+    layers on the grid kernel as in the switch-off run.  Every kernel's count
+    is set to 0 just before and read just after and must be one encode's
+    exact count; ViT-H's embedding against the switch-off run's, and the
+    proposals equal in count, each matched at IoU >= ``WINDOW_IOU``."""
+    from mars_tpu_torch import cli
+
+    off_row, off = state["zero_thresholds"]
+    for fn in cli.KERNELS.values():
+        fn.launches = 0
+    with kernel_switches(WINDOWED_ONLY):
+        row, out, _ = _zero_thresholds(bf16=False)
+    launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+    want = {**_matcher_launches(1), "attention_notap": 0}
+    state["f32_windowed_launches"] = {"proposal_f32_windowed": launches}
+    emit({**row, "switches": WINDOWED_ONLY})
+    agree, ok = _proposal_agreement(row, out, off_row, off, WINDOW_IOU)
+    cmp = {"phase": "f32_windowed_path", "switches": WINDOWED_ONLY, **agree,
+           "proposal_ms": [row["ms"], off_row["ms"]], "launches": launches,
+           "launches_expected": want}
+    emit(cmp)
+    if launches != want:
+        raise AssertionError(f"float32 windowed path launches {launches}, expected {want}")
+    if not ok:
+        raise AssertionError(f"the float32 windowed kernel's encode departs from the plain "
+                             f"route's: {cmp}")
 
 
 @contextlib.contextmanager
@@ -1448,7 +1510,16 @@ def _profile_proposals(bf16, shots=1):
 
 
 def phase_profile_proposals(state):
-    emit({"phase": "profile_proposals", **_profile_proposals(bf16=False)})
+    """The float32 proposal-plus-ranking episode with the switches off (the
+    default route), then with MARS_SAM_WINDOWED_IMPL=pallas alone: the
+    float32 windowed kernel's device time and launches."""
+    for values in ({name: "xla" for name in WINDOWED_ONLY}, WINDOWED_ONLY):
+        with kernel_switches(values):
+            prof = _profile_proposals(bf16=False)
+        windowed = [k for k in prof["top_kernels"] if "windowed" in k["name"]]
+        emit({"phase": "profile_proposals", "switches": values, **prof,
+              "windowed_device_ms": sum(k["device_ms"] for k in windowed),
+              "windowed_launches": sum(k["count"] for k in windowed)})
 
 
 def phase_profile_bf16(state):
@@ -1946,6 +2017,7 @@ def kernels_line(state):
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"ranking": state.get("launches", {}), **state.get("f32_notap_launches", {}),
              "proposal": state.get("proposal_launches", {}),
+             **state.get("f32_windowed_launches", {}),
              **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
              "models_path": state.get("models_path_launches", {}),
              **state.get("backbone_launches", {})}
@@ -2000,27 +2072,27 @@ def kernels_line(state):
                       for r in auc],
     }, _attention_entry(state, "attention_notap", "notap_rows", "alphaclip_l_336_chunk",
                         "mars_tpu_torch/csrc/attention_notap.cu",
-                        "mars_tpu/ops/flash_attention.py:187", launches, by_path, "float32"),
+                        "mars_tpu/ops/flash_attention.py:187", launches, by_path),
         _attention_entry(state, "windowed_attention", "window_rows", "sam_vit_h_window",
                          "mars_tpu_torch/csrc/sam_windowed_attention.cu",
-                         "mars_tpu/ops/sam_attention.py:178", launches, by_path, "bfloat16"),
+                         "mars_tpu/ops/sam_attention.py:178", launches, by_path),
     ] + [_quant_entry(state, fmt, line) for fmt, line in (("int4", 229), ("nf4", 139))]}
 
 
-def _attention_entry(state, name, rows_key, geometry, source, replaces, launches, by_path,
-                     dtype):
-    """A path's shape in ``dtype`` stands for the kernel (notap: float32,
-    whose redesign the float32 ranking path runs, with both bounds;
-    windowed: bfloat16, the type the switches' path runs); every measured
-    geometry and type is listed."""
+def _attention_entry(state, name, rows_key, geometry, source, replaces, launches, by_path):
+    """A path's shape in float32 stands for the kernel (the type of its
+    redesign, which the float32 ranking path runs for notap and the float32
+    proposal path for windowed), with both bounds; every measured geometry
+    and type is listed."""
     rows = state.get(rows_key, [])
-    first = next((r for r in rows if r["geometry"] == geometry and r["dtype"] == dtype), {})
+    first = next((r for r in rows if r["geometry"] == geometry and r["dtype"] == "float32"),
+                 {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("bound_f32_cuda_core_ms",)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches(name), "launches_by_path": by_path(name),
             "max_abs_err": first.get("max_abs_err"), **{k: first.get(k) for k in keys},
-            "shape": first.get("shape"), "dtype": dtype,
+            "shape": first.get("shape"), "dtype": "float32",
             **{k: first[k] for k in extra if k in first},
             "geometries": [{k: r.get(k) for k in ("geometry", "shape", "dtype", "max_abs_err",
                                                   "tol", "err_over_tol", "rerun_equal")
@@ -2071,7 +2143,8 @@ def main():
     for phase in (phase_build, phase_kernels, phase_grid_attention, phase_notap, phase_windowed,
                   phase_auction, phase_golden, phase_golden_matcher, phase_main_path,
                   phase_f32_notap_path, phase_proposal_path, phase_zero_thresholds,
-                  phase_bf16_path, phase_five_shot, phase_models_path, phase_backbones,
+                  phase_f32_windowed_path, phase_bf16_path, phase_five_shot, phase_models_path,
+                  phase_backbones,
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli):

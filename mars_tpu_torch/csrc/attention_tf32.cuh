@@ -1,6 +1,7 @@
 // float32 attention tiles on the tensor cores by split TF32 (sm90.cuh), shared
-// by the float32 kernels of csrc/sam_grid_attention.cu (grid_f32) and
-// csrc/attention_notap.cu (notap_f32).
+// by the float32 kernels of csrc/sam_grid_attention.cu (grid_f32),
+// csrc/sam_windowed_attention.cu (windowed_f32) and csrc/attention_notap.cu
+// (notap_f32); the first two also share the whole sweep (biased_sweep below).
 //
 // A CTA is two warpgroups over 128 query rows, 64 each, sweeping one head's
 // keys in tiles that both share: each operand is hi + lo (two TF32 values)
@@ -10,8 +11,8 @@
 // permuted inside each group of 8 (0, 2, 4, 6, 1, 3, 5, 7), so that the
 // registers of s are P's A fragment as they stand; K tiles are split likewise
 // into hi and lo row-panel tiles.  Head dims pad to 32, 64, 80 or 128; K tiles
-// are 64 keys, 32 at 128 (shared memory).  The kernels own the loop: these
-// are its tiles, loads, splits, passes and the output's store.
+// are 64 keys, 32 at 128 (shared memory); a sweep's last tile may be narrower
+// (NK keys, a multiple of 8: the tile functions take NK).
 #pragma once
 #include <stddef.h>
 #include <stdint.h>
@@ -99,17 +100,17 @@ __device__ __forceinline__ void split_rows(uint32_t hi, uint32_t lo, const float
   }
 }
 
-// A raw V tile split into the hi and lo V^T tiles.  Row n of V^T is dim n;
+// A raw V tile of NK keys split into the hi and lo V^T tiles.  Row n of V^T
+// is dim n;
 // its k-positions 4 (c % 2) + e of key group c / 2 (16-byte chunk c) hold
 // key 8 (c / 2) + c % 2 + 2e: each group of 8 keys in the order 0, 2, 4, 6,
 // 1, 3, 5, 7, which puts the key pair (2u, 2u + 1) of a thread's s registers
 // at the k-positions (u, u + 4) of its A fragment.  A warp's lanes take
 // neighbouring dims: its raw reads and its swizzled stores are free of bank
 // conflicts.
-template <int DP>
+template <int DP, int NK = F32<DP>::KEYS>
 __device__ __forceinline__ void split_vt(uint32_t hi, uint32_t lo, const float* raw) {
-  constexpr int KEYS = F32<DP>::KEYS;
-  for (int idx = threadIdx.x; idx < DP * (KEYS / 4); idx += THREADS) {
+  for (int idx = threadIdx.x; idx < DP * (NK / 4); idx += THREADS) {
     const int n = idx % DP, c = idx / DP, key = 8 * (c / 2) + c % 2;
     uint32_t h[4], l[4];
 #pragma unroll
@@ -121,36 +122,36 @@ __device__ __forceinline__ void split_vt(uint32_t hi, uint32_t lo, const float* 
 }
 
 // Issues s (+)= A B^T for one TF32 pass over the head dim: A a 64-row tile
-// (Q hi or lo), B a key tile (K hi or lo); ``first``: s starts at zero.
-template <int DP>
-__device__ __forceinline__ void qk_pass(float (&s)[F32<DP>::KEYS / 2], uint32_t a, uint32_t b,
-                                        bool first) {
-  constexpr int KEYS = F32<DP>::KEYS, FULL = F32<DP>::FULL;
+// (Q hi or lo), B a tile of NK keys (K hi or lo, split as NK rows);
+// ``first``: s starts at zero.
+template <int DP, int NK = F32<DP>::KEYS>
+__device__ __forceinline__ void qk_pass(float (&s)[NK / 2], uint32_t a, uint32_t b, bool first) {
+  constexpr int FULL = F32<DP>::FULL;
 #pragma unroll
   for (int p = 0; p < FULL; ++p)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_tf32_ss<KEYS>(s, sm90::desc_sw128(a + p * BQ * 128 + 32 * kk),
-                                sm90::desc_sw128(b + p * KEYS * 128 + 32 * kk),
-                                !first || p > 0 || kk > 0);
+      sm90::wgmma_tf32_ss<NK>(s, sm90::desc_sw128(a + p * BQ * 128 + 32 * kk),
+                              sm90::desc_sw128(b + p * NK * 128 + 32 * kk),
+                              !first || p > 0 || kk > 0);
   if constexpr (F32<DP>::NARROW) {
     // K-major: chunk stride 128 leading, 8-row group stride 512; a K step is 2 chunks
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
-      sm90::wgmma_tf32_ss<KEYS>(s, sm90::desc_interleaved(a + FULL * BQ * 128 + 256 * kk, 128, 512),
-                                sm90::desc_interleaved(b + FULL * KEYS * 128 + 256 * kk, 128, 512),
-                                1);
+      sm90::wgmma_tf32_ss<NK>(s, sm90::desc_interleaved(a + FULL * BQ * 128 + 256 * kk, 128, 512),
+                              sm90::desc_interleaved(b + FULL * NK * 128 + 256 * kk, 128, 512),
+                              1);
   }
 }
 
-// Issues o (+)= P V for one TF32 pass over the key tile: P (hi or lo, in
-// the accumulator layout of s) as the A fragment, V^T (hi or lo) as B;
+// Issues o (+)= P V for one TF32 pass over a tile of NK keys: P (hi or lo,
+// in the accumulator layout of s) as the A fragment, V^T (hi or lo) as B;
 // ``first``: o starts at zero.
-template <int DP>
-__device__ __forceinline__ void pv_pass(float (&o)[DP / 2], const uint32_t (&p)[F32<DP>::KEYS / 2],
+template <int DP, int NK = F32<DP>::KEYS>
+__device__ __forceinline__ void pv_pass(float (&o)[DP / 2], const uint32_t (&p)[NK / 2],
                                         uint32_t vt, bool first) {
 #pragma unroll
-  for (int j = 0; j < F32<DP>::KEYS / 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     const uint32_t a[4] = {p[4 * j], p[4 * j + 2], p[4 * j + 1], p[4 * j + 3]};
     sm90::wgmma_tf32_rs<DP>(o, a, sm90::desc_sw128(vt + (j / 4) * DP * 128 + 32 * (j % 4)),
                             !first || j > 0);
@@ -185,6 +186,285 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&o)[DP / 2],
       if (dim + 1 < d) at[1] = b;
     }
   }
+}
+
+// How a biased sweep takes the bias, by the grid's width W
+constexpr int BY_TABLES = 0;   // any W: each key's row and column from per-tile tables
+constexpr int BY_ROW = 1;      // W a multiple of the key tile: a tile is part of one key row
+constexpr int BY_WINDOW = 2;   // W = WINDOW_W (SAM's window): a tile is WINDOW_ROWS key rows
+constexpr int WINDOW_W = 14;
+constexpr int WINDOW_ROWS = 4;  // 56 keys a tile (64-key tiles: head dims up to 80)
+constexpr int WINDOW_STEP = WINDOW_ROWS * WINDOW_W;
+constexpr int WINDOW_TAIL = 32;  // the last tile, where L % 56 = 28 (196 = 3 x 56 + 28)
+
+// Dynamic shared memory of a biased sweep: the tiles and, BY_TABLES, the
+// tile's key tables.
+template <int DP, int MODE> __host__ __device__ constexpr size_t sweep_smem() {
+  return tile_smem<DP>() + (MODE == BY_TABLES ? 2 * sizeof(int) * F32<DP>::KEYS : 0);
+}
+
+template <int N> struct Keys {
+  static constexpr int value = N;
+};
+
+// One CTA's sweep of attention with the decomposed relative-position bias
+// (the contract of csrc/sam_grid_attention.cu): query rows [q0, q0 + 128) of
+// head ``h`` of (H, L, d) q, k, v and (H, L, hg) bias_h, (H, L, wg) bias_w,
+// logits (q . k) * scale + bias_h[q, k / wg] + bias_w[q, k % wg] as
+// __fadd_rn(__fadd_rn(__fmul_rn(s, scale), bh), bw), the plain version's
+// expression in its order; out (H, L, d).  Register i of s is (row r0 + 8
+// ((i / 2) % 2), key 8 (i / 4) + c2 + i % 2) of the tile; MODE takes the
+// bias:
+//   BY_ROW (wg a multiple of the key tile): nothing is masked and key tile
+//   t is part of one key row y, columns x0 to x0 + KEYS - 1: a thread loads
+//   bias_h at (its rows, y) and bias_w at (its rows, x0 + its keys) before
+//   Q K^T; y and x0 step with the tile.
+//   BY_WINDOW (wg = 14, SAM's window; head dims up to 80): tiles of 4 key
+//   rows, 56 keys, the last WINDOW_TAIL keys wide (the caller's L % 56 =
+//   28: 196 keys are 3 tiles and 28 keys).  A thread's keys sit at the
+//   same columns in every tile, so its bias_w values are loaded once, into
+//   registers, and each tile's bias_h is 4 values a row, loaded before
+//   Q K^T.  Keys past L are masked.
+//   BY_TABLES (any wg): each key's row and column from per-tile tables, one
+//   lookup each per logit after Q K^T; keys past L are masked.
+// Query rows past L are computed on zeros and not stored.  The splits run while the tensor
+// cores work: V's while Q K^T runs, the next K tile's while P.V does; Q and
+// the first K and V tiles are loaded together.  A tile's P.V is summed from
+// zero in its own accumulator and added to the output sum with an IEEE fma:
+// the tensor cores' float32 adds truncate, and one accumulator over a
+// 4096-key sweep reads 3.7e-5 off the plain version
+// (tools/grid_f32_probe.py, one_acc).
+template <int DP, int MODE>
+__device__ __forceinline__ void biased_sweep(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ bias_h, const float* __restrict__ bias_w, float* __restrict__ out,
+    int L, int d, int hg, int wg, float scale, int vec, int q0, int h, uint8_t* smem_raw) {
+  using F = F32<DP>;
+  constexpr int KEYS = F::KEYS;
+  constexpr int STEP = MODE == BY_WINDOW ? WINDOW_STEP : KEYS;  // keys a tile
+  constexpr int TAIL = MODE == BY_WINDOW ? WINDOW_TAIL : 0;      // the last tile's, or 0
+  static_assert(MODE != BY_WINDOW || STEP <= KEYS, "a window tile fits the tiles");
+  static_assert(2 * F::Q_BYTES <= 4 * F::T_BYTES, "raw Q lands below raw K and V");
+  const uint32_t base = sm90::aligned_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - sm90::smem_addr(smem_raw));  // base, generic
+  // Q hi and lo of warpgroup 0, then of warpgroup 1; K hi, K lo, V^T hi,
+  // V^T lo, raw K, raw V; the key tables
+  const int group = threadIdx.x / 128;
+  const uint32_t qh = base + 2 * F::Q_BYTES * group, ql = qh + F::Q_BYTES;
+  const uint32_t kh = base + 4 * F::Q_BYTES, kl = kh + F::T_BYTES;
+  const uint32_t vh = kl + F::T_BYTES, vl = vh + F::T_BYTES;
+  float* raw_k = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES + 4 * F::T_BYTES);
+  float* raw_v = raw_k + KEYS * DP;
+  int* ky = reinterpret_cast<int*>(raw_v + KEYS * DP);  // BY_TABLES: the tile's key rows
+  int* kx = ky + KEYS;                                  // and columns
+  const size_t head = (size_t)h * L * d;
+  const size_t brow = (size_t)h * L;  // the head's first bias row
+  const float *qg = q + head, *kg = k + head, *vg = v + head;
+  // tiles STEP wide, then (TAIL) one TAIL wide
+  const int nfull = TAIL ? L / STEP : (L + STEP - 1) / STEP;
+  const int ntiles = nfull + (TAIL ? 1 : 0);
+  const int lane = threadIdx.x % 32;
+  // rows r0 and r0 + 8 of the warpgroup's 64 (the CTA's rows g0 + r0, + 8)
+  const int g0 = 64 * group, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);  // keys 8j + c2 and + 1 of a tile
+  bool live[2];                   // rows below L
+#pragma unroll
+  for (int half = 0; half < 2; ++half) live[half] = q0 + g0 + r0 + 8 * half < L;
+
+  // Q lands raw where the K and V^T tiles go, the first raw K and V tiles
+  // beside it; Q is split, then K
+  const int rows0 = nfull > 0 ? STEP : TAIL;
+  float* raw_q = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES);
+  load_raw<DP>(raw_q, qg, q0, ROWS, L, d, vec);
+  sm90::cp_async_commit();
+  load_raw<DP>(raw_k, kg, 0, rows0, L, d, vec);
+  sm90::cp_async_commit();
+  load_raw<DP>(raw_v, vg, 0, rows0, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<2>();
+  __syncthreads();
+  for (int g = 0; g < 2; ++g)
+    split_rows<DP>(base + 2 * F::Q_BYTES * g, base + 2 * F::Q_BYTES * g + F::Q_BYTES,
+                   raw_q + BQ * DP * g, BQ);
+  sm90::cp_async_wait<1>();
+  __syncthreads();  // raw K tile 0 in view; raw Q is free
+  split_rows<DP>(kh, kl, raw_k, rows0);
+  sm90::fence_async_smem();
+
+  // running max (shared by the row's 4 threads) and this thread's share of
+  // the row sum, per row half; o: the output sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  int y = 0, x0 = 0;  // BY_ROW: tile t's key row and first column
+  const float* bhr[2];  // the thread's bias rows (r0 and r0 + 8)
+  const float* bwr[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const size_t row = brow + q0 + g0 + r0 + 8 * half;
+    bhr[half] = bias_h + row * hg;
+    bwr[half] = bias_w + row * wg;
+  }
+  // BY_WINDOW: bias_w at register i of s, the same in every tile (rows past L take none)
+  float bw_win[MODE == BY_WINDOW ? STEP / 2 : 1];
+  if constexpr (MODE == BY_WINDOW) {
+#pragma unroll
+    for (int i = 0; i < STEP / 2; ++i) {
+      const int half = (i / 2) & 1;
+      bw_win[i] = live[half] ? __ldg(bwr[half] + (8 * (i / 4) + c2 + (i & 1)) % WINDOW_W) : 0.f;
+    }
+  }
+
+  // key tile t, NK keys wide
+  auto tile = [&](auto width, int t) {
+    constexpr int NK = decltype(width)::value, NS = NK / 2;  // NS: registers of s
+    const bool next = t + 1 < ntiles;
+    const int next_rows = TAIL && t + 1 == nfull ? TAIL : STEP;
+    if constexpr (MODE == BY_TABLES) {
+      // the previous tile's middle barrier has retired its tables
+      const int key = t * STEP + threadIdx.x;
+      if (threadIdx.x < NK) {
+        ky[threadIdx.x] = key < L ? key / wg : 0;
+        kx[threadIdx.x] = key < L ? key % wg : 0;
+      }
+    }
+    // BY_ROW, BY_WINDOW: the tile's bias, in flight while Q K^T runs (rows
+    // past L take none)
+    float bh[2] = {0.f, 0.f}, bw[MODE == BY_ROW ? NS : 1];
+    if constexpr (MODE == BY_ROW) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float2 w[NK / 8] = {};
+        if (live[half]) {
+          bh[half] = __ldg(bhr[half] + y);
+#pragma unroll
+          for (int j = 0; j < NK / 8; ++j)
+            w[j] = __ldg(reinterpret_cast<const float2*>(bwr[half] + x0 + 8 * j + c2));
+        }
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j) {
+          bw[4 * j + 2 * half] = w[j].x;
+          bw[4 * j + 2 * half + 1] = w[j].y;
+        }
+      }
+    }
+    float bh_win[2][WINDOW_ROWS] = {};  // BY_WINDOW: bias_h at the tile's key rows
+    if constexpr (MODE == BY_WINDOW) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int r = 0; r < WINDOW_ROWS; ++r)
+          if (live[half] && WINDOW_ROWS * t + r < hg)
+            bh_win[half][r] = __ldg(bhr[half] + WINDOW_ROWS * t + r);
+    }
+    sm90::cp_async_wait<0>();  // raw V tile t
+    // V tile t and the split K tile t in view; raw K and V^T free
+    __syncthreads();
+    if (next) load_raw<DP>(raw_k, kg, (t + 1) * STEP, next_rows, L, d, vec);
+    sm90::cp_async_commit();
+    float s[NS];
+    sm90::wgmma_fence();
+    qk_pass<DP, NK>(s, ql, kh, true);  // the small terms first
+    qk_pass<DP, NK>(s, qh, kl, false);
+    qk_pass<DP, NK>(s, qh, kh, false);
+    sm90::wgmma_commit();
+    split_vt<DP, NK>(vh, vl, raw_v);  // while Q K^T runs
+    sm90::fence_async_smem();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+
+    // logits: register i of s is (row r0 + 8 ((i / 2) % 2), key 8 (i / 4) + c2 + i % 2)
+    if constexpr (MODE == BY_TABLES) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = 8 * (i / 4) + c2 + (i & 1), half = (i / 2) & 1;
+        s[i] = t * STEP + c < L
+                   ? __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale),
+                                         live[half] ? __ldg(bhr[half] + ky[c]) : 0.f),
+                               live[half] ? __ldg(bwr[half] + kx[c]) : 0.f)
+                   : -INFINITY;
+      }
+    } else if constexpr (MODE == BY_WINDOW) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = 8 * (i / 4) + c2 + (i & 1), half = (i / 2) & 1;
+        const int r = c / WINDOW_W;  // the key's row in the tile
+        float b = bh_win[half][0];
+#pragma unroll
+        for (int u = 1; u < WINDOW_ROWS; ++u) b = r == u ? bh_win[half][u] : b;
+        s[i] = NK == STEP || t * STEP + c < L
+                   ? __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale), b), bw_win[i])
+                   : -INFINITY;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale), bh[(i / 2) & 1]), bw[i]);
+      x0 += KEYS;
+      if (x0 == wg) {
+        x0 = 0;
+        ++y;
+      }
+    }
+
+    float corr[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, s[4 * j + 2 * half + e]);
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[half], tmax);  // finite: every tile has a live key
+      corr[half] = __expf(m[half] - m_new);       // 0 on the first tile
+      m[half] = m_new;
+    }
+    // P = exp(s - m) (masked keys give 0), split into hi and lo; the row sum
+    // adds P
+    uint32_t ph[NS], pl[NS];
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int half = (i / 2) & 1;
+      const float p = __expf(s[i] - m[half]);
+      psum[half] += p;
+      sm90::split_tf32(p, ph[i], pl[i]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + psum[half];
+
+    sm90::cp_async_wait<0>();  // raw K tile t + 1
+    // V^T in view; raw V free; every warp is done with the K tiles
+    __syncthreads();
+    if (next) load_raw<DP>(raw_v, vg, (t + 1) * STEP, next_rows, L, d, vec);
+    sm90::cp_async_commit();
+    // pv: the tile's P.V, which the tensor cores sum from zero
+    float pv[DP / 2];
+    sm90::wgmma_fence();
+    pv_pass<DP, NK>(pv, pl, vh, true);
+    pv_pass<DP, NK>(pv, ph, vl, false);
+    pv_pass<DP, NK>(pv, ph, vh, false);
+    sm90::wgmma_commit();
+    if (next) {  // while P.V runs
+      split_rows<DP>(kh, kl, raw_k, next_rows);
+      sm90::fence_async_smem();
+    }
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(pv);
+    sm90::fence_regs(ph);
+    sm90::fence_regs(pl);
+    // o's register i is row r0 + 8 ((i / 2) % 2) as in s
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = fmaf(o[i], corr[(i / 2) & 1], pv[i]);
+  };
+
+  for (int t = 0; t < nfull; ++t) tile(Keys<STEP>{}, t);
+  if constexpr (TAIL > 0) tile(Keys<TAIL>{}, nfull);
+
+  store_rows<DP>(out + head + (size_t)(q0 + g0 + r0) * d, o, l, live, c2, d);
 }
 
 }  // namespace tf32

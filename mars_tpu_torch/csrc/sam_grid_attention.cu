@@ -44,29 +44,22 @@
 //   computed on zeros and not stored.  Its own instantiation, so the aligned
 //   kernels carry none of it.
 //
-// float32 (grid_f32): split TF32 (sm90.cuh) on the tiles of attention_tf32.cuh,
-// which csrc/attention_notap.cu's notap_f32 shares: each operand is hi + lo, two
+// float32 (grid_f32): split TF32 (sm90.cuh): each operand is hi + lo, two
 // TF32 values, and each product is three TF32 wgmma passes, a_lo b_hi, a_hi
 // b_lo, a_hi b_hi (the small terms first): products to ~2^-20, where one
-// TF32 pass (~2^-11) would break the 2e-5 float32 limit.  TF32 wgmma reads
-// both operands K-major, so P.V takes V^T: each V tile lands raw (cp.async)
-// and is split into hi and lo V^T tiles, keys permuted inside each group of
-// 8 (0, 2, 4, 6, 1, 3, 5, 7) so that the registers of s are P's A fragment
-// as they stand; K tiles are split likewise into hi and lo tiles, P in
-// registers.  What bounds it on the card is not the tensor cores but the
-// CUDA cores' share beside them: the splits, the softmax and P's split take
-// about as many instructions a tile as the passes take cycles.  So a CTA is
-// two warpgroups over 128 query rows, sharing each split tile (half the
-// splitting a row, and two warps a scheduler), and the splits run while the
-// tensor cores work: V's while Q K^T runs, the next K tile's while P.V does.
-// One raw K and one raw V tile and one split tile of each are all the
-// shared memory takes besides Q (~201 KB at d = 80, one CTA an SM); the bias
-// is read from device memory (bias_w's rows at W = 64 are the same every
-// tile, cached), each tile's issued before Q K^T.  The tensor cores' float32
-// adds truncate, so a tile's P.V is summed from zero in its own accumulator
-// and added to the output sum with an IEEE fma: one accumulator over the
-// 4096-key sweep reads 3.7e-5 off the plain version at ViT-H, past the
-// limit (tools/grid_f32_probe.py, one_acc).  Head dims pad to 32, 64, 80 or 128; K tiles are 64 keys, 32 at 128
+// TF32 pass (~2^-11) would break the 2e-5 float32 limit.  The sweep is
+// tf32::biased_sweep (csrc/attention_tf32.cuh), which
+// csrc/sam_windowed_attention.cu's windowed_f32 runs too, on the tiles that
+// csrc/attention_notap.cu's notap_f32 shares.  What bounds it on the card is
+// not the tensor cores but the CUDA cores' share beside them: the splits,
+// the softmax and P's split take about as many instructions a tile as the
+// passes take cycles.  So a CTA is two warpgroups over 128 query rows,
+// sharing each split tile (half the splitting a row, and two warps a
+// scheduler), and the splits run while the tensor cores work.  One raw K
+// and one raw V tile and one split tile of each are all the shared memory
+// takes besides Q (~201 KB at d = 80, one CTA an SM); the bias is read from
+// device memory (bias_w's rows at W = 64 are the same every tile, cached).
+// Head dims pad to 32, 64, 80 or 128; K tiles are 64 keys, 32 at 128
 // (shared memory).
 //
 // bfloat16 (grid_bf16): notap_bf16's loop (csrc/attention_notap.cu), 64
@@ -101,229 +94,33 @@ constexpr int WIDE = 2;     // W a multiple of the key tile
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ------------------------------------------------------------ float32
-// Two warpgroups a CTA, 64 query rows each, over one sweep of shared K and
-// V tiles: the tiles are split once for 128 query rows (attention_tf32.cuh).
-constexpr int F32_THREADS = tf32::THREADS;
-constexpr int F32_ROWS = tf32::ROWS;
+// tf32::biased_sweep (attention_tf32.cuh): two warpgroups a CTA over 128
+// query rows, sharing each split K and V^T tile.
 using tf32::F32;
 using tf32::f32_dp;
-using tf32::load_raw;
-using tf32::pv_pass;
-using tf32::qk_pass;
-using tf32::split_rows;
-using tf32::split_vt;
-
-// Dynamic shared memory: the tiles (attention_tf32.cuh) and, GENERAL, the
-// tile's key tables.  The bias is read from device memory (each tile's,
-// before Q K^T).
-template <int DP, int MODE> __host__ __device__ constexpr size_t f32_smem() {
-  return tf32::tile_smem<DP>() + (MODE == GENERAL ? 2 * sizeof(int) * F32<DP>::KEYS : 0);
-}
 
 template <int DP, int MODE>
-__global__ void __launch_bounds__(F32_THREADS)
+__global__ void __launch_bounds__(tf32::THREADS)
 grid_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
          const float* __restrict__ bias_h, const float* __restrict__ bias_w,
          float* __restrict__ out, int L, int d, int hg, int wg, float scale, int vec) {
-  using F = F32<DP>;
-  constexpr int KEYS = F::KEYS, NS = KEYS / 2;  // NS: registers of s
   static_assert(MODE == GENERAL || MODE == WIDE, "float32 reads the bias from memory");
-  static_assert(f32_smem<DP, MODE>() <= MAX_SMEM, "the tiles fit in shared memory");
+  constexpr int BIAS = MODE == WIDE ? tf32::BY_ROW : tf32::BY_TABLES;
+  static_assert(tf32::sweep_smem<DP, BIAS>() <= MAX_SMEM, "the tiles fit in shared memory");
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = sm90::aligned_base(smem_raw);
-  uint8_t* gbase = smem_raw + (base - sm90::smem_addr(smem_raw));  // base, generic
-  // Q hi and lo of warpgroup 0, then of warpgroup 1; K hi, K lo, V^T hi,
-  // V^T lo, raw K, raw V; the key tables
-  const int group = threadIdx.x / 128;
-  const uint32_t qh = base + 2 * F::Q_BYTES * group, ql = qh + F::Q_BYTES;
-  const uint32_t kh = base + 4 * F::Q_BYTES, kl = kh + F::T_BYTES;
-  const uint32_t vh = kl + F::T_BYTES, vl = vh + F::T_BYTES;
-  float* raw_k = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES + 4 * F::T_BYTES);
-  float* raw_v = raw_k + KEYS * DP;
-  int* ky = reinterpret_cast<int*>(raw_v + KEYS * DP);  // GENERAL: the tile's key rows
-  int* kx = ky + KEYS;                                  // and columns
-  const int q0 = blockIdx.x * F32_ROWS;
-  const size_t head = (size_t)blockIdx.y * L * d;
-  const size_t brow = (size_t)blockIdx.y * L;  // the head's first bias row
-  const float *qg = q + head, *kg = k + head, *vg = v + head;
-  const int ntiles = (L + KEYS - 1) / KEYS;
-  const int lane = threadIdx.x % 32;
-  // rows r0 and r0 + 8 of the warpgroup's 64 (the CTA's rows g0 + r0, + 8)
-  const int g0 = 64 * group, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
-  const int c2 = 2 * (lane % 4);  // keys 8j + c2 and + 1 of a tile
-  bool live[2];                   // rows below L
-#pragma unroll
-  for (int half = 0; half < 2; ++half) live[half] = q0 + g0 + r0 + 8 * half < L;
-
-  // Q lands raw where the K, V^T and raw tiles go (6 T_BYTES >= 128 rows),
-  // then is split
-  float* raw_q = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES);
-  load_raw<DP>(raw_q, qg, q0, F32_ROWS, L, d, vec);
-  sm90::cp_async_commit();
-  sm90::cp_async_wait<0>();
-  __syncthreads();
-  for (int g = 0; g < 2; ++g)
-    split_rows<DP>(base + 2 * F::Q_BYTES * g, base + 2 * F::Q_BYTES * g + F::Q_BYTES,
-                   raw_q + BQ * DP * g, BQ);
-  sm90::fence_async_smem();
-  __syncthreads();  // the raw tiles are free
-  load_raw<DP>(raw_k, kg, 0, KEYS, L, d, vec);
-  sm90::cp_async_commit();
-  load_raw<DP>(raw_v, vg, 0, KEYS, L, d, vec);
-  sm90::cp_async_commit();
-  sm90::cp_async_wait<1>();
-  __syncthreads();
-  split_rows<DP>(kh, kl, raw_k, KEYS);
-  sm90::fence_async_smem();
-
-  // running max (shared by the row's 4 threads) and this thread's share of
-  // the row sum, per row half
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // o: the output sum; pv: a tile's P.V, which the tensor cores sum from
-  // zero, then added to o (their truncating adds over a whole sweep's chain
-  // of wgmma steps in one accumulator would break the limit)
-  float s[NS], o[DP / 2], pv[DP / 2];
-  uint32_t ph[NS], pl[NS];  // P hi and lo
-#pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-  int y = 0, x0 = 0;  // WIDE: tile t's key row and first column
-  const float* bhr[2];  // the thread's bias rows (r0 and r0 + 8)
-  const float* bwr[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const size_t row = brow + q0 + g0 + r0 + 8 * half;
-    bhr[half] = bias_h + row * hg;
-    bwr[half] = bias_w + row * wg;
-  }
-
-  for (int t = 0; t < ntiles; ++t) {
-    const bool next = t + 1 < ntiles;
-    if constexpr (MODE == GENERAL) {
-      // the previous tile's middle barrier has retired its tables
-      const int key = t * KEYS + threadIdx.x;
-      if (threadIdx.x < KEYS) {
-        ky[threadIdx.x] = key < L ? key / wg : 0;
-        kx[threadIdx.x] = key < L ? key % wg : 0;
-      }
-    }
-    // WIDE: the tile's bias, in flight while Q K^T runs (rows past L take none)
-    float bh[2] = {0.f, 0.f}, bw[NS];
-    if constexpr (MODE == WIDE) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float2 w[KEYS / 8] = {};
-        if (live[half]) {
-          bh[half] = __ldg(bhr[half] + y);
-#pragma unroll
-          for (int j = 0; j < KEYS / 8; ++j)
-            w[j] = __ldg(reinterpret_cast<const float2*>(bwr[half] + x0 + 8 * j + c2));
-        }
-#pragma unroll
-        for (int j = 0; j < KEYS / 8; ++j) {
-          bw[4 * j + 2 * half] = w[j].x;
-          bw[4 * j + 2 * half + 1] = w[j].y;
-        }
-      }
-    }
-    sm90::cp_async_wait<0>();  // raw V tile t
-    // V tile t and the split K tile t in view; raw K and V^T free
-    __syncthreads();
-    if (next) load_raw<DP>(raw_k, kg, (t + 1) * KEYS, KEYS, L, d, vec);
-    sm90::cp_async_commit();
-    sm90::wgmma_fence();
-    qk_pass<DP>(s, ql, kh, true);  // the small terms first
-    qk_pass<DP>(s, qh, kl, false);
-    qk_pass<DP>(s, qh, kh, false);
-    sm90::wgmma_commit();
-    split_vt<DP>(vh, vl, raw_v);  // while Q K^T runs
-    sm90::fence_async_smem();
-    sm90::wgmma_wait_all();
-    sm90::fence_regs(s);
-
-    // logits: register i of s is (row r0 + 8 ((i / 2) % 2), key 8 (i / 4) + c2 + i % 2)
-    if constexpr (MODE == GENERAL) {
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int c = 8 * (i / 4) + c2 + (i & 1), half = (i / 2) & 1;
-        s[i] = t * KEYS + c < L
-                   ? __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale),
-                                         live[half] ? __ldg(bhr[half] + ky[c]) : 0.f),
-                               live[half] ? __ldg(bwr[half] + kx[c]) : 0.f)
-                   : -INFINITY;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < NS; ++i)
-        s[i] = __fadd_rn(__fadd_rn(__fmul_rn(s[i], scale), bh[(i / 2) & 1]), bw[i]);
-      x0 += KEYS;
-      if (x0 == wg) {
-        x0 = 0;
-        ++y;
-      }
-    }
-
-    float corr[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KEYS / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, s[4 * j + 2 * half + e]);
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float m_new = fmaxf(m[half], tmax);  // finite: every tile has a live key
-      corr[half] = __expf(m[half] - m_new);       // 0 on the first tile
-      m[half] = m_new;
-    }
-    // P = exp(s - m) (masked keys give 0), split into hi and lo; the row sum
-    // adds P
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int half = (i / 2) & 1;
-      const float p = __expf(s[i] - m[half]);
-      psum[half] += p;
-      sm90::split_tf32(p, ph[i], pl[i]);
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + psum[half];
-
-    sm90::cp_async_wait<0>();  // raw K tile t + 1
-    // V^T in view; raw V free; every warp is done with the K tiles
-    __syncthreads();
-    if (next) load_raw<DP>(raw_v, vg, (t + 1) * KEYS, KEYS, L, d, vec);
-    sm90::cp_async_commit();
-    sm90::wgmma_fence();
-    pv_pass<DP>(pv, pl, vh, true);
-    pv_pass<DP>(pv, ph, vl, false);
-    pv_pass<DP>(pv, ph, vh, false);
-    sm90::wgmma_commit();
-    if (next) {  // while P.V runs
-      split_rows<DP>(kh, kl, raw_k, KEYS);
-      sm90::fence_async_smem();
-    }
-    sm90::wgmma_wait_all();
-    sm90::fence_regs(pv);
-    sm90::fence_regs(ph);
-    sm90::fence_regs(pl);
-    // o's register i is row r0 + 8 ((i / 2) % 2) as in s
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = fmaf(o[i], corr[(i / 2) & 1], pv[i]);
-  }
-
-  tf32::store_rows<DP>(out + head + (size_t)(q0 + g0 + r0) * d, o, l, live, c2, d);
+  tf32::biased_sweep<DP, BIAS>(q, k, v, bias_h, bias_w, out, L, d, hg, wg, scale, vec,
+                               blockIdx.x * tf32::ROWS, blockIdx.y, smem_raw);
 }
 
 template <int DP, int MODE>
 int launch_f32(const void* q, const void* k, const void* v, const void* bh, const void* bw,
                void* out, int H, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
-  constexpr size_t smem = f32_smem<DP, MODE>();
+  constexpr size_t smem = tf32::sweep_smem<DP, MODE == WIDE ? tf32::BY_ROW : tf32::BY_TABLES>();
   cudaError_t err = cudaFuncSetAttribute(grid_f32<DP, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  grid_f32<DP, MODE><<<dim3((L + F32_ROWS - 1) / F32_ROWS, H), F32_THREADS, smem, st>>>(
+  grid_f32<DP, MODE><<<dim3((L + tf32::ROWS - 1) / tf32::ROWS, H), tf32::THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bh, (const float*)bw,
       (float*)out, L, d, hg, wg, scale, vec);
   return (int)cudaGetLastError();

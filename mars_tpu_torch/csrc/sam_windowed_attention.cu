@@ -11,17 +11,20 @@
 //   out:      (BH, L, d) in the input type, with
 //     logits[q, k] = (q . k) * d^-0.5 + bias_h[q, k / Ww] + bias_w[q, k % Ww]
 //     out = softmax(logits) v
-//   Logits and the softmax are float32 and P is normalised, then rounded to
-//   the input type before the P.V product, as the TPU kernel's
-//   probs.astype(v.dtype) does.  Every key of the window is attended: the
+//   Logits and the softmax are float32; with bfloat16 inputs P is
+//   normalised, then rounded to bfloat16 before the P.V product, as the TPU
+//   kernel's probs.astype(v.dtype) does; with float32 inputs P is not
+//   rounded.  Every key of the window is attended: the
 //   zero-padded border tokens of a partitioned grid are keys in the contract
 //   (the TPU kernel masks only its own 196 -> 256 lane padding).
 //
 // What bounds it: at SAM ViT-H @1024 a windowed layer has 25 windows of 14 x
 // 14 = 196 tokens and 16 heads: 400 window-heads, d = 80.  The two products
 // are 4 * 400 * 196^2 * 80 = 4.9 GFLOP against ~55 MB of inputs and output in
-// bfloat16 (~110 MB in float32), so in float32 the CUDA cores' arithmetic
-// rate bounds it and in bfloat16 the bytes do (0.016 ms at 3.35 TB/s).
+// bfloat16 and ~109 MB in float32, so the bytes bound it in both types:
+// 0.016 ms in bfloat16, 0.033 ms in float32 (at 3.35 TB/s), where split
+// TF32's three passes a product take 0.030 ms at the tensor cores' TF32 rate
+// (0.073 ms on the CUDA cores).
 //
 // Design, bfloat16: one CTA of one warpgroup per (64-query tile,
 // window-head), 4 x 400 = 1600 CTAs at ViT-H, on the tensor cores
@@ -44,187 +47,61 @@
 //   recomputes the same logits with the same instructions and forms P =
 //   exp(logit - lse), already normalised, for P.V.
 //
-// Design, float32 (CUDA cores; TF32 would break the 2e-5 limits): one CTA of
-// 256 threads per window-head.  The window's K and V sit whole in shared
-// memory as float32 (196 x 81 x 4 B = 62 KB each at d = 80), with each key's
-// row and column; the CTA walks its queries in chunks of BQ rows (64, or 32
-// or 16 where 64 would not fit in 227 KB): the chunk's q rows and bias rows
-// are loaded, its whole (BQ, L) logit block is computed into shared memory
-// with the bias indexed directly, an exact whole-row softmax normalises it in
-// place, and P.V accumulates in float32 registers.
+// Design, float32 (windowed_f32): a window-head's contract is grid
+// attention's with the window as the grid, so the kernel runs grid_f32's
+// sweep (csrc/sam_grid_attention.cu), tf32::biased_sweep of
+// csrc/attention_tf32.cuh, one CTA per (128 query rows, window-head): split
+// TF32 on wgmma, each product three TF32 passes (a_lo b_hi, a_hi b_lo, a_hi
+// b_hi: products to ~2^-20, where one pass, ~2^-11, would break the 2e-5
+// limit), two warpgroups sharing each split K and V^T tile, the splits
+// under the passes; P is not rounded.  Two CTAs a window-head at ViT-H (800,
+// one an SM: ~201 KB of shared memory), the second with 68 live rows of its
+// 128.  Beside the passes, what a window's sweep spends most on is the
+// bias: through per-tile key tables (a lookup of each key's row and column
+// and a gather of its two bias values after Q K^T, per logit) the sweep
+// runs 1.4x as long as without the bias (tools/grid_f32_probe.py,
+// notables).  So SAM's 14-wide window sweeps tiles of 4 key rows
+// (tf32::BY_WINDOW, 56 keys: m64n56 passes): a thread's keys sit at the same
+// columns in every tile, so its bias_w values are loaded once, into
+// registers, and a tile's bias_h is 4 values a row, loaded before Q K^T.
+// 196 keys are 3 such tiles and 28 keys in a tile of 32: 200 keys swept
+// where 64-key tiles sweep 256.  Q and the first K and V tiles load
+// together: their loads and splits come once every 4 tiles here, not every
+// 64 as in a global layer.  Any other window sweeps 64-key tiles (32 at
+// head dim 128) through the tables, keys past L masked; keys stream
+// through the tiles, so any window is taken (the bf16 streamed kernel's
+// reach).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
-constexpr int BK = 64;     // keys per logit sweep step
+constexpr int BK = 64;     // bfloat16: keys per tile
 constexpr int DMAX = 128;  // head-dim capacity
 constexpr int MAX_SMEM = 227 * 1024;
+constexpr int MAX_GRID_Y = 65535;
 
 // ------------------------------------------------------------ float32
-constexpr int F_THREADS = 256;  // 16 x 16: thread (ty, tx) owns rows RPT*ty .. RPT*ty + RPT-1
+// SAM's window (14 x 14) at head dims up to 80 sweeps tiles of 4 key rows
+// (tf32::BY_WINDOW), the last 28 keys in a tile of 32; any other window
+// sweeps 64-key tiles (32 at head dim 128) through per-tile key tables.
 
-// Shared-memory layout (floats unless noted) for L keys, head dim padded to
-// dp, bias widths hg and wg, and BQ query rows per chunk.
-struct Layout {
-  int ld, dp, ls;
-  size_t k, v, q, s, bh, bw, ky, kx, bytes;
-  __host__ __device__ Layout(int L, int d, int hg, int wg, int bq) {
-    dp = (d + 15) / 16 * 16;
-    ld = dp + 1;
-    ls = L + 1;
-    k = 0;
-    v = k + (size_t)L * ld;
-    q = v + (size_t)L * ld;
-    s = q + (size_t)bq * ld;
-    bh = s + (size_t)bq * ls;
-    bw = bh + (size_t)bq * hg;
-    ky = bw + (size_t)bq * wg;  // int
-    kx = ky + L;                // int
-    bytes = (kx + L) * sizeof(float);
-  }
-};
-
-template <int BQ>
-__global__ void __launch_bounds__(F_THREADS)
+template <int DP, int MODE>
+__global__ void __launch_bounds__(tf32::THREADS)
 windowed_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ bias_h,
              const float* __restrict__ bias_w, float* __restrict__ out, int L, int d, int hg,
-             int wg, float scale) {
-  constexpr int RPT = BQ / 16;         // query rows per thread
-  constexpr int TPR = F_THREADS / BQ;  // threads per row in the softmax
-  extern __shared__ float smem[];
-  const Layout lay(L, d, hg, wg, BQ);
-  const int ld = lay.ld, dp = lay.dp, ls = lay.ls;
-  float* Ks = smem + lay.k;
-  float* Vs = smem + lay.v;
-  float* Qs = smem + lay.q;
-  float* Ss = smem + lay.s;
-  float* Bh = smem + lay.bh;
-  float* Bw = smem + lay.bw;
-  int* Ky = reinterpret_cast<int*>(smem + lay.ky);
-  int* Kx = reinterpret_cast<int*>(smem + lay.kx);
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t hoff = (size_t)blockIdx.x * L * d;
-  const size_t boff = (size_t)blockIdx.x * L;
-  const int ncol = dp / 16;  // output columns per thread: tx + 16 * jj
-
-  for (int idx = threadIdx.x; idx < L * dp; idx += F_THREADS) {
-    const int r = idx / dp, c = idx % dp;
-    const bool live = c < d;
-    Ks[r * ld + c] = live ? k[hoff + (size_t)r * d + c] : 0.f;
-    Vs[r * ld + c] = live ? v[hoff + (size_t)r * d + c] : 0.f;
-  }
-  for (int key = threadIdx.x; key < L; key += F_THREADS) {
-    Ky[key] = key / wg;
-    Kx[key] = key % wg;
-  }
-
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    __syncthreads();  // K, V loaded; the previous chunk is done with Qs, Ss, Bh, Bw
-    for (int idx = threadIdx.x; idx < BQ * dp; idx += F_THREADS) {
-      const int r = idx / dp, c = idx % dp, row = q0 + r;
-      Qs[r * ld + c] = (row < L && c < d) ? q[hoff + (size_t)row * d + c] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BQ * hg; idx += F_THREADS) {
-      const int row = q0 + idx / hg;
-      Bh[idx] = row < L ? bias_h[(boff + row) * hg + idx % hg] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BQ * wg; idx += F_THREADS) {
-      const int row = q0 + idx / wg;
-      Bw[idx] = row < L ? bias_w[(boff + row) * wg + idx % wg] : 0.f;
-    }
-    __syncthreads();
-
-    // logits of the chunk: s[i][j] is row RPT*ty + i, key k0 + tx + 16j
-    for (int k0 = 0; k0 < L; k0 += BK) {
-      float s[RPT][4] = {};
-      int kr[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kr[j] = min(k0 + tx + 16 * j, L - 1) * ld;
-      for (int dd = 0; dd < dp; ++dd) {
-        float qv[RPT], kv[4];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) qv[i] = Qs[(RPT * ty + i) * ld + dd];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = Ks[kr[j] + dd];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = RPT * ty + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + tx + 16 * j;
-          if (key < L)
-            Ss[r * ls + key] = __fadd_rn(__fadd_rn(__fmul_rn(s[i][j], scale), Bh[r * hg + Ky[key]]),
-                                         Bw[r * wg + Kx[key]]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // exact whole-row softmax in place: TPR threads per row
-    {
-      const int r = threadIdx.x / TPR, lane = threadIdx.x % TPR;
-      float* row = Ss + r * ls;
-      float mx = -INFINITY;
-      for (int c = lane; c < L; c += TPR) mx = fmaxf(mx, row[c]);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f;
-      for (int c = lane; c < L; c += TPR) {
-        const float e = expf(row[c] - mx);
-        row[c] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      for (int c = lane; c < L; c += TPR) row[c] = __fdiv_rn(row[c], sum);
-    }
-    __syncthreads();
-
-    float acc[RPT][DMAX / 16];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) acc[i][jj] = 0.f;
-    for (int c = 0; c < L; ++c) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = Ss[(RPT * ty + i) * ls + c];
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) {
-        if (jj < ncol) {
-          const float vv = Vs[c * ld + tx + 16 * jj];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = q0 + RPT * ty + i;
-      if (row >= L) continue;
-#pragma unroll
-      for (int jj = 0; jj < DMAX / 16; ++jj) {
-        const int dim = tx + 16 * jj;
-        if (jj < ncol && dim < d) out[hoff + (size_t)row * d + dim] = acc[i][jj];
-      }
-    }
-  }
+             int wg, float scale, int vec) {
+  static_assert(tf32::sweep_smem<DP, MODE>() <= MAX_SMEM, "the tiles fit in shared memory");
+  extern __shared__ uint8_t smem_raw[];
+  tf32::biased_sweep<DP, MODE>(q, k, v, bias_h, bias_w, out, L, d, hg, wg, scale, vec,
+                               blockIdx.x * tf32::ROWS, blockIdx.y, smem_raw);
 }
-
-
 
 // ------------------------------------------------------------ bfloat16
 constexpr int BQ = 64;             // query rows per CTA
@@ -519,40 +396,38 @@ windowed_bf16_streamed(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   if constexpr (R > 0) attn::store_rows(dst, o1, 64, q0 + r0, c2, L, d, one, d % 2 == 0);
 }
 
-template <int BQF>
-int launch_f32_bq(const void* q, const void* k, const void* v, const void* bh, const void* bw,
-                  void* out, int BH, int L, int d, int hg, int wg, float scale,
-                  cudaStream_t st) {
-  const Layout lay(L, d, hg, wg, BQF);
-  cudaError_t err = cudaFuncSetAttribute(windowed_f32<BQF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.bytes);
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <int DP, int MODE>
+int launch_f32(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+               void* out, int BH, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
+  constexpr size_t smem = tf32::sweep_smem<DP, MODE>();
+  cudaError_t err = cudaFuncSetAttribute(windowed_f32<DP, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  windowed_f32<BQF><<<BH, F_THREADS, lay.bytes, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bh, (const float*)bw,
-      (float*)out, L, d, hg, wg, scale);
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  windowed_f32<DP, MODE><<<dim3((L + tf32::ROWS - 1) / tf32::ROWS, BH), tf32::THREADS, smem,
+                           st>>>((const float*)q, (const float*)k, (const float*)v,
+                                 (const float*)bh, (const float*)bw, (float*)out, L, d, hg, wg,
+                                 scale, vec);
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const void* q, const void* k, const void* v, const void* bh, const void* bw,
-               void* out, int BH, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
-  // the largest query chunk whose layout fits in shared memory
-  if (Layout(L, d, hg, wg, 64).bytes <= (size_t)MAX_SMEM)
-    return launch_f32_bq<64>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
-  if (Layout(L, d, hg, wg, 32).bytes <= (size_t)MAX_SMEM)
-    return launch_f32_bq<32>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
-  if (Layout(L, d, hg, wg, 16).bytes <= (size_t)MAX_SMEM)
-    return launch_f32_bq<16>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
-  return (int)cudaErrorInvalidValue;  // the window's K and V do not fit
+template <int DP>
+int launch_f32_dp(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+                  void* out, int BH, int L, int d, int hg, int wg, float scale, cudaStream_t st) {
+  if constexpr (tf32::WINDOW_STEP <= tf32::F32<DP>::KEYS) {
+    if (wg == tf32::WINDOW_W && L % tf32::WINDOW_STEP == tf32::WINDOW_STEP / 2)
+      return launch_f32<DP, tf32::BY_WINDOW>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
+  }
+  return launch_f32<DP, tf32::BY_TABLES>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <typename Kernel>
 int launch_bf16(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
                 const void* bh, const void* bw, void* out, int BH, int L, int d, int hg, int wg,
                 float scale, cudaStream_t st) {
-  if (smem > (size_t)MAX_SMEM || BH > 65535) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -580,7 +455,8 @@ int launch_bf16_panel(const void* q, const void* k, const void* v, const void* b
 }
 
 bool valid(int BH, int L, int d, int hg, int wg) {
-  return BH >= 1 && L >= 1 && d >= 1 && d <= DMAX && hg >= 1 && wg >= 1 && hg * wg == L;
+  return BH >= 1 && BH <= MAX_GRID_Y && L >= 1 && d >= 1 && d <= DMAX && hg >= 1 && wg >= 1 &&
+         hg * wg == L;
 }
 
 }  // namespace
@@ -590,7 +466,13 @@ extern "C" int mars_windowed_attention_f32(const void* q, const void* k, const v
                                            int L, int d, int hg, int wg, float scale,
                                            void* stream) {
   if (!valid(BH, L, d, hg, wg)) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (tf32::f32_dp(d)) {
+    case 32: return launch_f32_dp<32>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
+    case 64: return launch_f32_dp<64>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
+    case 80: return launch_f32_dp<80>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
+    default: return launch_f32_dp<128>(q, k, v, bh, bw, out, BH, L, d, hg, wg, scale, st);
+  }
 }
 
 extern "C" int mars_windowed_attention_bf16(const void* q, const void* k, const void* v,

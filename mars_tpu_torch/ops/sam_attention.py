@@ -135,8 +135,7 @@ def windowed_attention(q, k, v, bias_h, bias_w, window_hw: Tuple[int, int]) -> t
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sam_windowed_attention kernel launch failed with CUDA error {err} "
-                           f"(shape {tuple(q.shape)}, window {window_hw}; in float32 a window "
-                           f"whose K and V do not fit in shared memory is refused)")
+                           f"(shape {tuple(q.shape)}, window {window_hw})")
     windowed_attention.launches += 1
     return out
 

@@ -566,9 +566,14 @@ def _window_inputs(b, nh, h, w, d, dtype, dev, seed=0):
     return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrays]
 
 
-# (windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer, ViT-B's head
-# dim on a ragged window, a small one, and hd 128 (the 16-row query chunks)
-WINDOW_SHAPES = [(25, 16, 14, 14, 80), (2, 2, 5, 6, 64), (3, 4, 7, 7, 24), (2, 2, 14, 14, 128)]
+# (windows, heads, Hw, Ww, hd): SAM ViT-H @1024's windowed layer, ViT-B's
+# head dim on a ragged window, a small one, hd 128 (32-key tiles through the
+# key tables), ViT-B's windowed layer, 14-wide windows of 6 and 2 key rows
+# (the float32 kernel's tiles of 4 key rows: one and a last of 2, a last
+# alone) and windows of 289, 400 and 1024 keys (64-key tiles, the last masked)
+WINDOW_SHAPES = [(25, 16, 14, 14, 80), (2, 2, 5, 6, 64), (3, 4, 7, 7, 24), (2, 2, 14, 14, 128),
+                 (25, 12, 14, 14, 64), (2, 2, 6, 14, 80), (3, 2, 2, 14, 32),
+                 (1, 2, 17, 17, 64), (1, 2, 20, 20, 80), (1, 2, 32, 32, 128)]
 
 
 @pytest.mark.parametrize("b,nh,h,w,d", WINDOW_SHAPES)
@@ -585,13 +590,11 @@ def test_windowed_matches_plain_f32(dev, b, nh, h, w, d):
     torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("b,nh,h,w,d", WINDOW_SHAPES + [(2, 2, 5, 6, 20), (1, 2, 17, 17, 64),
-                                                         (1, 2, 20, 20, 80), (1, 2, 32, 32, 128)])
+@pytest.mark.parametrize("b,nh,h,w,d", WINDOW_SHAPES + [(2, 2, 5, 6, 20)])
 def test_windowed_matches_plain_bf16(dev, b, nh, h, w, d):
     """The tensor-core kernels at every float32 shape and d = 20 (element-wise
     tile loads): windows of up to 256 keys at hd <= 80 take the resident
-    kernel, hd 128 and the windows of 289, 400 and 1024 keys the streamed one
-    (the last is one the float32 kernel refuses)."""
+    kernel, hd 128 and the windows of 289, 400 and 1024 keys the streamed one."""
     from mars_tpu_torch.ops import sam_attention as sa
 
     args = _window_inputs(b, nh, h, w, d, torch.bfloat16, dev)
@@ -614,10 +617,25 @@ def test_windowed_bf16_is_deterministic(dev, d):
                        sa.windowed_attention(*args, (14, 14)))
 
 
-def test_windowed_refuses_a_window_that_does_not_fit(dev):
+@pytest.mark.parametrize("b,nh,h,w,d", [(25, 16, 14, 14, 80), (2, 2, 14, 14, 128),
+                                         (1, 2, 17, 17, 64), (3, 4, 7, 7, 24)])
+def test_windowed_f32_is_deterministic(dev, b, nh, h, w, d):
     from mars_tpu_torch.ops import sam_attention as sa
 
-    with pytest.raises(RuntimeError):
-        sa.windowed_attention(*_window_inputs(1, 1, 32, 32, 128, torch.float32, dev), (32, 32))
+    args = _window_inputs(b, nh, h, w, d, torch.float32, dev, seed=4)
+    assert torch.equal(sa.windowed_attention(*args, (h, w)),
+                       sa.windowed_attention(*args, (h, w)))
+
+
+def test_windowed_refuses_a_window_that_does_not_fit(dev):
+    """Shapes the kernel does not take are refused; a window of any size is
+    taken, in both types (the float32 kernel streams its keys)."""
+    from mars_tpu_torch.ops import sam_attention as sa
+
     with pytest.raises(ValueError):
         sa.windowed_attention(*_window_inputs(1, 1, 4, 4, 8, torch.float32, dev), (2, 8))
+    with pytest.raises(ValueError):
+        sa.windowed_attention(*_window_inputs(1, 1, 4, 4, 129, torch.float32, dev), (4, 4))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = sa.windowed_attention(*_window_inputs(1, 1, 32, 32, 128, dtype, dev), (32, 32))
+        assert torch.isfinite(out.float()).all()

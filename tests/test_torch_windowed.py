@@ -8,6 +8,17 @@ tolerances: the same products summed in other orders, and JAX's bias
 expansion through 0/1 matmuls (exact in float32).  Bfloat16: P and the
 output are rounded to bfloat16 on both sides from float32 values taken in
 other orders, so a value may land one bfloat16 rounding apart.
+
+The float32 kernel (``csrc/sam_windowed_attention.cu``, ``windowed_f32``:
+``tf32::biased_sweep`` of ``csrc/attention_tf32.cuh``) computes each product
+as three TF32 passes of split operands (``csrc/sm90.cuh``):
+``_windowed_f32`` emulates its arithmetic (SAM's 14-wide window at head
+dims up to 80 in tiles of 4 key rows, 56 keys, the last 28 in a tile of 32;
+any other window in key tiles of 64, 32 past head dim 80; keys past L
+masked; each key's bias by its row and column in the window; each tile's
+P·V in the kernel's order of keys inside each group of 8, summed from zero
+and added to the rescaled output sum) and holds it to half the card's 2e-5
+limit; one TF32 pass and a lost key tile both break the limit.
 """
 import os
 
@@ -24,6 +35,11 @@ from mars_tpu_torch.ops import sam_attention as tsa
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 BF16_TOL = dict(atol=1.6e-2, rtol=2 ** -7)
+WINDOW_TOL = 2e-5  # the float32 kernel's limit on the card (chip_smoke.py, test_torch_cuda.py)
+PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)  # windowed_f32's keys inside each group of 8 in P.V
+# csrc/sam_windowed_attention.cu: the window width swept in tiles of 4 key rows, and the
+# width of the last tile where 28 keys are left
+WINDOW_W, WINDOW_STEP, WINDOW_TAIL = 14, 56, 32
 
 
 def _inputs(rng, b, nh, h, w, d):
@@ -125,6 +141,109 @@ def test_bf16_card_limit_separates_rounding_from_a_lost_tile(h, w, d, two_sweeps
 
     assert worst(_windowed_tiles(*args, (h, w), two_sweeps)) < 0.5
     assert worst(_windowed_tiles(*args, (h, w), two_sweeps, skip_tile=1)) > 2
+
+
+def _bits(x, add):
+    """float32 ``x`` plus ``add`` on its bits, the low 13 bits cleared."""
+    u = x.contiguous().numpy().view(np.uint32).astype(np.uint64)
+    return torch.from_numpy(((u + add) & 0xFFFFE000).astype(np.uint32).view(np.float32))
+
+
+def _split(x):
+    """``sm90::split_tf32``: hi = x rounded to TF32 (11 significant bits),
+    to nearest with ties away from zero; lo = x - hi truncated to TF32."""
+    hi = _bits(x, 0x1000)
+    return hi, _bits(x - hi, 0)
+
+
+def _tf32_product(a, b, mode):
+    """``a @ b`` as the kernel's TF32 wgmma passes, summed from zero in one
+    float32 accumulator: "tf32x3" a_lo b_hi, a_hi b_lo, a_hi b_hi (the small
+    terms first), "tf32" only a_hi b_hi."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if mode == "tf32":
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _key_tiles(l, w, d):
+    """(first key, width) of ``windowed_f32``'s key tiles: a window 14 wide
+    whose L leaves 28 keys past whole tiles of 4 key rows (SAM's 196 = 3 ·
+    56 + 28) at head dims up to 80 sweeps those, the last in a tile of 32;
+    any other, tiles of 64 keys (32 past head dim 80)."""
+    if w == WINDOW_W and d <= 80 and l % WINDOW_STEP == WINDOW_STEP // 2:
+        starts = range(0, l - WINDOW_STEP // 2, WINDOW_STEP)
+        return [(k0, WINDOW_STEP) for k0 in starts] + [(l - WINDOW_STEP // 2, WINDOW_TAIL)]
+    tile = 32 if d > 80 else 64
+    return [(k0, tile) for k0 in range(0, l, tile)]
+
+
+def _windowed_f32(q, k, v, bias_h, bias_w, window_hw, mode="tf32x3", skip_tile=None):
+    """``windowed_f32``'s arithmetic on (B, nh, L, d) float32 inputs: the key
+    tiles of ``_key_tiles``; logits (s · d^-0.5 + bias_h[key row]) +
+    bias_w[key column] with keys past L masked; a running max and sum per
+    row; each tile's P·V (keys in the kernel's order) summed from zero, then
+    added to the rescaled output sum.  ``mode`` "tf32" is one TF32 pass a
+    product and ``skip_tile`` drops one key tile: the faults the card's
+    limit has to catch."""
+    d, l = q.shape[-1], q.shape[-2]
+    w = window_hw[1]
+    m = torch.full(q.shape[:-1], -torch.inf)
+    total = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for t, (k0, width) in enumerate(_key_tiles(l, w, d)):
+        keys = torch.arange(k0, k0 + width)
+        live_keys = keys[keys < l]  # the masked keys' P is 0
+        if t == skip_tile:
+            continue
+        s = _tf32_product(q, k[..., live_keys, :].transpose(-1, -2), mode) * d ** -0.5
+        s = s + bias_h[..., live_keys // w]
+        s = s + bias_w[..., live_keys % w]
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        total = total * corr + p.sum(-1)
+        order = torch.tensor([8 * (i // 8) + PV_ORDER[i % 8] for i in range(width)])
+        live = order[order < len(live_keys)]
+        acc = torch.addcmul(_tf32_product(p[..., live], v[..., live_keys[live], :], mode), acc,
+                            corr[..., None])
+        m = m_new
+    return acc * (1 / total)[..., None]
+
+
+@pytest.mark.parametrize("b,nh,h,w,d", [(2, 3, 14, 14, 80), (2, 3, 14, 14, 64), (2, 2, 5, 6, 24),
+                                        (1, 2, 14, 14, 128), (1, 2, 17, 17, 64),
+                                        (2, 2, 6, 14, 80)])
+def test_f32_tile_emulation_within_half_the_limit(b, nh, h, w, d):
+    """The split form, emulated, at ViT-H's and ViT-B's windows (three tiles
+    of 4 key rows and 28 keys in a tile of 32), a ragged window (one masked
+    tile), head dim 128 (seven 32-key tiles, the last masked past its 4 live
+    keys), a window of 289 keys (the last tile masked past its 33) and a
+    14-wide window of 6 key rows (one tile of 4 rows, then 2)."""
+    args = [torch.from_numpy(a) for a in _inputs(np.random.RandomState(12), b, nh, h, w, d)]
+    err = (_windowed_f32(*args, (h, w)) - tsa.windowed_attention_plain(*args, (h, w)))
+    assert err.abs().max().item() < WINDOW_TOL / 2
+
+
+@pytest.mark.parametrize("fault", [dict(mode="tf32"), dict(skip_tile=1), dict(skip_tile=3)])
+def test_f32_card_limit_catches_one_pass_or_a_lost_tile(fault):
+    """One TF32 pass a product, a lost tile of 4 key rows and a lost last
+    tile (28 live keys) at ViT-H's window each break the card's limit."""
+    args = [torch.from_numpy(a) for a in _inputs(np.random.RandomState(13), 2, 3, 14, 14, 80)]
+    err = (_windowed_f32(*args, (14, 14), **fault)
+           - tsa.windowed_attention_plain(*args, (14, 14))).abs().max().item()
+    assert err > WINDOW_TOL
+
+
+@pytest.mark.parametrize("h,w,d", [(14, 14, 80), (5, 6, 24)])
+def test_f32_tile_emulation_matches_pallas(h, w, d):
+    """The split-TF32 emulation against JAX's window kernel in float32
+    (interpret mode), within the card's limit."""
+    args = _inputs(np.random.RandomState(14), 2, 2, h, w, d)
+    want = jsa.windowed_attention_pallas(*map(jnp.asarray, args), (h, w), interpret=True)
+    assert want.dtype == jnp.float32
+    got = _windowed_f32(*map(torch.from_numpy, args), (h, w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=WINDOW_TOL, rtol=0)
 
 
 def _window_params(rng, c, hd, h, w):

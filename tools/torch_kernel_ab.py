@@ -5,6 +5,7 @@
     python3 tools/torch_kernel_ab.py --text-path PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --grid PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --notap PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --windowed PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --profile PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
 
 Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
@@ -41,7 +42,15 @@ difference from ``attention_notap_plain``, a digest and its time with the
 device held (``held_ms``: a ~40 µs kernel's ``ms`` may read the host's
 enqueue pace), then a digest of
 each notap kernel's machine code (its SASS instructions, addresses left
-out: equal digests, the same code).  With ``--profile`` each root runs
+out: equal digests, the same code).  With ``--windowed`` each root builds
+only its windowed and grid libraries and times ``windowed_attention`` at
+SAM ViT-H's and ViT-B's windowed layers in both types, warm and
+device-held, beside SDPA with the bias expanded, each row with its largest
+difference from ``windowed_attention_plain`` and a digest of its output
+(bfloat16 digests equal across roots: the same outputs), then the
+``grid_attention`` rows (the float32 grid kernel shares the windowed one's
+sweep) and the SASS digests of both libraries' kernels.  With
+``--profile`` each root runs
 ``chip_smoke.py``'s ``phase_profile``: one float32 ranking episode under
 torch.profiler with the notap switch off, then on.
 The timers are this checkout's ``chip_smoke.py``'s, for every root:
@@ -62,7 +71,8 @@ import time
 
 TAP_SHAPES = ((16, 1374, 64), (12, 1090, 64))
 NOTAP_SHAPES = ((16, 16, 577, 64), (1, 16, 1374, 64), (1, 12, 1090, 64))
-WINDOW_SHAPES = ((25, 16, 14, 14, 80),)  # (windows, heads, Hw, Ww, hd)
+# (windows, heads, Hw, Ww, hd): SAM ViT-H's and ViT-B's windowed layers
+WINDOW_SHAPES = ((25, 16, 14, 14, 80), (25, 12, 14, 14, 64))
 # (heads, grid H, grid W, hd, types): ViT-H and ViT-B global layers
 GRID_SHAPES = ((16, 64, 64, 80, ("float32", "bfloat16")),
                (12, 64, 64, 64, ("float32", "bfloat16")))
@@ -202,9 +212,10 @@ def notap_rows(smoke, emit, gen):
                  digest=digest(out))
 
 
-def sass_digests(path):
-    """{notap kernel instantiation: digest of its SASS instructions} for
-    one library, the instructions' addresses left out."""
+def sass_digests(path, kernels=r"notap_(?:bf16|f32)ILi\d+E"):
+    """{kernel instantiation: digest of its SASS instructions} for the
+    kernels of one library whose names match the regex ``kernels``, the
+    instructions' addresses left out."""
     import hashlib
     import re
 
@@ -216,7 +227,7 @@ def sass_digests(path):
     code, fn = {}, None
     for ln in sass.splitlines():
         if "Function : " in ln:
-            m = re.search(r"Function : \S*?(notap_(?:bf16|f32)ILi\d+E)", ln)
+            m = re.search(rf"Function : \S*?({kernels})", ln)
             fn = m.group(1) if m else None
             if fn:
                 code[fn] = []
@@ -239,6 +250,52 @@ def notap_worker(root):
 
     notap_rows(smoke, emit, torch.Generator(device="cuda").manual_seed(0))
     emit(kernel="attention_notap", sass=sass_digests(build.library_path("attention_notap")))
+
+
+def windowed_rows(smoke, emit, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from mars_tpu_torch.ops import sam_attention as sa
+
+    for b, nh, hw, ww, d in WINDOW_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            l = hw * ww
+            args = [torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
+                    for shape in ((b, nh, l, d), (b, nh, l, d), (b, nh, l, d), (b, nh, l, hw),
+                                  (b, nh, l, ww))]
+            out = sa.windowed_attention(*args, (hw, ww))
+            want = sa.windowed_attention_plain(*args, (hw, ww))
+            cols = torch.arange(l, device="cuda")
+            mask = args[3][..., cols // ww] + args[4][..., cols % ww]
+            emit(kernel="windowed_attention", shape=[b, nh, l, d], dtype=dt,
+                 ms=smoke.cuda_ms(lambda: sa.windowed_attention(*args, (hw, ww))),
+                 held_ms=smoke.held_ms(lambda: sa.windowed_attention(*args, (hw, ww))),
+                 library_ms=smoke.cuda_ms(lambda: F.scaled_dot_product_attention(
+                     *args[:3], attn_mask=mask)),
+                 max_abs_err=(out.float() - want.float()).abs().max().item(),
+                 digest=digest(out))
+
+
+def windowed_worker(root):
+    import torch
+
+    smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch.ops import build
+
+    build.build_all(["sam_windowed_attention", "sam_grid_attention"])
+
+    def emit(**row):
+        print(json.dumps({"root": root, **row}), flush=True)
+
+    windowed_rows(smoke, emit, torch.Generator(device="cuda").manual_seed(0))
+    grid_rows(smoke, emit, torch.Generator(device="cuda").manual_seed(0))
+    emit(kernel="windowed_attention", sass=sass_digests(
+        build.library_path("sam_windowed_attention"),
+        r"windowed_(?:bf16_resident|bf16_streamed|f32)I(?:Li\d+E)+"))
+    emit(kernel="grid_attention", sass=sass_digests(build.library_path("sam_grid_attention"),
+                                                    r"grid_(?:bf16|f32)I(?:Li\d+E)+"))
 
 
 def profile_worker(root):
@@ -331,13 +388,15 @@ def worker(root):
 
 def main(argv):
     workers = {"--worker": worker, "--text-worker": text_worker, "--grid-worker": grid_worker,
-               "--notap-worker": notap_worker, "--profile-worker": profile_worker}
+               "--notap-worker": notap_worker, "--windowed-worker": windowed_worker,
+               "--profile-worker": profile_worker}
     if len(argv) >= 2 and argv[0] in workers:
         workers[argv[0]](os.path.abspath(argv[1]))
         return 0
     mode = "--worker"
     modes = {"--text-path": "--text-worker", "--grid": "--grid-worker",
-             "--notap": "--notap-worker", "--profile": "--profile-worker"}
+             "--notap": "--notap-worker", "--windowed": "--windowed-worker",
+             "--profile": "--profile-worker"}
     if argv and argv[0] in modes:
         mode, argv = modes[argv[0]], argv[1:]
     if not argv:
