@@ -106,7 +106,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tap 31 per episode; each block's speculative streams against the same
      requests decoded plainly, a split allowed only where the plain step's
      top-two logit gap is under 2^-7 of the top logit;
- 22. the kernels line.
+ 22. the fold run as scripts/_eval_common.sh drives it (``phase_fold_run``):
+     ``cli_proposals --bf16 --use-centers --coco-rle --visualize 2`` over two
+     episodes with both switches on (the Matcher's launches exact; the
+     zero-threshold Matcher call's masks through the port's RLE and back,
+     equal); ``cli.main`` with the script's ranking flags (--bf16, the
+     thresholds, the backbones, --log-path, --exp-name) plus
+     --gt-class-names and a two-index --bad-preds-path over six synthetic
+     episodes, four times: --overlap-ranking 0, --overlap-ranking 2 (its
+     launches made with CUDA's sync debug mode on: no synchronisation),
+     a run interrupted inside its 4th ranking at --resume-every 2, and its
+     --resume; merged masks bitwise equal across all four, scalars.csv's
+     mIoU and FB-IoU by step, ranking_time.csv's idx and n_proposals, the
+     event files' CRCs, the known-bad line, 31 tap launches an episode;
+     ranking ms an episode at overlap 0 and 2 (wall over the fold); then
+     ``--visualize 2``: two PNGs that decode;
+ 23. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -233,6 +248,21 @@ TEXT_CLI_ARGS = ["--benchmark", "synthetic", "--proposal-bucket", "128", "--inpu
 TEXT_CLI_EPISODES = 4
 PIPELINED_EPISODES = 2
 SPLIT_REL_GAP = 2 ** -7  # bf16: a stream may split only where the top-two gap is this small
+# the fold run: scripts/_eval_common.sh's ranking flags (:21-50) on synthetic
+# episodes; --gt-class-names as the VLM checkpoint is not in the repository
+FOLD_EPISODES = 6
+FOLD_ARGS = ["--benchmark", "synthetic", "--episodes", str(FOLD_EPISODES), "--seed", "0",
+             "--input-size", "518", "--proposal-bucket", "128", "--gt-class-names",
+             "--prompt-type", "contour", "--zoom-percentage", "50", "--color", "red",
+             "--alpha-blending", "0.5", "--thickness", "2", "--vta-backbone", "ViT-B/16",
+             "--vta-refinement-box-threshold", "0.4", "--last-n-attn-for-vta-refinement", "8",
+             "--vva-backbone", "dino", "--dino-backbone", "vit_large", "--num-regs", "4",
+             "--vva-refinement-box-threshold", "0.8", "--last-n-attn-for-vva-refinement", "24",
+             "--static-threshold", "0.55", "--dynamic-threshold", "0.95",
+             "--alpha-coverage", "0.85", "--bf16", "--exp-name", "1shot"]
+FOLD_BAD = (1, 4)  # the --bad-preds-path indices
+FOLD_INTERRUPT = 4  # the ranking that raises in the interrupted run
+FOLD_PROPOSAL_EPISODES = 2
 
 
 def emit(obj):
@@ -2010,6 +2040,214 @@ def phase_text_cli(state):
         raise AssertionError(f"text CLI runs failed: {failures}")
 
 
+class _Interrupted(RuntimeError):
+    """The fold run's deliberate crash inside a ranking."""
+
+
+def _fold_files(log):
+    """A fold's on-disk results: scalars.csv by (tag, step) (a resumed
+    run's repeated steps take the later value), ranking_time.csv's
+    (idx, n_proposals) rows, each event file's record count (every record
+    passes its CRCs: ``tboard.read_records`` raises otherwise) and
+    log.txt's known-bad line."""
+    import csv
+
+    from mars_tpu_torch.utils import tboard
+
+    with open(os.path.join(log, "scalars.csv")) as f:
+        scalars = {(r[1], int(r[0])): float(r[2]) for r in csv.reader(f)
+                   if r[1] in ("test_mIoU", "test_FB-IoU")}
+    with open(os.path.join(log, "ranking_time.csv")) as f:
+        rows = [(int(r[0]), int(r[3])) for r in list(csv.reader(f))[1:]]
+    runs = os.path.join(log, "tbd", "runs")
+    events = {name: len(tboard.read_records(os.path.join(runs, name)))
+              for name in sorted(os.listdir(runs))}
+    with open(os.path.join(log, "log.txt")) as f:
+        bad = [ln.split(" ", 2)[2] for ln in f.read().splitlines() if "known-bad subset" in ln]
+    return {"scalars": scalars, "rows": rows, "events": events, "bad_line": bad}
+
+
+def phase_fold_run(state):
+    """The fold run as the repository's evaluation script drives it, at
+    full width on seeded random weights: the proposal CLI's --use-centers,
+    --coco-rle and --visualize with both switches on, then the ranking CLI
+    four times (overlap 0, overlap 2, interrupted, resumed) on the default
+    route, then --visualize 2.  Every kernel's count is set to 0 just before
+    each run and read just after."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch import cli, cli_proposals
+    from mars_tpu_torch.core import rle
+    from mars_tpu_torch.pipeline import mars as mars_lib
+    from mars_tpu_torch.utils import visualize
+
+    def start():
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in cli.KERNELS.items()}
+
+    failures, by_path = [], {}
+    tap_only = {name: TAPPED_BLOCKS if name == "attention_with_tap" else 0
+                for name in cli.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. the proposal CLI, both switches on; then the port's RLE on live masks
+        props_dir = os.path.join(tmp, "props")
+        with kernel_switches():
+            start()
+            pres = cli_proposals.main(["--bf16", "--use-centers", "--coco-rle", "--visualize",
+                                       str(FOLD_PROPOSAL_EPISODES), "--episodes",
+                                       str(FOLD_PROPOSAL_EPISODES), "--out", props_dir,
+                                       "--seed", "0"])
+        by_path["fold_cli_proposals_centres"] = launches()
+        want = _matcher_launches(1)
+        bad_eps = [i for i, got in enumerate(pres["episode_launches"]) if got != want]
+        rle_files = sorted(f for f in os.listdir(props_dir) if f.endswith(".json"))
+        rle_records = []
+        for f in rle_files:
+            with open(os.path.join(props_dir, f)) as fh:
+                rle_records.append(len(json.load(fh)))
+        pngs = sorted(os.listdir(os.path.join(props_dir, "viz")))
+        for f in pngs:
+            visualize.read_png(os.path.join(props_dir, "viz", f))  # raises unless it decodes
+        _, zero = state["zero_thresholds"]
+        live = zero["proposal_masks"][zero["proposal_valid"]].cpu().numpy()
+        round_trip = [bool(np.array_equal(rle.rle_decode(rle.rle_encode_compressed(m)), m))
+                      for m in live]
+        row = {"phase": "fold_run", "run": "cli_proposals --bf16 --use-centers --coco-rle",
+               "proposal_ms": pres["proposal_ms"], "live_proposals": pres["live_proposals"],
+               "episode_launches": pres["episode_launches"], "launches_expected": want,
+               "rle_files": rle_files, "rle_records": rle_records, "pngs": pngs,
+               "zero_threshold_masks_round_trip": f"{sum(round_trip)}/{len(round_trip)}"}
+        emit(row)
+        if bad_eps or len(rle_files) != FOLD_PROPOSAL_EPISODES or rle_records != \
+                pres["live_proposals"]:
+            failures.append(("cli_proposals", bad_eps, rle_files, rle_records))
+        if len(pngs) != FOLD_PROPOSAL_EPISODES or not round_trip or not all(round_trip):
+            failures.append(("cli_proposals figures or RLE round trip", pngs, row[
+                "zero_threshold_masks_round_trip"]))
+
+        # b. the ranking CLI four times
+        bad_path = os.path.join(tmp, "bad.txt")
+        with open(bad_path, "w") as f:
+            f.write("\n".join(str(i) for i in FOLD_BAD) + "\n")
+
+        def run(name, log, extra):
+            start()
+            res = cli.main(FOLD_ARGS + ["--log-path", os.path.join(tmp, log),
+                                        "--bad-preds-path", bad_path] + extra, keep_masks=True)
+            by_path[f"fold_{name}"] = launches()
+            return res
+
+        runs = {"overlap_0": run("overlap_0", "a", ["--overlap-ranking", "0"])}
+        real_launch, syncs = mars_lib.Mars.predict_launch, []
+
+        def checked_launch(self, *a, **k):
+            # CUDA's sync debug mode: each synchronising call inside the launch warns
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    return real_launch(self, *a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                syncs.extend(str(w.message).splitlines()[0] for w in seen
+                             if "synchroniz" in str(w.message))
+
+        mars_lib.Mars.predict_launch = checked_launch
+        try:
+            runs["overlap_2"] = run("overlap_2", "b", ["--overlap-ranking", "2"])
+        finally:
+            mars_lib.Mars.predict_launch = real_launch
+        real_run, recorded = mars_lib.Mars._run, []
+
+        def interrupting_run(self, *a, **k):
+            if len(recorded) + 1 == FOLD_INTERRUPT:
+                raise _Interrupted(f"interrupted inside ranking {FOLD_INTERRUPT}")
+            out = real_run(self, *a, **k)
+            recorded.append(out["merged"].cpu().numpy() > 0.5)
+            return out
+
+        mars_lib.Mars._run = interrupting_run
+        try:
+            run("interrupted", "c", ["--overlap-ranking", "0", "--resume-every", "2"])
+            failures.append(("interrupted run", "did not raise"))
+        except _Interrupted:
+            pass
+        finally:
+            mars_lib.Mars._run = real_run
+        runs["resumed"] = run("resumed", "c", ["--resume", "--resume-every", "2"])
+        files = {name: _fold_files(os.path.join(tmp, log, "1shot"))
+                 for name, log in (("overlap_0", "a"), ("overlap_2", "b"), ("resumed", "c"))}
+        ref = runs["overlap_0"]["masks"]
+        first = runs["resumed"]["first_idx"]
+        stitched = recorded[:first] + runs["resumed"]["masks"]
+        equal = {"overlap_2": [bool(np.array_equal(a, b))
+                               for a, b in zip(runs["overlap_2"]["masks"], ref)],
+                 "interrupted_then_resumed": [bool(np.array_equal(a, b))
+                                              for a, b in zip(stitched, ref)]}
+        per_ep = {name: res["episode_launches"] for name, res in runs.items()}
+        ms = {name: res["wall_s"] * 1e3 / len(res["episode_ms"]) for name, res in runs.items()}
+        row = {"phase": "fold_run", "run": "cli.main x 4", "episodes": FOLD_EPISODES,
+               "ranking_ms_per_episode_overlap_0": ms["overlap_0"],
+               "ranking_ms_per_episode_overlap_2": ms["overlap_2"],
+               "ranking_ms_per_episode_resumed": ms["resumed"],
+               "episode_ms": {name: res["episode_ms"] for name, res in runs.items()},
+               "wall_s": {name: res["wall_s"] for name, res in runs.items()},
+               "live_proposals": runs["overlap_0"]["live_proposals"],
+               "miou": {name: res["miou"] for name, res in runs.items()},
+               "masks_equal_overlap_0": equal, "resumed_from": first,
+               "interrupted_rankings_before_the_crash": len(recorded),
+               "syncs_inside_predict_launch": syncs,
+               "rows": files["overlap_0"]["rows"], "events": {n: f["events"]
+                                                            for n, f in files.items()},
+               "known_bad_line": {n: f["bad_line"] for n, f in files.items()},
+               "launches_per_episode_expected": tap_only}
+        emit(row)
+        want_rows = [(i, 7) for i in range(FOLD_EPISODES)]
+        checks = {
+            "overlap_2_masks": len(equal["overlap_2"]) == FOLD_EPISODES
+            and all(equal["overlap_2"]),
+            "resumed_masks": len(stitched) == FOLD_EPISODES
+            and all(equal["interrupted_then_resumed"]),
+            "resumed_from_2": first == 2 and len(recorded) == FOLD_INTERRUPT - 1,
+            "scalars": files["overlap_2"]["scalars"] == files["overlap_0"]["scalars"]
+            == files["resumed"]["scalars"] and len(files["overlap_0"]["scalars"])
+            == 2 * FOLD_EPISODES,
+            "ranking_time_rows": all(f["rows"] == want_rows for f in files.values()),
+            "events": all(f["events"] and all(f["events"].values()) for f in files.values()),
+            "known_bad_line": len(files["overlap_0"]["bad_line"]) == 1
+            and files["overlap_2"]["bad_line"] == files["resumed"]["bad_line"]
+            == files["overlap_0"]["bad_line"],
+            "launches": all(got == tap_only for eps in per_ep.values() for got in eps)
+            and len(per_ep["resumed"]) == FOLD_EPISODES - 2,
+            "no_sync_in_launch": not syncs,
+            "resume_file_removed": not os.path.exists(os.path.join(tmp, "c", "1shot",
+                                                                   "resume.pkl")),
+        }
+        emit({"phase": "fold_run", "checks": checks})
+        failures += [(k, "failed") for k, ok in checks.items() if not ok]
+
+        # c. --visualize 2
+        res = run("visualize", "d", ["--visualize", "2", "--episodes", "2"])
+        viz = os.path.join(tmp, "d", "1shot", "viz")
+        pngs = sorted(os.listdir(viz)) if os.path.isdir(viz) else []
+        shapes = [list(visualize.read_png(os.path.join(viz, f))[0].shape) for f in pngs]
+        emit({"phase": "fold_run", "run": "cli.main --visualize 2", "pngs": pngs,
+              "png_shapes": shapes, "miou": res["miou"]})
+        if pngs != ["ep00000.png", "ep00001.png"]:
+            failures.append(("visualize", pngs))
+    state["fold_run_launches"] = by_path
+    if failures:
+        raise AssertionError(f"fold run failed: {failures}")
+
+
 def kernels_line(state):
     rows = state.get("kernel_rows", [])
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
@@ -2020,7 +2258,7 @@ def kernels_line(state):
              **state.get("f32_windowed_launches", {}),
              **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
              "models_path": state.get("models_path_launches", {}),
-             **state.get("backbone_launches", {})}
+             **state.get("backbone_launches", {}), **state.get("fold_run_launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in paths.values())
@@ -2147,7 +2385,7 @@ def main():
                   phase_backbones,
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
-                  phase_text_path, phase_profile_text, phase_text_cli):
+                  phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -39,26 +39,48 @@ proposal and ranking times, its live proposals and the running mIoU.
     python -m mars_tpu_torch.cli --benchmark coco --nshot 5 --datapath /data \
         --models-path /models --gt-class-names --bf16 --mask-proposals-path /tmp/props
 
+A fold's files land in ``--log-path`` (joined with ``--exp-name`` when
+given): ``log.txt`` (the console and the sorted arguments),
+``scalars.csv`` and a TensorBoard event file under ``tbd/runs`` (running
+mIoU and FB-IoU, each episode's seconds; with ``--bad-preds-path``, a
+list of known-bad episode indices, that subset's mIoU), ``ranking_time.csv``
+(``idx,total_s,after_text_s,n_proposals``), the ``--visualize N`` figures
+``viz/ep{idx:05d}.png``, and ``resume.pkl``, a snapshot of the meter, the
+timing rows and the host RNG streams every ``--resume-every`` episodes,
+removed when the fold completes: ``--resume`` continues an interrupted
+fold from it with the same episodes, draws and results.  One worker thread
+prepares episode idx + 1 on the host (the dataset read and resize, the
+synthetic draws or the dump read) while idx runs; the copies to the card
+stay on the main thread.  ``--overlap-ranking N`` enqueues each episode's
+ranking and reads its merged mask up to N episodes later (-1: the text
+block's depth, else 2; 0: at once), the same masks in the same order.
+
 With random weights the AMG's default thresholds (predicted IoU > 0.88,
 stability >= 0.95) usually reject every mask: an episode then ranks an
 empty bucket.  The port has no loader for the ViP-LLaVA-7B checkpoint and
 its processor, whose files are not in the repository: ``build_retriever``
-raises.  The JAX CLI's bookkeeping flags and the tower quantization flags
-are not ported yet.
+raises.  The tower quantization flags (``--int8-towers``,
+``--w8a8-alphaclip``), ``--proposal-model`` and ``--fused-proposals`` are
+not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import math
 import os
+import pickle
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from mars_tpu_torch import device as device_lib
-from mars_tpu_torch.core.episode import Proposals, pad_proposals
-from mars_tpu_torch.data.base import resized_gt, to_device_episode
+from mars_tpu_torch.core.episode import Proposals, live_count, pad_proposals
+from mars_tpu_torch.data.base import (episode_from_host, episode_host_u8, resized_gt,
+                                      to_device_episode)
 from mars_tpu_torch.data.registry import build_dataset
 from mars_tpu_torch.models import zoo
 from mars_tpu_torch.models.precision import cast_floating
@@ -66,7 +88,7 @@ from mars_tpu_torch.models import vip_llava
 from mars_tpu_torch.ops import assignment, flash_attention, int4_matmul, sam_attention
 from mars_tpu_torch.pipeline import amg, filtering, mars as mars_lib, matcher, vta, vva
 from mars_tpu_torch.text import retriever as retriever_lib, wordnet
-from mars_tpu_torch.utils import evaluation
+from mars_tpu_torch.utils import evaluation, logging as mlog, visualize
 
 # the hand-written kernels of the main path, by the name their counters carry
 # (attention_notap and windowed_attention launch only behind their switches,
@@ -175,27 +197,31 @@ def build_model(args, device) -> mars_lib.Mars:
                          device=device, retriever=retriever)
 
 
-def load_proposals(args, idx: int, device) -> Proposals:
+def load_proposal_masks(args, idx: int) -> torch.Tensor:
     """The precomputed proposal stack ``{fold}_{idx}`` of
-    ``--mask-proposals-path`` (the reference's ``torch.load`` of
-    ``.pt``, main_MARS.py:62; ``.npy`` and ``.npz`` with key ``masks`` as
-    ``cli_proposals`` writes them), every row live, padded to the bucket."""
+    ``--mask-proposals-path`` on the host, float32 (the reference's
+    ``torch.load`` of ``.pt``, main_MARS.py:62; ``.npy`` and ``.npz`` with
+    key ``masks`` as ``cli_proposals`` writes them)."""
     base = os.path.join(args.mask_proposals_path, f"{args.fold}_{idx}")
     if os.path.exists(base + ".npy"):
-        masks = torch.from_numpy(np.load(base + ".npy").astype(np.float32))
-    elif os.path.exists(base + ".npz"):
+        return torch.from_numpy(np.load(base + ".npy").astype(np.float32))
+    if os.path.exists(base + ".npz"):
         with np.load(base + ".npz") as f:
-            masks = torch.from_numpy(f["masks"].astype(np.float32))
-    elif os.path.exists(base + ".pt"):
-        masks = torch.load(base + ".pt", map_location="cpu").float()
-    else:
-        raise FileNotFoundError(base)
-    return pad_proposals(masks.to(device), args.proposal_bucket)
+            return torch.from_numpy(f["masks"].astype(np.float32))
+    if os.path.exists(base + ".pt"):
+        return torch.load(base + ".pt", map_location="cpu").float()
+    raise FileNotFoundError(base)
 
 
-def synthetic_proposals(rec, size: int, bucket: int, rng: np.random.RandomState,
-                        device) -> Proposals:
-    """Ground truth + six random boxes, padded to the bucket."""
+def load_proposals(args, idx: int, device) -> Proposals:
+    """``load_proposal_masks`` on ``device``, every row live, padded to the
+    bucket."""
+    return pad_proposals(load_proposal_masks(args, idx).to(device), args.proposal_bucket)
+
+
+def synthetic_proposal_masks(rec, size: int, rng: np.random.RandomState) -> torch.Tensor:
+    """Ground truth + six random boxes on the host (the JAX CLI's draws
+    from ``rng``)."""
     gt, _ = resized_gt(rec, size)
     props = [gt]
     for _ in range(6):
@@ -203,7 +229,13 @@ def synthetic_proposals(rec, size: int, bucket: int, rng: np.random.RandomState,
         m = np.zeros_like(gt)
         m[y: y + rng.randint(32, 128), x: x + rng.randint(32, 128)] = 1
         props.append(m)
-    return pad_proposals(torch.from_numpy(np.stack(props)).to(device), bucket)
+    return torch.from_numpy(np.stack(props))
+
+
+def synthetic_proposals(rec, size: int, bucket: int, rng: np.random.RandomState,
+                        device) -> Proposals:
+    """Ground truth + six random boxes, padded to the bucket."""
+    return pad_proposals(synthetic_proposal_masks(rec, size, rng).to(device), bucket)
 
 
 def bucket_generated_proposals(out: dict) -> Proposals:
@@ -241,6 +273,71 @@ def episode_generator(seed: int, idx: int, device) -> torch.Generator:
     """The prompt sampler's per-episode stream (JAX folds idx into its key;
     torch cannot reproduce those draws, only their role)."""
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + idx)
+
+
+def dump_visualization(model, args, idx, rec, host, ep, props, name, desc) -> str:
+    """The reference's --visualize figure of one episode
+    (``viz/ep{idx:05d}.png`` under ``--log-path``: the priors, the top
+    proposals with their scores, the merged mask against the ground truth;
+    reference Matcher.py:230-231,872-1037), from ``Mars.predict_debug``,
+    one extra ranking run that leaves the meter as it is."""
+    out = model.predict_debug(ep, props, class_name=name, class_description=desc)
+    sup_i, sup_m, qry_u8, sup_v = host
+    gt, _ = resized_gt(rec, args.input_size)
+    return visualize.plot_episode(
+        os.path.join(args.log_path, "viz", f"ep{idx:05d}.png"), query_img=qry_u8,
+        support_img=sup_i[0] if sup_v[0] else None, support_mask=sup_m[0] if sup_v[0] else None,
+        vva=out["vva_prior"], vta=out["vta_prior"], proposals=props.masks.cpu().numpy(),
+        proposal_valid=props.valid.cpu().numpy(), scores=out["scores"], merged=out["merged"],
+        gt=gt, title=f"episode {idx} - {name or rec.class_name}")
+
+
+def capture_rng_states(rng, ds=None) -> dict:
+    """The host RNG streams at an episode boundary.  Taken before the next
+    episode's prefetch is submitted: the prefetch draws the synthetic
+    proposals from ``rng`` and the dataset samples episodes from its own
+    (COCO, FSS, LVIS draw per ``__getitem__``, as the reference does)."""
+    return {"rng_state": rng.get_state(),
+            "ds_rng_state": ds.rng.get_state() if ds is not None and hasattr(ds, "rng") else None}
+
+
+def save_resume_state(path, next_idx, meter, timing_rows, rng_states) -> None:
+    """Atomic snapshot (a temporary file, then ``os.replace``) of what the
+    loop accumulates: the meter's histograms, the timing rows and the RNG
+    states of ``capture_rng_states`` (the JAX CLI's keys).  The proposal
+    sampler's per-episode generator (``episode_generator``) is stateless,
+    so it needs none."""
+    state = {"next_idx": next_idx, "inter": meter.inter, "union": meter.union,
+             "inter_bad": meter.inter_bad, "union_bad": meter.union_bad,
+             "bad_class_ids": list(meter.bad_class_ids), "timing_rows": timing_rows,
+             **rng_states}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(state, f)
+    os.replace(tmp, path)
+
+
+def load_resume_state(path, meter, rng, ds=None) -> dict:
+    """Restores a ``save_resume_state`` snapshot; returns its dict."""
+    with open(path, "rb") as f:
+        st = pickle.load(f)
+    meter.inter[:], meter.union[:] = st["inter"], st["union"]
+    meter.inter_bad[:], meter.union_bad[:] = st["inter_bad"], st["union_bad"]
+    meter.bad_class_ids = list(st["bad_class_ids"])
+    rng.set_state(st["rng_state"])
+    if st.get("ds_rng_state") is not None and ds is not None and hasattr(ds, "rng"):
+        ds.rng.set_state(st["ds_rng_state"])
+    return st
+
+
+def read_bad_preds(path) -> set:
+    """The known-bad episode indices of ``--bad-preds-path`` (whitespace
+    separated; reference datasets/COCO2014/fold{f}_badPredsIdxs.txt); an
+    empty set when the file is not there, as in the JAX CLI."""
+    if not path or not os.path.exists(path):
+        return set()
+    with open(path) as f:
+        return {int(x) for x in f.read().split() if x.strip()}
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -325,6 +422,25 @@ def parse_args(argv=None):
     p.add_argument("--static-threshold", type=float, default=0.55)
     p.add_argument("--dynamic-threshold", type=float, default=0.95)
     p.add_argument("--alpha-coverage", type=float, default=0.85)
+    p.add_argument("--overlap-ranking", type=int, default=-1, metavar="N",
+                   help="read each episode's merged mask up to N episodes after its ranking "
+                        "was enqueued (the same masks, in order); -1: the text block's "
+                        "depth, else 2; 0: at once")
+    # logging (reference :160-161)
+    p.add_argument("--log-path", default="output", help="reference --log_root_path")
+    p.add_argument("--exp-name", default=None)
+    p.add_argument("--visualize", type=int, default=0, metavar="N",
+                   help="internal-state figures (VVA/VTA priors, top proposals with their "
+                        "scores, merged mask and ground truth) of the first N episodes in "
+                        "<log-path>/viz")
+    p.add_argument("--bad-preds-path", default=None,
+                   help="per-fold known-bad episode index list (one idx per line, reference "
+                        "datasets/COCO2014/fold{f}_badPredsIdxs.txt)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted run from <log-path>/resume.pkl (the meter, "
+                        "the timing rows and every host RNG stream)")
+    p.add_argument("--resume-every", type=int, default=20,
+                   help="episodes between resume snapshots (0 disables)")
     return p.parse_args(argv)
 
 
@@ -382,6 +498,15 @@ def text_stage(args, model):
     return None
 
 
+def overlap_depth(args, stage, model) -> int:
+    """``--overlap-ranking``: -1 → the text block's depth, else 2; 0 when
+    the model has no ``predict_launch``."""
+    overlap = args.overlap_ranking
+    if overlap < 0:
+        overlap = getattr(stage, "depth", 2) if stage is not None else 2
+    return overlap if hasattr(model, "predict_launch") else 0
+
+
 def main(argv=None, keep_masks: bool = False) -> dict:
     """Runs the episode loop; returns {miou, fb_iou, episode_ms (ranking),
     text_ms (each episode's share of the text stage, 0 with
@@ -389,14 +514,20 @@ def main(argv=None, keep_masks: bool = False) -> dict:
     masks_binary, launches (per kernel, this run), episode_launches (per
     kernel, each episode's proposals and ranking), episode_peak_gib (each
     episode's peak on the card over its proposals and ranking), text_counts
-    (the text path's counts over the run, ``text_counts()``)}, and with
-    ``keep_masks`` masks (each episode's merged mask, bool).
+    (the text path's counts over the run, ``text_counts()``), first_idx
+    (the first episode this run ran: > 0 after ``--resume``), wall_s (the
+    loop's wall time), log_path}, and with ``keep_masks`` masks (each
+    episode's merged mask, bool).  The per-episode lists cover this run's
+    episodes; ``ranking_time.csv`` covers the fold.
 
     With a text stage an episode's ranking runs when its class name is
-    known, up to the stage's depth later; episodes still finish in order.
-    The text span of a step is shared evenly by the episodes it
+    known, up to the stage's depth later; with ``--overlap-ranking`` its
+    mask is read up to N episodes after that; episodes still finish in
+    order.  The text span of a step is shared evenly by the episodes it
     completes, and a buffering step's span rides with its episode."""
     args = parse_args(argv)
+    if args.exp_name:
+        args.log_path = os.path.join(args.log_path, args.exp_name)
     if args.mask_proposals_path and not os.path.isdir(args.mask_proposals_path):
         raise SystemExit(f"--mask-proposals-path does not exist: {args.mask_proposals_path}")
     dev = device_lib.resolve(args.device)
@@ -408,95 +539,195 @@ def main(argv=None, keep_masks: bool = False) -> dict:
     generate = (make_inline_generator(args, (model.dino_params, model.dino_cfg), dev)
                 if args.generate_proposals else None)
     stage = text_stage(args, model)
+    overlap = overlap_depth(args, stage, model)
     meter = fold_meter(ds)
+    os.makedirs(args.log_path, exist_ok=True)
+    # log.txt + console + the arguments (reference Logger.initialize:172-209)
+    logger = mlog.initialize(args.log_path, "", args)
+    metrics = mlog.MetricsLogger(args.log_path, meter, append=args.resume)
     rng = np.random.RandomState(args.seed)
+    bad_idxs = read_bad_preds(args.bad_preds_path)
+    n = args.episodes or len(ds)
+    resume_path = os.path.join(args.log_path, "resume.pkl")
+    start_idx, timing_rows = 0, []
+    if args.resume and os.path.exists(resume_path):
+        st = load_resume_state(resume_path, meter, rng, ds)
+        start_idx, timing_rows = int(st["next_idx"]), list(st["timing_rows"])
+        logger.info(f"resuming from {resume_path} at episode {start_idx}")
     launches0, text0 = kernel_launches(), text_counts()
     out = {"episode_ms": [], "text_ms": [], "names": [], "descriptions": [], "proposal_ms": [],
            "live_proposals": [], "episode_launches": [], "episode_peak_gib": []}
     masks, masks_binary = [], True
-    pending = []  # [idx, rec, ep, props, text seconds, launches, peak] awaiting a name
+    pending = deque()  # episodes awaiting a class name: dicts, see below
+    completions = deque()  # (episode, merged mask on the device) awaiting the read
 
-    def finish(idx, rec, ep, props, text_s, launches, peak, name, desc):
+    def host_prep(idx):
+        # host work only, on the one worker: the FIFO keeps the dataset's and
+        # the synthetic proposals' draw order of a serial loop
+        rec = ds[idx]
+        host = episode_host_u8(rec, args.input_size, args.nshot)
+        if generate is not None:
+            prop_masks = None  # the Matcher's, on the main thread (it shares the card)
+        elif args.mask_proposals_path:
+            prop_masks = load_proposal_masks(args, idx)
+        else:
+            prop_masks = synthetic_proposal_masks(rec, args.input_size, rng)
+        return rec, host, prop_masks
+
+    def score(e, pred, total_s, after_s):
         nonlocal masks_binary
-        before = kernel_launches()
-        _reset_peak(dev)
-        t0 = time.perf_counter()
-        pred = model.predict(ep, props, class_name=name, class_description=desc).cpu().numpy()
-        out["episode_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["text_ms"].append(text_s * 1e3)
-        out["names"].append(name)
-        out["descriptions"].append(desc)
-        out["episode_launches"].append({k: n + launches[k]
-                                        for k, n in launches_since(before).items()})
-        peaks = [g for g in (peak, _peak_gib(dev)) if g is not None]
+        idx, rec = e["idx"], e["rec"]
+        out["episode_ms"].append(after_s * 1e3)
+        out["text_ms"].append(e["text_s"] * 1e3)
+        out["names"].append(e["name"])
+        out["descriptions"].append(e["desc"])
+        out["episode_launches"].append(e["launches"])
+        peaks = [g for g in (e["peak"], _peak_gib(dev)) if g is not None]
         out["episode_peak_gib"].append(max(peaks) if peaks else None)
-        out["live_proposals"].append(int(props.valid.sum()))
+        live = live_count(e["props"])
+        out["live_proposals"].append(live)
         masks_binary &= bool(np.isin(pred, (0.0, 1.0)).all())
         if keep_masks:
             masks.append(pred > 0.5)
         gt, ig = resized_gt(rec, args.input_size)
-        meter.update(*evaluation.classify_prediction(pred, gt, ig), rec.class_id)
+        inter, union = evaluation.classify_prediction(pred, gt, ig)
+        meter.update(inter, union, rec.class_id)
+        if idx in bad_idxs:
+            meter.update_bad_preds(inter, union, rec.class_id)
+        timing_rows.append([idx, total_s, after_s, live])
+        metrics.log_metrics(idx)
+        metrics.log_time_batch(total_s, idx)
         miou, _, _ = meter.compute_iou()
-        prop = f"proposals {out['proposal_ms'][idx]:.1f} ms, " if generate is not None else ""
-        text = f"text {out['text_ms'][-1]:.1f} ms, " if model.retriever is not None else ""
-        print(f"[{idx + 1}] {name}: {prop}{text}ranking {out['episode_ms'][-1]:.1f} ms, "
-              f"{out['live_proposals'][-1]} live proposals  mIoU {miou:.2f}", flush=True)
+        prop = f"proposals {e['proposal_ms']:.1f} ms, " if generate is not None else ""
+        text = f"text {e['text_s'] * 1e3:.1f} ms, " if model.retriever is not None else ""
+        logger.info(f"[{idx + 1}/{n}] {e['name']}: {prop}{text}ranking {after_s * 1e3:.1f} ms, "
+                    f"{live} live proposals  mIoU {miou:.2f}")
+        if e["snap"] is not None:
+            # saved once the episode is scored, so --resume replays from an
+            # exact boundary though the text stage and the window ran ahead
+            save_resume_state(resume_path, idx + 1, meter, timing_rows, e["snap"])
+
+    def complete_one():
+        e, merged = completions.popleft()
+        t0 = time.perf_counter()
+        pred = merged.cpu().numpy()
+        span = e["launch_s"] + time.perf_counter() - t0
+        score(e, pred, span + e["text_s"], span)
+
+    def finish(e, name, desc):
+        e["name"], e["desc"] = name, desc
+        ep, props = e["ep"], e["props"]
+        if e["idx"] < args.visualize:
+            dump_visualization(model, args, e["idx"], e["rec"], e["host"], ep, props, name, desc)
+        before, t0 = kernel_launches(), time.perf_counter()
+        if overlap:
+            merged = model.predict_launch(ep, props, name, desc)
+            e["launch_s"] = time.perf_counter() - t0
+        else:
+            merged = model.predict(ep, props, class_name=name, class_description=desc)
+        e["launches"] = {k: c + e["launches"][k] for k, c in launches_since(before).items()}
+        if not overlap:
+            score(e, merged.cpu().numpy(), model.timings["total"] + e["text_s"],
+                  model.timings["after_text_extraction"])
+            return
+        completions.append((e, merged))
+        while len(completions) > overlap:
+            complete_one()
 
     def drain(results, span):
         for name, desc in results:
-            item = pending.pop(0)
-            item[4] += span / len(results)
-            finish(*item, name, desc)
+            e = pending.popleft()
+            e["text_s"] += span / len(results)
+            finish(e, name, desc)
 
-    for idx in range(args.episodes or len(ds)):
-        before = kernel_launches()
-        _reset_peak(dev)
-        rec = ds[idx]
-        ep = to_device_episode(rec, args.input_size, args.nshot, dev)
-        if generate is not None:
-            t0 = time.perf_counter()
-            props = generate(ep, episode_generator(args.seed, idx, dev))
-            _sync(dev)
-            out["proposal_ms"].append((time.perf_counter() - t0) * 1e3)
-        elif args.mask_proposals_path:
-            props = load_proposals(args, idx, dev)
-        else:
-            props = synthetic_proposals(rec, args.input_size, args.proposal_bucket, rng, dev)
-        item = [idx, rec, ep, props, 0.0, launches_since(before), _peak_gib(dev)]
-        t0 = time.perf_counter()
-        if stage is None:
-            if args.gt_class_names:
-                name, desc = rec.class_name, ""
+    pool = ThreadPoolExecutor(max_workers=1)
+    t_start = time.perf_counter()
+    try:
+        fut = pool.submit(host_prep, start_idx) if n > start_idx else None
+        for idx in range(start_idx, n):
+            rec, host, prop_masks = fut.result()
+            # the RNG states at the episode boundary, before the prefetch of
+            # idx + 1 draws from them
+            snap = (capture_rng_states(rng, ds)
+                    if args.resume_every and (idx + 1) % args.resume_every == 0 else None)
+            if idx + 1 < n:
+                fut = pool.submit(host_prep, idx + 1)
+            before = kernel_launches()
+            _reset_peak(dev)
+            ep = episode_from_host(host, int(rec.class_id), dev)
+            e = {"idx": idx, "rec": rec, "host": host, "ep": ep, "text_s": 0.0,
+                 "snap": snap, "proposal_ms": None}
+            if generate is not None:
+                t0 = time.perf_counter()
+                e["props"] = generate(ep, episode_generator(args.seed, idx, dev))
+                _sync(dev)
+                e["proposal_ms"] = (time.perf_counter() - t0) * 1e3
+                out["proposal_ms"].append(e["proposal_ms"])
             else:
-                name, desc = model.conceptual_information(ep)
-                item[4] = time.perf_counter() - t0
-            finish(*item, name, desc)
-            continue
-        res = stage.step(*model.support_host_arrays(ep))
-        results = res if isinstance(res, list) else ([] if res is None else [res])
-        span = time.perf_counter() - t0
-        pending.append(item)
-        if results:
-            drain(results, span)
-        else:
-            item[4] += span  # a buffering step: its span rides with this episode
-    while pending:
-        t0 = time.perf_counter()
-        res = stage.flush()
-        results = res if isinstance(res, list) else ([] if res is None else [res])
-        if not results:
-            raise RuntimeError(f"text stage flush returned no results with {len(pending)} "
-                               "episodes pending")
-        drain(results, time.perf_counter() - t0)
-    miou, fb, _ = meter.compute_iou()
-    print(f"*** mIoU: {miou:.2f}  FB-IoU: {fb:.2f} ***", flush=True)
-    now = text_counts()
-    out.update(miou=miou, fb_iou=fb, masks_binary=masks_binary,
-               launches=launches_since(launches0),
-               text_counts={k: n - text0[k] for k, n in now.items()})
-    if keep_masks:
-        out["masks"] = masks
-    return out
+                e["props"] = pad_proposals(device_lib.to_device(prop_masks, dev),
+                                           args.proposal_bucket)
+            e["launches"], e["peak"] = launches_since(before), _peak_gib(dev)
+            t0 = time.perf_counter()
+            if stage is None:
+                if args.gt_class_names:
+                    name, desc = rec.class_name, ""
+                else:
+                    name, desc = model.conceptual_information(ep)
+                    e["text_s"] = time.perf_counter() - t0
+                finish(e, name, desc)
+                continue
+            res = stage.step(*model.support_host_arrays(ep))
+            results = res if isinstance(res, list) else ([] if res is None else [res])
+            span = time.perf_counter() - t0
+            pending.append(e)
+            if results:
+                drain(results, span)
+            else:
+                e["text_s"] += span  # a buffering step: its span rides with this episode
+        while pending:
+            t0 = time.perf_counter()
+            res = stage.flush()
+            results = res if isinstance(res, list) else ([] if res is None else [res])
+            if not results:
+                raise RuntimeError(f"text stage flush returned no results with {len(pending)} "
+                                   "episodes pending")
+            drain(results, time.perf_counter() - t0)
+        while completions:
+            complete_one()
+        wall_s = time.perf_counter() - t_start
+
+        if os.path.exists(resume_path):
+            os.remove(resume_path)  # the run completed; a later --resume starts afresh
+        with open(os.path.join(args.log_path, "ranking_time.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["idx", "total_s", "after_text_s", "n_proposals"])
+            w.writerows(timing_rows)
+        now = text_counts()
+        out.update(launches=launches_since(launches0), masks_binary=masks_binary,
+                   text_counts={k: c - text0[k] for k, c in now.items()}, first_idx=start_idx,
+                   wall_s=wall_s, log_path=args.log_path)
+        if keep_masks:
+            out["masks"] = masks
+        if n <= start_idx:
+            # nothing ran (--episodes resolved to 0, or --resume of a completed
+            # run): an empty meter would log NaN rows
+            logger.info("no episodes to run")
+            out.update(miou=0.0, fb_iou=0.0)
+            return out
+        miou, fb, _ = meter.compute_iou()
+        avg_t = float(np.mean([r[1] for r in timing_rows]))
+        logger.info(f"\n*** mIoU: {miou:.2f}  FB-IoU: {fb:.2f}  avg time/img: {avg_t:.3f}s ***")
+        if meter.bad_class_ids:
+            bmiou, bfb, _ = meter.compute_iou_bad_preds()
+            logger.info(f"*** known-bad subset — mIoU: {bmiou:.2f}  FB-IoU: {bfb:.2f} ***")
+            metrics.log_metrics_bad_preds(n - 1)
+        metrics.end(time.perf_counter() - t_start, n - 1)
+        out.update(miou=miou, fb_iou=fb)
+        return out
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        metrics.close()
+        mlog.close(logger)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -23,11 +24,22 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
+_CONSTANTS = {}
+
+
+def _constant(values: Sequence[float], dtype, device) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once: a fresh copy to the
+    card would synchronise its stream on every call."""
+    key = (tuple(values), dtype, str(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
 def normalize(img: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     """Channel-normalize an (..., H, W, 3) image in [0, 1]."""
-    mean = torch.tensor(mean, dtype=img.dtype, device=img.device)
-    std = torch.tensor(std, dtype=img.dtype, device=img.device)
-    return (img - mean) / std
+    return ((img - _constant(mean, img.dtype, img.device))
+            / _constant(std, img.dtype, img.device))
 
 
 def _keys_cubic(x):
@@ -163,3 +175,19 @@ def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def pool_mask_to_grid(mask: torch.Tensor, grid: int) -> torch.Tensor:
     """Max-pool a (..., H, W) binary mask to (..., grid, grid)."""
     return adaptive_max_pool(mask.float(), grid, grid)
+
+
+def pooled_footprint_host(mask: np.ndarray, grid: int) -> np.ndarray:
+    """``pool_mask_to_grid(mask, grid) > 0`` of a host (..., H, W) mask, in
+    numpy: a cell is set where any pixel of its window (torch's adaptive
+    windows) is positive."""
+    pos = np.asarray(mask) > 0
+    h, w = pos.shape[-2:]
+
+    def windows(n):
+        i = np.arange(grid)
+        return (i * n) // grid, -((-(i + 1) * n) // grid)
+
+    (r0, r1), (c0, c1) = windows(h), windows(w)
+    rows = np.stack([pos[..., a:b, :].any(axis=-2) for a, b in zip(r0, r1)], axis=-2)
+    return np.stack([rows[..., a:b].any(axis=-1) for a, b in zip(c0, c1)], axis=-1)

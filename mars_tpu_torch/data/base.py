@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from mars_tpu_torch.core import imaging
+from mars_tpu_torch.device import to_device
 from mars_tpu_torch.core.episode import Episode
 
 
@@ -69,13 +70,21 @@ def episode_host_u8(rec: EpisodeRecord, size: int, max_shots: int):
 def to_device_episode(rec: EpisodeRecord, size: int, max_shots: int,
                       device: torch.device) -> Episode:
     """uint8 over the wire, float conversion on the device."""
-    sup, msk, qry, valid = episode_host_u8(rec, size, max_shots)
+    return episode_from_host(episode_host_u8(rec, size, max_shots), int(rec.class_id), device)
+
+
+def episode_from_host(host, class_id: int, device: torch.device) -> Episode:
+    """``episode_host_u8``'s arrays on the device (the copies and the float
+    conversion of ``to_device_episode``; to the card without blocking,
+    ``device.to_device``), the support masks kept on the host too."""
+    sup, msk, qry, valid = host
     return Episode(
-        support_images=torch.from_numpy(sup).to(device).float() / 255.0,
-        support_masks=torch.from_numpy(msk).to(device).float(),
-        support_valid=torch.from_numpy(valid).to(device),
-        query_image=torch.from_numpy(qry).to(device).float() / 255.0,
-        class_id=int(rec.class_id),
+        support_images=to_device(torch.from_numpy(sup), device).float() / 255.0,
+        support_masks=to_device(torch.from_numpy(msk), device).float(),
+        support_valid=to_device(torch.from_numpy(valid), device),
+        query_image=to_device(torch.from_numpy(qry), device).float() / 255.0,
+        class_id=class_id,
+        support_host=(msk, valid),
     )
 
 

@@ -33,3 +33,13 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device: {dev}")
     return dev
+
+
+def to_device(t: torch.Tensor, device: Union[str, torch.device]) -> torch.Tensor:
+    """A host tensor on ``device``.  To the card the copy goes from pinned
+    memory without blocking, so it waits for nothing already queued there
+    (a pageable copy synchronises the stream); the same values either way."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

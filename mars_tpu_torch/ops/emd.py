@@ -9,7 +9,9 @@ proposal's columns into a column bucket.
 In eager PyTorch the JAX package's two device conditionals become host
 ``if``s on counts:
   - the row ladder ({256, 512, row_bucket}) reads the live support-row
-    count: one host sync per call (``int(rcount)``);
+    count: one host sync per call (``int(rcount)``), unless the caller
+    passes ``n_rows``, which the ranking path counts on the host from the
+    episode's support masks;
   - the dead-chunk skip reads the live-proposal count: a second sync,
     unless the caller passes ``n_valid``, which the ranking path knows on
     the host from its padded bucket.
@@ -65,17 +67,20 @@ def batched_emd(cost_matrix: torch.Tensor, row_mask: torch.Tensor, col_masks: to
                 eps_schedule: Sequence[float] = (0.15, 0.03, 0.008, 0.0025),
                 iters_schedule: Sequence[int] = (10, 20, 40, 90),
                 col_valid: Optional[torch.Tensor] = None, chunk: int = 16,
-                n_valid: Optional[int] = None) -> torch.Tensor:
+                n_valid: Optional[int] = None, n_rows: Optional[int] = None) -> torch.Tensor:
     """EMD of every proposal against the support footprint → (P,) float32.
 
     cost_matrix (R, L), rows = support patches; row_mask (R,) bool support
     footprint; col_masks (P, L) bool proposal footprints.  Empty footprints
     get EMD 0.  With ``col_valid`` (P,), valid proposals are compacted to
-    the front and only chunks holding one are solved.
+    the front and only chunks holding one are solved.  ``n_valid`` and
+    ``n_rows``: the live proposal and support-row counts where the host
+    knows them.
     """
     ridx, rvalid_full, rcount = compact_indices(row_mask, row_bucket)
     levels = [b for b in (256, 512) if b < row_bucket] + [row_bucket]
-    live_rows = int(rcount)  # host sync: the row ladder
+    # the row ladder: a host sync unless the caller knows the count
+    live_rows = int(rcount) if n_rows is None else min(n_rows, ridx.shape[-1])
     t_rows = next(b for b in levels if live_rows <= b or b == levels[-1])
     sub_rows = cost_matrix[ridx[:t_rows]]  # (T, L)
     rvalid = rvalid_full[:t_rows]

@@ -83,8 +83,11 @@ def alphaclip_scores(params, query_image: torch.Tensor, proposal_masks: torch.Te
 
 def score_and_merge_core(proposal_masks, proposal_valid, support_fg, cost_matrix,
                          vva, vta, aclip_scores, cfg: FilterMergeConfig,
-                         n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (merged mask (H, W) float {0,1}, final scores (P,))."""
+                         n_valid: Optional[int] = None, n_rows: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (merged mask (H, W) float {0,1}, final scores (P,)).
+    ``n_valid``, ``n_rows``: the live proposal and support-footprint counts
+    where the host knows them (``ops.emd.batched_emd``)."""
     g = cfg.grid
     p = proposal_masks.shape[0]
     pooled = (imaging.pool_mask_to_grid(proposal_masks, g) > 0) & proposal_valid[:, None, None]
@@ -97,7 +100,7 @@ def score_and_merge_core(proposal_masks, proposal_valid, support_fg, cost_matrix
 
     emd = emd_ops.batched_emd(cost_matrix, support_fg, pooled.reshape(p, -1),
                               cfg.emd_row_bucket, cfg.emd_col_bucket,
-                              col_valid=proposal_valid, n_valid=n_valid)
+                              col_valid=proposal_valid, n_valid=n_valid, n_rows=n_rows)
     emd_n = imaging.masked_min_max_scale(1.0 - emd, proposal_valid)
     ac_n = imaging.masked_min_max_scale(aclip_scores, proposal_valid)
 

@@ -12,9 +12,11 @@
     :619-834), and the ranking bucket, best mask score first.
 
 Stages carry ``torch.profiler`` spans ``matcher.{features, match, encode,
-decode, nms, score}``.  The prompts are the raw matched points (the JAX
-package's ``use_points_or_centers=True``); k-means centres, negative priors,
-the box prompt (``use_box``), the cascade mask input
+decode, nms, score}``.  The prompts are the raw matched points
+(``use_points_or_centers=True``, the default) or, with it False
+(``cli_proposals --use-centers``), ``num_centers`` k-means++ centres of
+them (``ops.kmeans``; reference :579-591), rounded to pixels.  Negative
+priors, the box prompt (``use_box``), the cascade mask input
 (``target_mask_low_res``) and the two-program flow are not ported yet.
 """
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch.profiler import record_function
 from mars_tpu_torch.core import imaging
 from mars_tpu_torch.core.episode import pad_proposals
 from mars_tpu_torch.models import dinov2, sam
-from mars_tpu_torch.ops import assignment, emd as emd_ops
+from mars_tpu_torch.ops import assignment, emd as emd_ops, kmeans
 from mars_tpu_torch.pipeline import amg
 
 NEG = -1e9
@@ -58,6 +60,8 @@ class MatcherConfig:
     num_merging_mask: int = 10
     emd_row_bucket: int = 1024
     emd_col_bucket: int = 512
+    num_centers: int = 8
+    use_points_or_centers: bool = True  # True → the raw matched points are the prompts
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +107,24 @@ def _patch_centres(l: int, cfg: MatcherConfig, device) -> torch.Tensor:
     x = (j % cfg.grid) * cfg.patch_size + cfg.patch_size // 2
     y = (j // cfg.grid) * cfg.patch_size + cfg.patch_size // 2
     return torch.stack([x, y], dim=-1).float()
+
+
+def prompt_points(points, point_valid, cfg: MatcherConfig,
+                  generator: Optional[torch.Generator] = None,
+                  kmeans_gumbel: Optional[torch.Tensor] = None):
+    """The sampler's points: the matched points themselves, or (with
+    ``use_points_or_centers`` False) their ``num_centers`` k-means++
+    centres, rounded, the first min(n, K) valid, padded to the points'
+    (L,) layout (JAX ``_match_stage``).  ``kmeans_gumbel`` (K, L): the
+    seeding noise, else drawn from ``generator``."""
+    if cfg.use_points_or_centers:
+        return points, point_valid
+    k, l = cfg.num_centers, points.shape[0]
+    centers, _ = kmeans.kmeans_pp(points, point_valid, k, gumbel=kmeans_gumbel,
+                                  generator=generator)
+    c_valid = torch.arange(k, device=points.device) < torch.clamp(point_valid.sum(), max=k)
+    return (torch.nn.functional.pad(torch.round(centers), (0, 0, 0, l - k)),
+            torch.nn.functional.pad(c_valid, (0, l - k)))
 
 
 def matched_points(s_mat, support_fg, cfg: MatcherConfig):
@@ -301,13 +323,15 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
                        support_images, support_masks, support_valid, query_image,
                        generator: Optional[torch.Generator] = None,
                        bucket: Optional[int] = None,
-                       gumbel: Optional[torch.Tensor] = None) -> dict:
+                       gumbel: Optional[torch.Tensor] = None,
+                       kmeans_gumbel: Optional[torch.Tensor] = None) -> dict:
     """The Matcher flow (reference Matcher.predict :216-249) over the union
     of both prompt families' rows.
 
     support_images (S, H, W, 3) in [0, 1], support_masks (S, H, W),
     support_valid (S,), query_image (H, W, 3).  ``generator`` draws the
-    prompt sampler's noise (or pass ``gumbel``); ``bucket``: also return
+    prompt sampler's noise (or pass ``gumbel``), and first the k-means
+    seeding's with centres (or pass ``kmeans_gumbel``); ``bucket``: also return
     the ranking bucket ("bucket_masks", "bucket_valid": live rows first,
     best mask score first).  Returns proposal masks (N, H, W) bool and
     validity, their scores, the merged mask, the cost matrix and the
@@ -318,7 +342,9 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
             dino_cfg, cfg.grid)
     with record_function("matcher.match"):
         points, point_valid = matched_points(s_mat, support_fg, cfg)
-        coords, labels, set_valid = sample_prompt_sets(points, point_valid, cfg,
+        prompt_pts, prompt_valid = prompt_points(points, point_valid, cfg, generator,
+                                                 kmeans_gumbel)
+        coords, labels, set_valid = sample_prompt_sets(prompt_pts, prompt_valid, cfg,
                                                        generator=generator, gumbel=gumbel)
         rows = torch.tensor(union_family_rows(cfg), device=coords.device)
     with record_function("matcher.encode"):
@@ -353,7 +379,7 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
         "coverage": coverage, "mask_score": mask_score, "merged": merged,
         "final_score": final_score, "chosen": chosen, "embedding": embedding,
         "cost_matrix": cost, "support_fg": support_fg, "points": points,
-        "point_valid": point_valid,
+        "point_valid": point_valid, "prompt_pts": prompt_pts, "prompt_valid": prompt_valid,
         "telemetry": {"n_support_patches": support_fg.sum(),
                       "n_matched_points": point_valid.sum(),
                       "n_prompt_sets": set_valid.sum(), "n_decoded": n_decoded,

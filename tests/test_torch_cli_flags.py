@@ -1,10 +1,13 @@
 """The port's evaluation flags against mars_tpu.cli: spellings, defaults,
 choices, and how they reach the stage configs and the towers."""
 import argparse
+import os
+import re
+import shlex
 
 import pytest
 
-from mars_tpu import cli as jcli
+from mars_tpu import cli as jcli, cli_proposals as jcli_proposals
 from mars_tpu.models import dinov2 as jdino
 from mars_tpu_torch import cli as tcli
 from mars_tpu_torch import cli_proposals as tcli_proposals
@@ -21,10 +24,19 @@ PORTED = ["benchmark", "datapath", "annotations_datapath", "models_path", "nshot
           "nltk_path", "prompt_type", "zoom_percentage", "color", "alpha_blending", "thickness",
           "ensemble_prompts", "ensemble_prompts_list", "ensemble_zoom", "ensemble_zoom_list",
           "ensemble_colors", "ensemble_colors_list", "vlm4bit", "vlm4bit_nf4", "vlm8bit",
-          "vlm_kv8", "vlm_draft_tokens", "pipelined_text", "text_block", "vlm_path", "jax_vlm"]
+          "vlm_kv8", "vlm_draft_tokens", "pipelined_text", "text_block", "vlm_path", "jax_vlm",
+          # the fold's bookkeeping (mars_tpu/cli.py:464-525)
+          "overlap_ranking", "log_path", "exp_name", "visualize", "bad_preds_path", "resume",
+          "resume_every"]
+# the JAX CLI's flags the port does not take yet (ROADMAP Queue 1)
+NOT_PORTED = ["fused_proposals", "proposal_model", "int8_towers", "w8a8_alphaclip"]
 # the flags cli_proposals shares with it (mars_tpu/cli_proposals.py:30-57)
 PROPOSAL_FLAGS = ["benchmark", "datapath", "models_path", "fold", "nshot", "input_size",
                   "episodes", "sam_size", "dino_backbone", "num_regs", "bf16", "seed"]
+# and its own (mars_tpu/cli_proposals.py:41-55)
+PROPOSAL_ONLY = ["use_centers", "out", "coco_rle", "visualize"]
+EVAL_SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "scripts", "_eval_common.sh")
 
 
 def _jax_parser():
@@ -151,3 +163,77 @@ def test_backbone_flags_reach_the_zoo(monkeypatch):
         tcli.build_model(tcli.parse_args(["--models-path", "/m", "--vta-backbone", "ViT-L/14"]),
                          "cpu")
     assert seen["clip"][0] == ("/m", "ViT-L/14")
+
+
+def test_every_jax_flag_is_ported_or_listed():
+    jax_dests = {a.dest for a in _jax_parser()._actions} - {"help"}
+    port_dests = {a.dest for a in _port_parser(tcli.parse_args, [])._actions} - {"help"}
+    assert jax_dests - set(NOT_PORTED) <= set(PORTED) <= port_dests
+    assert not set(NOT_PORTED) & port_dests
+
+
+class _Caught(Exception):
+    pass
+
+
+def _jax_proposals_parser():
+    """The parser ``mars_tpu.cli_proposals.main`` builds, caught before it
+    runs anything."""
+    caught = {}
+
+    def grab(self, args=None, namespace=None):
+        caught["parser"] = self
+        raise _Caught
+
+    real = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        jcli_proposals.main(["--out", "x"])
+    except _Caught:
+        pass
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return caught["parser"]
+
+
+@pytest.mark.parametrize("dest", PROPOSAL_ONLY)
+def test_cli_proposals_own_flags(dest):
+    want = _actions(_jax_proposals_parser())[dest]
+    got = _actions(_port_parser(tcli_proposals.parse_args, ["--out", "x"]))[dest]
+    assert got.option_strings == want.option_strings and got.required == want.required
+    assert got.default == want.default and got.type == want.type
+    assert type(got) is type(want)  # store_true stays store_true
+    assert {a.dest for a in _jax_proposals_parser()._actions} - {"help"} \
+        <= set(PROPOSAL_FLAGS + PROPOSAL_ONLY)
+
+
+def _eval_common_argv(proposal_args):
+    """The ``python -m mars_tpu.cli`` command of scripts/_eval_common.sh,
+    its variables filled with values a caller sets."""
+    with open(EVAL_SCRIPT) as f:
+        text = f.read()
+    cmd = text.split("python -m mars_tpu.cli \\\n", 1)[1].split("${EXTRA_ARGS}", 1)[0]
+    cmd = cmd.replace("\\\n", " ")
+    cmd = cmd.replace('${NLTK_PATH:+--nltk-path "${NLTK_PATH}"}', '--nltk-path "/nltk"')
+    cmd = cmd.replace('"${PROPOSAL_ARGS[@]}"', proposal_args)
+    values = {"DATAPATH": "/data", "BENCHMARK": "coco", "NSHOT": "1", "fold": "0",
+              "MODELS_PATH": "/models", "LOG_ROOT": "output/mars/coco"}
+    cmd = re.sub(r"\$\{(\w+)\}", lambda m: values[m.group(1)], cmd)
+    assert "$" not in cmd, cmd
+    return shlex.split(cmd)
+
+
+@pytest.mark.parametrize("proposal_args", ["--mask-proposals-path /props",
+                                           "--generate-proposals"])
+def test_eval_script_flags_parse(proposal_args):
+    """Every flag the shipped evaluation passes (read from the script, so
+    the test follows it) parses, to the values the JAX CLI parses them to."""
+    argv = _eval_common_argv(proposal_args)
+    assert "--log-path" in argv and "--exp-name" in argv and "--bf16" in argv
+    targs, jargs = tcli.parse_args(argv), _jax_parser().parse_args(argv)
+    flags = {a.split("=")[0] for a in argv if a.startswith("--")}
+    dests = {a.dest: a for a in _port_parser(tcli.parse_args, [])._actions}
+    for flag in flags:
+        dest = next(d for d, a in dests.items() if flag in a.option_strings)
+        assert getattr(targs, dest) == getattr(jargs, dest), flag
+    assert (targs.log_path, targs.exp_name) == ("output/mars/coco/fold0", "1shot")

@@ -639,3 +639,86 @@ def test_windowed_refuses_a_window_that_does_not_fit(dev):
     for dtype in (torch.float32, torch.bfloat16):
         out = sa.windowed_attention(*_window_inputs(1, 1, 32, 32, 128, dtype, dev), (32, 32))
         assert torch.isfinite(out.float()).all()
+
+
+def _golden_ranking(dev):
+    """The tiny golden ranking episode (tests/fixtures) on the card, the
+    support masks kept on the host as ``data.base.episode_from_host`` keeps
+    them: (model, episode, proposals, name, description)."""
+    import os
+
+    from mars_tpu_torch.core.episode import Episode, pad_proposals
+    from mars_tpu_torch.models import clip, convert, dinov2
+    from mars_tpu_torch.pipeline import filtering, mars, vta, vva
+
+    data = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "golden_episode_tiny.npz"))
+    sd = {k[3:]: data[k] for k in data.files if k.startswith("sd.")}
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    tcfg = clip.ClipTextConfig(width=16, depth=2, num_heads=2, output_dim=16)
+
+    def tower(prefix, kind, depth, alpha):
+        return (convert.from_reference_state_dict(sub(prefix), kind, depth, device=dev),
+                convert.from_reference_state_dict(sub(prefix), "clip_text", 2, device=dev),
+                convert.logit_scale(sub(prefix), dev),
+                clip.ClipVisualConfig(width=64, depth=depth, num_heads=1, output_dim=16,
+                                      pos_embed_grid=7, alpha_channel=alpha), tcfg)
+
+    model = mars.Mars(
+        (convert.from_reference_state_dict(sub("dino."), "dinov2", 3, device=dev),
+         dinov2.DinoV2Config(embed_dim=32, depth=3, num_heads=2, pos_embed_grid=8)),
+        tower("clip.", "clip_visual", 3, False), tower("aclip.", "alpha_clip_visual", 2, True),
+        cfg=mars.MarsConfig(
+            vva=vva.VVAConfig(refinement_box_threshold=0.8, attn_tap_last_n=2, grid=8),
+            vta=vta.VTAConfig(refinement_box_threshold=0.4, attn_tap_last_n=3, input_size=112,
+                              grid=7),
+            filter_merge=filtering.FilterMergeConfig(
+                grid=8, alpha_clip_size=112, alpha_clip_batch=4, emd_row_bucket=128,
+                emd_col_bucket=64)),
+        device=dev)
+    masks = data["support_masks"][0]
+    valid = np.ones((2,), bool)
+    ep = Episode(
+        torch.from_numpy(np.ascontiguousarray(data["support_images"][0].transpose(0, 2, 3, 1)))
+        .to(dev), torch.from_numpy(masks).to(dev), torch.from_numpy(valid).to(dev),
+        torch.from_numpy(np.ascontiguousarray(data["query_image"][0].transpose(1, 2, 0))).to(dev),
+        -1, support_host=(masks, valid))
+    props = pad_proposals(torch.from_numpy(data["proposals"]).to(dev), 8)
+    return model, ep, props, str(data["class_name"]), str(data["class_description"]), data
+
+
+def test_predict_launch_equals_predict_without_a_sync(dev):
+    """``Mars.predict_launch`` enqueues the ranking and returns without a
+    synchronisation: CUDA's sync debug mode raises on none, and the CUDA
+    runtime calls it makes (torch.profiler) hold no synchronise; read
+    later, its mask is ``predict``'s, which is the fixture's.  (Holding the
+    card with a long kernel proves nothing here: the launch queue's depth
+    stalls the host's enqueue of a whole ranking.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, ep, props, name, desc, data = _golden_ranking(dev)
+    assert props.n_live == len(data["proposals"]) and ep.support_host is not None
+    want = model.predict(ep, props, class_name=name, class_description=desc)
+    assert set(model.timings) == {"total", "after_text_extraction"}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = model.predict_launch(ep, props, name, desc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = model.predict_launch(ep, props, name, desc)
+    events = prof.events()
+    # the profiler synchronises as it stops: count only calls inside the
+    # ranking's own spans (mars.text ... mars.score_merge)
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("mars.") and e.device_type == torch.autograd.DeviceType.CPU]
+    inside = [e.name for e in events if e.name.startswith("cuda")
+              and any(a <= e.time_range.start <= b for a, b in spans)]
+    assert len(spans) == 5 and "cudaLaunchKernel" in inside, (spans, set(inside))
+    assert not [n for n in inside if "Synchronize" in n or n == "cudaMemcpy"], set(inside)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), data["merged"])

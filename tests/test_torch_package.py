@@ -23,7 +23,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import pkgutil, sys
-BLOCKED = ("jax", "mars_tpu", "triton", "transformers", "PIL", "cv2", "nltk")
+BLOCKED = ("jax", "mars_tpu", "triton", "transformers", "PIL", "cv2", "nltk", "matplotlib",
+           "tensorboard")
 for b in BLOCKED:
     sys.modules[b] = None  # importing any of them now raises
 import mars_tpu_torch
