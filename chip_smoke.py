@@ -121,7 +121,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
      event files' CRCs, the known-bad line, 31 tap launches an episode;
      ranking ms an episode at overlap 0 and 2 (wall over the fold); then
      ``--visualize 2``: two PNGs that decode;
- 23. the kernels line.
+ 23. the Matcher's other configurations (``phase_matcher_configs``), float32
+     at full width with the selection thresholds at 0: both negative
+     sources with ``merge_prompt_types`` at one shot and at five (the
+     auction's launches exact per ε-phase, every phase the kernel ran
+     replayed on the plain phase, bitwise; each cost instance's rounds, ms
+     and variant); ``use_box``, then the cascade on its best mask's low-res
+     logits (binary masks, the logits changed); ``generate_multicrop`` at
+     one crop layer and 32 points
+     a side with MARS_SAM_WINDOWED_IMPL=pallas (grid 4 and windowed 28
+     launches a crop), then ``postprocess_small_regions(min_area=100)``:
+     live masks before and after, ms, peak memory;
+ 24. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
+     synthetic episodes, then with ``--int8-towers``, then also
+     ``--w8a8-alphaclip`` (merged masks' IoU with the ``--bf16`` run's,
+     the towers' weight bytes, peak memory, ranking ms an episode, 31 tap
+     launches an episode), then ``--generate-proposals`` over two;
+     ``torch._int_mm`` at AlphaCLIP-L's MLP against the weight-only int8
+     route and a bf16 product;
+ 25. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -2248,6 +2266,315 @@ def phase_fold_run(state):
         raise AssertionError(f"fold run failed: {failures}")
 
 
+# the Matcher's other configurations (phase_matcher_configs): ε-phases of
+# each auction a call launches, in order: the positives' forward and reverse
+# matching (one phase each), then the cost negatives' forward (5 phases);
+# the discarded negatives reuse the positives' match
+NEG_PHASES = {1: [1, 1, 5], 5: [1, 1, 5]}
+MULTICROP_POINTS = 32
+MULTICROP_CROPS = 5  # crop_n_layers=1: the image, then 2 x 2 crops
+MULTICROP_MIN_AREA = 100
+CLEANUP_MASKS = 1024
+INT8_EPISODES = 3
+INT8_PROPOSAL_EPISODES = 2
+INT8_ARGS = ["--benchmark", "synthetic", "--gt-class-names", "--bf16", "--proposal-bucket", "128",
+             "--input-size", "518", "--seed", "0"]
+# AlphaCLIP-L's MLP at a chunk of 16 crops x 577 tokens: W8A8 against the
+# weight-only int8 route and a bf16 product
+W8A8_SHAPE = (16 * 577, 1024, 4096)
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
+
+
+def phase_matcher_configs(state):
+    """The Matcher's other configurations at full width (DINOv2-L/14 reg4
+    @518, SAM ViT-H @1024, float32, seeded random weights, the selection
+    thresholds at 0 as ``_zero_thresholds``): (a) both negative sources
+    with ``merge_prompt_types`` at one shot and at five, every auction phase
+    the kernel ran replayed on the plain phase with the same inputs,
+    bitwise; (b) ``use_box``, then a cascade call on its best mask's low-res
+    logits; (c) ``generate_multicrop``
+    at one crop layer and 32 points a side, the windowed switch on, then
+    ``postprocess_small_regions``.  Every kernel's count is set to 0 just
+    before each call and read just after."""
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.ops import assignment as asg
+    from mars_tpu_torch.pipeline import amg, matcher
+
+    dev = torch.device("cuda")
+    dino, dino_cfg = zoo.build_dinov2(None, "vit_large", 4, 0, dev)
+    sam_params, sam_cfg = zoo.build_sam(None, "vit_h", 3, dev)
+    acfg = amg.AmgConfig(sel_pred_iou_thresh=0.0, sel_stability_score_thresh=0.0,
+                         box_nms_thresh=0.5, sel_multimask_output=True, sel_output_layer=3,
+                         decode_batch=16)
+    episodes = {s: to_device_episode(SyntheticFSS(seed=0, shot=s)[0], 518, s, dev)
+                for s in (1, 5)}
+    failures, by_path = [], {}
+
+    def launches():
+        return {name: fn.launches for name, fn in cli.KERNELS.items()}
+
+    def call(shots=1, target=None, **cfg_kw):
+        ep = episodes[shots]
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = matcher.generate_proposals(
+                dino, dino_cfg, sam_params, sam_cfg, acfg, matcher.MatcherConfig(**cfg_kw),
+                ep.support_images, ep.support_masks, ep.support_valid, ep.query_image,
+                generator=cli.episode_generator(0, 0, dev), bucket=128,
+                target_mask_low_res=target)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        masks = out["bucket_masks"]
+        return out, {"ms": ms, "launches": launches(),
+                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "decoded_rows": int(out["proposal_valid"].shape[0]),
+                     "live_proposals": int(out["proposal_valid"].sum()),
+                     "bucket_live": int(out["bucket_valid"].sum()),
+                     "prompt_sets": int(out["telemetry"]["n_prompt_sets"]),
+                     "positive_points_inside_mask":
+                         int(out["telemetry"]["positive_points_inside_mask"]),
+                     "masks_binary": bool(((masks == 0) | (masks == 1)).all())}
+
+    # a. both negative sources + merge_prompt_types; the kernel's phases recorded
+    instances = []
+    real_inputs, real_kernel = asg.phase_inputs, asg._auction_phase_kernel
+
+    def record_inputs(scores, row_valid, n_phases=1, row_chunk=None):
+        instances.append({"shape": list(scores.shape), "n_phases": n_phases, "phases": []})
+        return real_inputs(scores, row_valid, n_phases, row_chunk)
+
+    def record_kernel(scores, row_valid, prices, eps, max_rounds, small_k=asg.SMALL_K):
+        col, pr, counts = real_kernel(scores, row_valid, prices, eps, max_rounds, small_k)
+        instances[-1]["phases"].append((scores, row_valid, prices.clone(), eps, max_rounds,
+                                        small_k, col, pr, counts))
+        return col, pr, counts
+
+    negatives = dict(use_negative_priors_from_discarded=True,
+                     use_negative_priors_from_cost=True, merge_prompt_types=True)
+    for shots in (1, 5):
+        instances.clear()
+        asg.phase_inputs, asg._auction_phase_kernel = record_inputs, record_kernel
+        try:
+            out, row = call(shots, **negatives)
+        finally:
+            asg.phase_inputs, asg._auction_phase_kernel = real_inputs, real_kernel
+        rows = []
+        for k, inst in enumerate(instances):
+            equal = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for (sc, va, pr_in, eps, mr, sk, col, pr, counts) in inst["phases"]:
+                col_p, pr_p, counts_p = asg._auction_phase_plain(sc, va, pr_in, eps, mr, sk)
+                equal &= bool(torch.equal(col, col_p) and torch.equal(
+                    pr.view(torch.int32), pr_p.view(torch.int32)) and counts == counts_p)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            bidder_rows = sum(ph[8][2] + ph[8][3] for ph in inst["phases"])
+            first = inst["phases"][0]
+            scores, valid = first[0], first[1]
+            eps = [ph[3] for ph in inst["phases"]]
+            ms = cuda_ms(lambda: auction_phases(asg._auction_phase_kernel, scores, valid, eps),
+                         iters=3, warmup=1)
+            rows.append({"instance": ["matching_forward", "matching_reverse",
+                                      "cost_forward"][k] if k < 3 else f"extra_{k}",
+                         "shape": inst["shape"], "phases": inst["n_phases"],
+                         "launches": len(inst["phases"]), "valid_rows": int(valid.sum()),
+                         "variant": asg.VARIANTS[asg.auction_variant(*inst["shape"])],
+                         "rounds": [ph[8][0] + ph[8][1] for ph in inst["phases"]],
+                         "dense_rounds": [ph[8][0] for ph in inst["phases"]],
+                         "bidder_rows": bidder_rows, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bidder_rows * inst["shape"][1] * 4.0 / PEAK_BYTES * 1e3,
+                         "bound_by": "bytes", "library_ms": None, "equal_plain": equal})
+        want = NEG_PHASES[shots]
+        emit({"phase": "matcher_configs", "run": f"negatives, {shots} shot(s)", **row,
+              "auction_instances": rows, "auction_phases_expected": want})
+        by_path[f"negatives_{shots}shot"] = row["launches"]
+        if ([r["launches"] for r in rows] != want or row["launches"]["auction"] != sum(want)
+                or not all(r["equal_plain"] for r in rows)):
+            failures.append((f"negatives {shots}", rows))
+        if row["launches"]["grid_attention"] != SAM_GLOBAL_LAYERS or not row["masks_binary"]:
+            failures.append((f"negatives {shots}", row))
+        state.setdefault("cost_auction_rows", []).extend(
+            dict(r, shots=shots) for r in rows if r["instance"].startswith("cost"))
+
+    # b. the box prompt, then the cascade on its best mask's low-res logits
+    box, row = call(use_box=True)
+    emit({"phase": "matcher_configs", "run": "use_box", **row})
+    by_path["use_box"] = row["launches"]
+    live = box["proposal_valid"]
+    best = int(torch.argmax(torch.where(live, box["mask_score"], float("-inf"))))
+    cascade, crow = call(use_box=True, target=box["low_res_logits"][best])
+    differs = not torch.equal(cascade["low_res_logits"], box["low_res_logits"])
+    emit({"phase": "matcher_configs", "run": "cascade (target_mask_low_res)", **crow,
+          "logits_differ": differs})
+    by_path["cascade"] = crow["launches"]
+    if not (row["masks_binary"] and crow["masks_binary"] and differs and row["live_proposals"]):
+        failures.append(("box / cascade", row, crow, differs))
+
+    # c. multicrop AMG, then the small-region cleanup
+    mcfg = amg.AmgConfig(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                         points_per_side=MULTICROP_POINTS, crop_n_layers=1)
+    image = episodes[1].query_image
+    with kernel_switches(WINDOWED_ONLY):
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = amg.generate_multicrop(sam_params, image, sam_cfg, mcfg, (518, 518))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        clean = amg.postprocess_small_regions(out, MULTICROP_MIN_AREA, mcfg.box_nms_thresh)
+    torch.cuda.synchronize()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    clean_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the cleanup at scale: random weights leave one live mask after NMS, so
+    # the first CLEANUP_MASKS non-empty slots are cleaned as if live
+    nonempty = torch.nonzero(out["masks"].flatten(1).any(dim=1))[:CLEANUP_MASKS, 0]
+    stress_valid = torch.zeros_like(out["valid"])
+    stress_valid[nonempty] = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        stress = amg.postprocess_small_regions({**out, "valid": stress_valid}, MULTICROP_MIN_AREA,
+                                               mcfg.box_nms_thresh)
+    torch.cuda.synchronize()
+    stress_row = {"masks": int(stress_valid.sum()), "ms": (time.perf_counter() - t0) * 1e3,
+                  "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "changed": int((stress["masks"] != out["masks"])[nonempty]
+                                 .flatten(1).any(dim=1).sum()),
+                  "kept_by_nms": int(stress["valid"].sum())}
+    want = {"attention_with_tap": 0, "attention_notap": 0,
+            "grid_attention": SAM_GLOBAL_LAYERS * MULTICROP_CROPS,
+            "windowed_attention": SAM_WINDOWED_LAYERS * MULTICROP_CROPS, "auction": 0}
+    row = {"phase": "matcher_configs", "run": "generate_multicrop + postprocess_small_regions",
+           "switches": WINDOWED_ONLY, "points_per_side": MULTICROP_POINTS, "crop_n_layers": 1,
+           "slots": int(out["valid"].shape[0]), "live_masks": int(out["valid"].sum()),
+           "live_after_cleanup": int(clean["valid"].sum()), "min_area": MULTICROP_MIN_AREA,
+           "ms": ms, "cleanup_ms": clean_ms, "peak_memory_gib": peak,
+           "cleanup_peak_memory_gib": clean_peak,
+           "cleanup_at_scale": stress_row, "launches": got, "launches_expected": want}
+    emit(row)
+    by_path["multicrop"] = got
+    if got != want or not row["live_masks"] or out["masks"].dtype != torch.bool:
+        failures.append(("multicrop", row))
+    state["matcher_configs_launches"] = by_path
+    if failures:
+        raise AssertionError(f"matcher configurations failed: {failures}")
+
+
+def phase_int8_towers(state):
+    """The ranking CLI's tower flags at full width on seeded random weights,
+    bf16: ``--bf16`` (the reference), ``--int8-towers``, ``--int8-towers
+    --w8a8-alphaclip`` over three synthetic episodes, then the last with
+    ``--generate-proposals`` over two: 31 tap launches
+    an episode (and the Matcher's 4 grid and 2 auction), merged masks
+    against the ``--bf16`` run's, the towers' weight bytes, peak memory,
+    ranking ms an episode; then ``torch._int_mm``'s W8A8 product against
+    the weight-only int8 route and a bf16 product at AlphaCLIP-L's MLP.
+    Every kernel's count is set to 0 just before each run and read just
+    after."""
+    import math
+
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.models import quantization as quant
+
+    built, failures, by_path = {}, [], {}
+    real_build = cli.build_model
+
+    def capture(args, dev):
+        built["model"] = real_build(args, dev)
+        return built["model"]
+
+    def run(name, extra, episodes, proposals=False):
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+        cli.build_model = capture
+        try:
+            res = cli.main(INT8_ARGS + ["--episodes", str(episodes)] + extra, keep_masks=True)
+        finally:
+            cli.build_model = real_build
+        got = {name_: fn.launches for name_, fn in cli.KERNELS.items()}
+        per = {"attention_with_tap": TAPPED_BLOCKS, "attention_notap": 0,
+               "grid_attention": SAM_GLOBAL_LAYERS if proposals else 0,
+               "windowed_attention": 0, "auction": AUCTIONS if proposals else 0}
+        want = {k: v * episodes for k, v in per.items()}
+        m = built.pop("model")
+        towers = {"dinov2": _tree_bytes(m.dino_params), "clip_visual": _tree_bytes(m.clip_v),
+                  "alphaclip_visual": _tree_bytes(m.ac_v)}
+        ms = res["episode_ms"]
+        row = {"phase": "int8_towers", "run": name, "flags": extra, "episodes": episodes,
+               "ranking_ms": ms, "ms_per_episode_after_first": sum(ms[1:]) / len(ms[1:]),
+               "proposal_ms": res["proposal_ms"], "live_proposals": res["live_proposals"],
+               "tower_weight_bytes": towers, "episode_peak_memory_gib": res["episode_peak_gib"],
+               "miou": res["miou"], "masks_binary": res["masks_binary"], "launches": got,
+               "launches_expected": want}
+        by_path[f"int8_{name}"] = got
+        if got != want or not res["masks_binary"] or not math.isfinite(res["miou"]):
+            failures.append((name, got, want))
+        return row, res["masks"]
+
+    ref_row, ref = run("bf16", [], INT8_EPISODES)
+    emit(ref_row)
+    for name, extra in (("int8_towers", ["--int8-towers"]),
+                        ("w8a8_alphaclip", ["--int8-towers", "--w8a8-alphaclip"])):
+        row, masks = run(name, extra, INT8_EPISODES)
+        row["iou_with_bf16"] = [float(_mask_iou(a[None], b[None])[0, 0])
+                                for a, b in zip(masks, ref)]
+        emit(row)
+    row, _ = run("w8a8_alphaclip_proposals",
+                 ["--int8-towers", "--w8a8-alphaclip", "--generate-proposals"],
+                 INT8_PROPOSAL_EPISODES, proposals=True)
+    emit(row)
+
+    m, k, n = W8A8_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.rand((k, n), generator=gen, device="cuda") * 0.07 - 0.035).to(torch.bfloat16)
+    w8 = quant.quantize_kernel(w)
+    # the towers' layout: the same codes stored column-major once
+    w8a8 = quant.quantize_params({"kernel": w}, act_bits=8)["kernel"]
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
+    int32_equal = (torch.equal(w8a8["q"], w8["q"]) and w8a8["q"].stride() == (1, k)
+                   and torch.equal(quant.int8_product(xq, w8a8["q"]).cpu(),
+                                   quant.int8_product(xq.cpu(), w8["q"].cpu())))
+    row = {"phase": "int8_towers", "run": "W8A8 product", "shape": [m, k, n],
+           "w8a8_ms": cuda_ms(lambda: quant.quantized_dense({"kernel": w8a8}, x)),
+           "int_mm_ms": cuda_ms(lambda: quant.int8_product(xq, w8a8["q"])),
+           "int_mm_b_row_major_ms": cuda_ms(lambda: torch._int_mm(xq, w8["q"])),
+           "weight_only_int8_ms": cuda_ms(lambda: quant.quantized_dense({"kernel": w8}, x)),
+           "bf16_ms": cuda_ms(lambda: x @ w), "int32_equal_cpu": int32_equal}
+    emit(row)
+    if not int32_equal:
+        failures.append(("int_mm", row))
+    state["int8_launches"] = by_path
+    if failures:
+        raise AssertionError(f"int8 towers failed: {failures}")
+
+
 def kernels_line(state):
     rows = state.get("kernel_rows", [])
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
@@ -2258,7 +2585,8 @@ def kernels_line(state):
              **state.get("f32_windowed_launches", {}),
              **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
              "models_path": state.get("models_path_launches", {}),
-             **state.get("backbone_launches", {}), **state.get("fold_run_launches", {})}
+             **state.get("backbone_launches", {}), **state.get("fold_run_launches", {}),
+             **state.get("matcher_configs_launches", {}), **state.get("int8_launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in paths.values())
@@ -2308,6 +2636,7 @@ def kernels_line(state):
         "instances": [{k: r[k] for k in ("instance", "shape", "variant", "equal", "rerun_equal",
                                          "rounds", "bidder_rows", "us_per_round") + keys}
                       for r in auc],
+        "negative_prior_instances": state.get("cost_auction_rows", []),
     }, _attention_entry(state, "attention_notap", "notap_rows", "alphaclip_l_336_chunk",
                         "mars_tpu_torch/csrc/attention_notap.cu",
                         "mars_tpu/ops/flash_attention.py:187", launches, by_path),
@@ -2385,7 +2714,8 @@ def main():
                   phase_backbones,
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
-                  phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run):
+                  phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run,
+                  phase_matcher_configs, phase_int8_towers):
         t0 = time.perf_counter()
         try:
             phase(state)

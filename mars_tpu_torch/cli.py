@@ -55,13 +55,21 @@ stay on the main thread.  ``--overlap-ranking N`` enqueues each episode's
 ranking and reads its merged mask up to N episodes later (-1: the text
 block's depth, else 2; 0: at once), the same masks in the same order.
 
+``--int8-towers`` stores the DINOv2, CLIP visual and AlphaCLIP visual
+kernels as weight-only int8 (after the ``--bf16`` cast), and
+``--w8a8-alphaclip`` with it also quantizes AlphaCLIP's activations per row
+(int8 × int8 products).  ``--generate-proposals`` runs the Matcher as one
+flow over the union of both prompt families, the JAX CLI's default
+``--fused-proposals``; ``--no-fused-proposals`` parses and changes nothing
+(the JAX package's two-program flow gives the same bucket, and is not
+ported: ``pipeline.matcher``).
+
 With random weights the AMG's default thresholds (predicted IoU > 0.88,
 stability >= 0.95) usually reject every mask: an episode then ranks an
 empty bucket.  The port has no loader for the ViP-LLaVA-7B checkpoint and
 its processor, whose files are not in the repository: ``build_retriever``
-raises.  The tower quantization flags (``--int8-towers``,
-``--w8a8-alphaclip``), ``--proposal-model`` and ``--fused-proposals`` are
-not ported yet.
+raises.  ``--proposal-model`` (the Semantic-SAM backend) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -84,6 +92,7 @@ from mars_tpu_torch.data.base import (episode_from_host, episode_host_u8, resize
 from mars_tpu_torch.data.registry import build_dataset
 from mars_tpu_torch.models import zoo
 from mars_tpu_torch.models.precision import cast_floating
+from mars_tpu_torch.models.quantization import quantize_params
 from mars_tpu_torch.models import vip_llava
 from mars_tpu_torch.ops import assignment, flash_attention, int4_matmul, sam_attention
 from mars_tpu_torch.pipeline import amg, filtering, mars as mars_lib, matcher, vta, vva
@@ -178,8 +187,10 @@ def build_model(args, device) -> mars_lib.Mars:
     """The towers of ``args`` (``--dino-backbone``, ``--num-regs``,
     ``--vta-backbone``, AlphaCLIP-L/14@336) from ``--models-path`` or the
     JAX package's weight seeds (0, 1, 2); ``--bf16`` casts DINOv2 and both
-    visual towers, not the text towers (``mars_tpu.cli.build_model``); the
-    retriever unless ``--gt-class-names``."""
+    visual towers, not the text towers, then ``--int8-towers`` quantizes
+    their kernels to int8, AlphaCLIP's W8A8 with ``--w8a8-alphaclip``
+    (``mars_tpu.cli.build_model``); the retriever unless
+    ``--gt-class-names``."""
     if args.vva_backbone != "dino":
         # the reference exposes the same choices but its live VVA path only
         # builds DINOv2 (VisualVisualAlignmentModule.py:148-152)
@@ -192,6 +203,10 @@ def build_model(args, device) -> mars_lib.Mars:
         dino = (cast_floating(dino[0]), dino[1])
         clip = (cast_floating(clip[0]),) + clip[1:]
         ac = (cast_floating(ac[0]),) + ac[1:]
+    if args.int8_towers:
+        dino = (quantize_params(dino[0]), dino[1])
+        clip = (quantize_params(clip[0]),) + clip[1:]
+        ac = (quantize_params(ac[0], act_bits=8 if args.w8a8_alphaclip else None),) + ac[1:]
     retriever = None if args.gt_class_names else build_retriever(args)
     return mars_lib.Mars(dino=dino, clip=clip, alpha_clip=ac, cfg=build_mars_config(args),
                          device=device, retriever=retriever)
@@ -375,10 +390,19 @@ def parse_args(argv=None):
     p.add_argument("--proposal-bucket", type=int, default=128)
     p.add_argument("--generate-proposals", action="store_true",
                    help="run the Matcher per episode instead of synthetic proposals")
+    p.add_argument("--fused-proposals", action=argparse.BooleanOptionalAction, default=None,
+                   help="single-flow proposal generation (union-family rows; the same "
+                        "bucket, no host read of the prompt count).  The port always runs "
+                        "it: --no-fused-proposals is accepted and has no effect")
     p.add_argument("--mask-proposals-path", default=None,
                    help="rank the proposal dumps {fold}_{idx}.npy/.npz/.pt in this directory")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 tower weights (DINOv2, CLIP and AlphaCLIP visual, SAM)")
+    p.add_argument("--int8-towers", action="store_true",
+                   help="weight-only int8 tower kernels (combine with --bf16)")
+    p.add_argument("--w8a8-alphaclip", action="store_true",
+                   help="with --int8-towers: dynamic int8 activations on the AlphaCLIP tower "
+                        "too (int8 x int8 products: the compute-bound ranking stage)")
     # text retrieval and visual prompting (reference main_MARS.py:127-141)
     p.add_argument("--prompt-type", default="contour", choices=["mask", "bb", "contour", "ellipse"])
     p.add_argument("--zoom-percentage", type=int, default=50)

@@ -1,6 +1,5 @@
-"""Mask geometry: boxes, box IoU, stability (port of
-``mars_tpu/core/masks.py``: ``mask_to_box``, ``box_area``, ``box_iou``,
-``stability_score``).  The crop helpers are not ported yet.
+"""Mask geometry: boxes, box and mask IoU, stability, crops (port of
+``mars_tpu/core/masks.py``).
 """
 from __future__ import annotations
 
@@ -51,3 +50,69 @@ def stability_score(mask_logits: torch.Tensor, mask_threshold: float,
     hi = (mask_logits > (mask_threshold + offset)).sum(dim=(-1, -2)).float()
     lo = (mask_logits > (mask_threshold - offset)).sum(dim=(-1, -2)).float()
     return hi / torch.clamp(lo, min=1e-9)
+
+
+def mask_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (N, H, W) and (M, H, W) binary masks → (N, M)
+    float32, one matmul of the flattened masks."""
+    af = a.reshape(a.shape[0], -1).float()
+    bf = b.reshape(b.shape[0], -1).float()
+    inter = af @ bf.T
+    union = af.sum(-1)[:, None] + bf.sum(-1)[None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+def is_box_near_crop_edge(boxes: torch.Tensor, crop_box, orig_box,
+                          atol: float = 20.0) -> torch.Tensor:
+    """True for (N, 4) XYXY boxes within ``atol`` of a crop edge that is not
+    an edge of the original image (reference
+    segment_anything/utils/amg.py:84-100)."""
+    crop = torch.tensor(crop_box, dtype=torch.float32, device=boxes.device)
+    orig = torch.tensor(orig_box, dtype=torch.float32, device=boxes.device)
+    b = boxes.float()
+    near_crop = (b - crop[None]).abs() <= atol
+    near_orig = (b - orig[None]).abs() <= atol
+    return (near_crop & ~near_orig).any(dim=-1)
+
+
+def uncrop_boxes_xyxy(boxes: torch.Tensor, crop_box) -> torch.Tensor:
+    """XYXY boxes from crop coordinates back to image coordinates."""
+    x0, y0 = crop_box[0], crop_box[1]
+    return boxes + torch.tensor([x0, y0, x0, y0], dtype=boxes.dtype, device=boxes.device)
+
+
+def uncrop_points(points: torch.Tensor, crop_box) -> torch.Tensor:
+    """(..., 2) XY points from crop coordinates to image coordinates."""
+    return points + torch.tensor(crop_box[:2], dtype=points.dtype, device=points.device)
+
+
+def uncrop_masks(masks: torch.Tensor, crop_box, orig_h: int, orig_w: int) -> torch.Tensor:
+    """(..., h, w) crop-frame masks zero-padded back into the (..., H, W)
+    image frame (reference segment_anything/utils/amg.py:262-271); the crop
+    box is host ints (x0, y0, x1, y1)."""
+    x0, y0, x1, y1 = crop_box
+    if (x0, y0, x1, y1) == (0, 0, orig_w, orig_h):
+        return masks
+    return torch.nn.functional.pad(masks, (x0, orig_w - x1, y0, orig_h - y1))
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, axis=None,
+                eps: float = 1e-9) -> torch.Tensor:
+    """Mean of ``values`` where ``mask`` is nonzero."""
+    m = mask.to(values.dtype)
+    if axis is None:
+        return (values * m).sum() / (m.sum() + eps)
+    return (values * m).sum(dim=axis) / (m.sum(dim=axis) + eps)
+
+
+def coverage_and_prior_scores(prior_grid: torch.Tensor, proposal_grids: torch.Tensor,
+                              support_grid: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Prior-alignment score of every proposal at once: alpha × the mean
+    prior (G, G) under the proposal (P, G, G) + (1 - alpha) × its coverage
+    of the footprint ``support_grid > 0`` (the reference's per-proposal
+    loop, FilteringMergingModule.py:104-123) → (P,)."""
+    p = proposal_grids.float()
+    mean_under = (prior_grid[None] * p).sum(dim=(-1, -2)) / (p.sum(dim=(-1, -2)) + 1e-9)
+    fg = (support_grid > 0).float()
+    cov = (fg[None] * p).sum(dim=(-1, -2)) / (fg.sum() + 1e-9)
+    return alpha * mean_under + (1.0 - alpha) * cov

@@ -9,6 +9,8 @@ kernels (kh, kw, O, I)).
     both packages compute with the same numbers in the tests.
   - ``from_reference_state_dict(sd, tower, depth)``: reference-format torch
     key names (flat name → array) → the tree for one tower, without JAX.
+  - ``resnet_tree(sd, layers)``: a torchvision ResNet state dict → the
+    Matcher's alternative encoder (BatchNorm folded).
   - ``vip_llava_tree(sd, v_layers, layers)``: an HF ViP-LLaVA state dict →
     the VLM's tree (numpy), which ``models.vip_llava.convert_hf`` makes
     tensors of.
@@ -279,6 +281,35 @@ def sam_decoder_tree(sd: StateDict, depth: int = 2) -> dict:
         "iou_head": {f"layer{j}": _dense(d, f"iou_prediction_head.layers.{j}")
                      for j in iou_layers},
     }
+
+
+def _folded_bn(sd: StateDict, prefix: str, eps: float = 1e-5) -> dict:
+    """Inference BatchNorm folded to y = x · scale + bias."""
+    w, b = np.asarray(sd[prefix + ".weight"]), np.asarray(sd[prefix + ".bias"])
+    mean, var = np.asarray(sd[prefix + ".running_mean"]), np.asarray(sd[prefix + ".running_var"])
+    scale = w / np.sqrt(var + eps)
+    return {"scale": scale.astype(np.float32), "bias": (b - mean * scale).astype(np.float32)}
+
+
+def resnet_tree(sd: StateDict, layers) -> dict:
+    """torchvision ResNet (v1.5 bottlenecks) names → the trunk's tree, BN
+    folded (the JAX package's ``resnet.convert_torchvision``); ``layers``:
+    blocks a stage.  ``fc.*`` and ``num_batches_tracked`` are not read."""
+    out = {"stem": {"kernel": _conv(sd["conv1.weight"])}, "stem_bn": _folded_bn(sd, "bn1")}
+    for s, n in enumerate(layers):
+        stage = {}
+        for i in range(n):
+            pre = f"layer{s + 1}.{i}"
+            blk = {}
+            for j in (1, 2, 3):
+                blk[f"conv{j}"] = {"kernel": _conv(sd[f"{pre}.conv{j}.weight"])}
+                blk[f"bn{j}"] = _folded_bn(sd, f"{pre}.bn{j}")
+            if pre + ".downsample.0.weight" in sd:
+                blk["downsample"] = {"conv": {"kernel": _conv(sd[pre + ".downsample.0.weight"])},
+                                     "bn": _folded_bn(sd, pre + ".downsample.1")}
+            stage[f"block{i}"] = blk
+        out[f"layer{s + 1}"] = stage
+    return out
 
 
 def vip_llava_tree(sd: StateDict, v_layers: int, layers: int) -> dict:

@@ -13,8 +13,11 @@ Quantized leaves replace a dense ``kernel`` with a dict, which
 
 The int4 and NF4 products go through ``ops.int4_matmul`` (the hand-written
 kernels on a CUDA tensor); int8 is a float32 product of the int8 values
-with the scale after it.  The ``act8`` (W8A8) marker of the JAX package is
-not ported yet (ROADMAP Queue 1 item 5).
+with the scale after it.  An int8 leaf that also carries ``act8``
+(``quantize_params(act_bits=8)``, W8A8) quantizes the activations per row
+on the fly and multiplies int8 by int8 into int32, exactly: ``torch._int_mm``
+(cuBLASLt) on the card, an int32 matmul on the CPU; as in the JAX package,
+where XLA computes that product outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -93,16 +96,41 @@ def dequantize_kernel(p: dict) -> torch.Tensor:
     return p["q"].float() * p["scale"][None, :]
 
 
+def int8_product(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 → (M, N) int32, exact.  On the card
+    ``torch._int_mm``, whose shape rules (M > 16, K and N multiples of 8)
+    are checked here: a shape that breaks them raises."""
+    (m, kd), n = xq.shape, q.shape[1]
+    if xq.is_cuda:
+        if m <= 16 or kd % 8 or n % 8:
+            raise ValueError(f"torch._int_mm needs M > 16 and K, N multiples of 8: "
+                             f"{m} x {kd} @ {kd} x {n}")
+        # cuBLASLt's int8 GEMM wants B column-major, the layout
+        # ``quantize_params(act_bits=8)`` stores the codes in
+        return torch._int_mm(xq.contiguous(), q)
+    return torch.matmul(xq.to(torch.int32), q.to(torch.int32))
+
+
+def w8a8_dense(k: dict, x2: torch.Tensor) -> torch.Tensor:
+    """(M, IN) floating x @ an ``act8`` int8 leaf: per-row absmax scale
+    max(|x|, 1e-8) / 127, round half to even, clip to ±127, the exact int32
+    product, then (y · sx · scale) in x's type (the JAX package's
+    ``quantized_dense``)."""
+    xf = x2.float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return (int8_product(xq, k["q"]).float() * sx * k["scale"]).to(x2.dtype)
+
+
 def quantized_dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x (..., IN) @ W for a quantized kernel, plus the bias; the result in
     x's type.  One int4 or NF4 call is one kernel launch on the card."""
     k = p["kernel"]
-    if "act8" in k:
-        raise NotImplementedError("W8A8 (act8) kernels are not ported yet: ROADMAP Queue 1 "
-                                  "item 5")
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if "nf4" in k:
+    if "act8" in k and x.is_floating_point():
+        y = w8a8_dense(k, x2)
+    elif "nf4" in k:
         y = int4_matmul.matmul_nf4(x2.contiguous(), k["nf4"], k["bscale"])
     elif "q4" in k:
         y = int4_matmul.matmul_int4(x2.contiguous(), k["q4"], k["scale"])
@@ -115,10 +143,12 @@ def quantized_dense(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_params(params, bits: int = 8, min_size: int = 1 << 14,
-                    int4_format: str = "affine"):
+                    act_bits: int = None, int4_format: str = "affine"):
     """Quantize every 2-D floating ``kernel`` with at least ``min_size``
     elements; ``lm_head`` (not named ``kernel``), biases, norms and
-    embeddings stay floating.  ``int4_format`` (bits=4): "affine" = hybrid
+    embeddings stay floating.  ``act_bits=8`` (with bits=8) marks the
+    kernels ``act8``: dynamic int8 activations too (W8A8,
+    ``quantized_dense``).  ``int4_format`` (bits=4): "affine" = hybrid
     int4, "nf4" = the bitsandbytes codebook; a kernel whose input dim is no
     multiple of 64 falls back to affine int4."""
     if int4_format not in ("affine", "nf4"):
@@ -131,7 +161,12 @@ def quantize_params(params, bits: int = 8, min_size: int = 1 << 14,
                 and leaf.is_floating_point() and leaf.numel() >= min_size):
             if bits == 4 and int4_format == "nf4" and leaf.shape[0] % NF4_BLOCK == 0:
                 return quantize_kernel_nf4(leaf)
-            return quantize_kernel(leaf, bits)
+            out = quantize_kernel(leaf, bits)
+            if act_bits == 8 and bits == 8:
+                # the codes column-major once, as ``int8_product`` passes them
+                out["q"] = out["q"].t().contiguous().t()
+                out["act8"] = torch.ones((), dtype=torch.int8, device=leaf.device)  # marker
+            return out
         return leaf
 
     return q("", params)

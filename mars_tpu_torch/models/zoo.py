@@ -30,6 +30,7 @@ from mars_tpu_torch import device as device_lib
 from mars_tpu_torch.models import clip as clip_m
 from mars_tpu_torch.models import convert
 from mars_tpu_torch.models import dinov2
+from mars_tpu_torch.models import resnet
 from mars_tpu_torch.models import sam
 from mars_tpu_torch.models import vip_llava
 
@@ -210,6 +211,24 @@ def build_sam(models_path: Optional[str] = None, variant: str = "vit_h", seed: i
     pe = params["prompt_encoder"]
     pe["pe_gaussian"] = torch.randn(pe["pe_gaussian"].shape, generator=gen, device=dev)
     return params, cfg
+
+
+def build_resnet(models_path: Optional[str] = None, variant: str = "resnet101", seed: int = 4,
+                 device=None):
+    """→ (params, ResNetConfig): the Matcher's alternative encoder
+    (reference utils/backbone_loader.py:100-151), torchvision's
+    ``{variant}.pth`` from ``models_path`` (its ``fc`` head and BatchNorm
+    counters unread) or seeded random weights."""
+    dev = device_lib.resolve(device)
+    cfg = resnet.ResNetConfig(layers=resnet.BOTTLENECK_LAYERS[variant])
+    path = _file(models_path, f"{variant}.pth")
+    if path is None:
+        return random_params(resnet.param_shapes(cfg), _generator(seed, dev), dev), cfg
+    sd = load_torch_state_dict(path)
+    ignore = ["fc.weight", "fc.bias"] + [k for k in sd if k.endswith("num_batches_tracked")]
+    trees = convert.audited_trees(
+        sd, {"resnet": (convert.resnet_tree, (cfg.layers,), resnet.param_shapes(cfg))}, ignore)
+    return _tensors(trees, dev)["resnet"], cfg
 
 
 def build_vip_llava(seed: int = 0, quantize_bits=4, int4_format: str = "affine",

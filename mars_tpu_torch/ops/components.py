@@ -1,6 +1,5 @@
-"""Connected components and box union on tensors (port of
-``mars_tpu/ops/components.py``: ``label_components``,
-``component_boxes_union``, ``threshold_prior``).
+"""Connected components, box union and small-region cleanup on tensors
+(port of ``mars_tpu/ops/components.py``).
 
 Replaces the reference's cv2 round trip (threshold → findContours →
 boundingRect → paint boxes, PriorInformationRefinementModule.py:91-122):
@@ -15,32 +14,35 @@ import torch
 
 
 def _neighbor_min(lab: torch.Tensor, big: int) -> torch.Tensor:
-    """Min over the 3x3 neighbourhood (8-connectivity) of an (H, W) grid."""
-    h, w = lab.shape
-    padded = torch.full((h + 2, w + 2), big, dtype=lab.dtype, device=lab.device)
-    padded[1:-1, 1:-1] = lab
+    """Min over the 3x3 neighbourhood (8-connectivity) of (..., H, W) grids."""
+    h, w = lab.shape[-2:]
+    padded = torch.full(lab.shape[:-2] + (h + 2, w + 2), big, dtype=lab.dtype,
+                        device=lab.device)
+    padded[..., 1:-1, 1:-1] = lab
     best = lab
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             if dy or dx:
-                best = torch.minimum(best, padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
+                best = torch.minimum(best, padded[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
     return best
 
 
 def label_components(fg: torch.Tensor, num_iters: int = 20) -> torch.Tensor:
-    """8-connected component labels of an (H, W) bool grid: for foreground
-    pixels the flat index of the component's minimum-index pixel, H*W for
-    background.  int64."""
-    h, w = fg.shape
+    """8-connected component labels of (..., H, W) bool grids, each grid on
+    its own: for foreground pixels the flat index of the component's
+    minimum-index pixel, H*W for background.  int64."""
+    h, w = fg.shape[-2:]
     n = h * w
+    lead = fg.shape[:-2]
     big = torch.full_like(fg, n, dtype=torch.long)
     idx = torch.arange(n, device=fg.device).reshape(h, w)
     lab = torch.where(fg, idx, big)
     for _ in range(num_iters):
         lab = torch.minimum(lab, torch.where(fg, _neighbor_min(lab, n), big))
-        flat = lab.reshape(-1)
-        jumped = torch.cat([flat, flat.new_full((1,), n)])[flat.clamp(0, n)]
-        lab = torch.where(fg, torch.minimum(flat, jumped).reshape(h, w), big)
+        flat = lab.reshape(lead + (n,))
+        ext = torch.cat([flat, flat.new_full(lead + (1,), n)], dim=-1)
+        jumped = torch.gather(ext, -1, flat.clamp(0, n))
+        lab = torch.where(fg, torch.minimum(flat, jumped).reshape(fg.shape), big)
     return lab
 
 
@@ -83,3 +85,34 @@ def threshold_prior(prior: torch.Tensor, threshold: float) -> torch.Tensor:
     q = torch.clamp(torch.floor(prior * 255.0), 0, 255).long()
     t = torch.floor(threshold * q.max().float()).long()
     return q > t
+
+
+def remove_small_regions(mask: torch.Tensor, area_thresh: float, mode_holes: bool):
+    """Fill small holes (``mode_holes``) or drop small islands of (..., H, W)
+    bool masks, each on its own, as segment_anything/utils/amg.py:274-299
+    does with cv2.connectedComponentsWithStats → (mask, changed (...,)).
+
+    In islands mode, when every region is below the threshold the largest
+    is kept instead of emptying the mask; component ids are min-pixel
+    row-major indices, the order of cv2's labels, so ``argmax`` (the first
+    maximum) breaks ties as the reference's ``np.argmax`` over cv2's stats."""
+    working = ~mask if mode_holes else mask
+    lab = label_components(working)
+    h, w = mask.shape[-2:]
+    n = h * w
+    lead = mask.shape[:-2]
+    flat = lab.reshape(lead + (n,))
+    sizes = torch.zeros(lead + (n + 1,), dtype=torch.int32, device=mask.device)
+    sizes.scatter_add_(-1, flat, torch.ones_like(flat, dtype=torch.int32))
+    ids = torch.arange(n + 1, device=mask.device)
+    # the background of ``working`` is bucket n, never a region
+    small = (sizes < area_thresh) & (ids < n)
+    is_small = torch.gather(small, -1, flat.clamp(0, n)).reshape(mask.shape)
+    changed = (is_small & working).flatten(-2).any(dim=-1)
+    new_working = working & ~is_small
+    if not mode_holes:
+        largest = torch.where(ids < n, sizes, 0).argmax(dim=-1)
+        all_small = ~new_working.flatten(-2).any(dim=-1)
+        keep_largest = working & (lab == largest[..., None, None])
+        new_working = torch.where(all_small[..., None, None], keep_largest, new_working)
+    return (~new_working if mode_holes else new_working), changed

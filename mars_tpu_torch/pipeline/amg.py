@@ -1,29 +1,29 @@
-"""Automatic mask generation over selected prompt sets (port of
-``mars_tpu/pipeline/amg.py``: ``AmgConfig``, ``encode_target``,
-``_select_layers``, ``decode_prompt_sets``, ``nms_filter``,
-``concat_decodes``).
+"""Automatic mask generation (port of ``mars_tpu/pipeline/amg.py``): the
+Matcher's selected prompt sets, the dense grid sweep, the crop pyramid and
+the small-region cleanup (reference
+segment_anything/automatic_mask_generator.py).
 
-The image is encoded once; every prompt set is a fixed-(K, 2) row of one
-(B, K) batch padded with label -1, and the pad tokens are masked out of the
-decoder's attention, so mixed-size rows decode as their unpadded selves.
-Filters are validity-mask updates; masks stay dense on the device.
+The image is encoded once a crop; every prompt set is a fixed-(K, 2) row of
+one (B, K) batch padded with label -1, and the pad tokens are masked out of
+the decoder's attention, so mixed-size rows decode as their unpadded
+selves.  Filters are validity-mask updates; masks stay dense on the device.
 
 The JAX package's dead-chunk skip (a device conditional per chunk of
 ``decode_batch`` rows) becomes a host loop over the live chunks only: one
-``int(set_valid.sum())`` sync per decode.  The dense grid sweep (and its
-thresholds), the crop pyramid and the small-region cleanup are not ported
-yet.
+``int(set_valid.sum())`` sync per decode.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from itertools import product
 from typing import Optional, Tuple
 
 import torch
 
 from mars_tpu_torch.core import imaging, masks as mask_ops
 from mars_tpu_torch.models import sam
-from mars_tpu_torch.ops import nms as nms_ops
+from mars_tpu_torch.ops import components, nms as nms_ops
 
 
 @dataclass(frozen=True)
@@ -32,12 +32,24 @@ class AmgConfig:
     sel_pred_iou_thresh: float = 0.88
     sel_stability_score_thresh: float = 0.95
     sel_stability_score_offset: float = 1.0
+    # thresholds for the dense grid sweep
+    pred_iou_thresh: float = 0.88
+    stability_score_thresh: float = 0.95
+    stability_score_offset: float = 1.0
     box_nms_thresh: float = 0.7
+    points_per_side: int = 32
     # multimask selection: single-mask output unless sel_multimask_output;
     # 0..2 → that multimask layer; 3..5 → layers (k-3).. (reference :405-415)
     sel_multimask_output: bool = False
     sel_output_layer: int = 3
+    multimask_output: bool = True
+    output_layer: int = 3
     decode_batch: int = 32
+    # the crop pyramid (reference automatic_mask_generator.py:51-54)
+    crop_n_layers: int = 0
+    crop_nms_thresh: float = 0.7
+    crop_overlap_ratio: float = 512 / 1500
+    crop_n_points_downscale_factor: int = 1
 
 
 def encode_target(params, image01: torch.Tensor, cfg: sam.SamConfig) -> torch.Tensor:
@@ -70,19 +82,29 @@ def decode_prompt_sets(params, embedding, point_coords, point_labels, set_valid,
                        model_cfg: sam.SamConfig, cfg: AmgConfig,
                        original_size: Tuple[int, int] = (518, 518),
                        box: Optional[torch.Tensor] = None,
-                       mask_input: Optional[torch.Tensor] = None) -> dict:
+                       mask_input: Optional[torch.Tensor] = None,
+                       dense_grid: bool = False) -> dict:
     """Decode every prompt set and apply the AMG filters.
 
     embedding (G, G, C); point_coords (B, K, 2) xy in original pixels;
     point_labels (B, K) in {-1, 0, 1}; set_valid (B,); ``box`` (4,) xyxy and
-    ``mask_input`` (4G, 4G) low-res logits are optional prompts.  Returns a
-    dict over N = B·M mask slots: masks (N, H, W) bool, low_res_logits,
-    iou, stability, boxes (N, 4) float, valid (after iou/stability), and
-    set_index.  NMS is the caller's (across all prompt batches)."""
+    ``mask_input`` (4G, 4G) low-res logits are optional prompts.  The
+    ``sel_*`` thresholds and multimask choice apply, or with ``dense_grid``
+    the grid sweep's.  Returns a dict over N = B·M mask slots: masks
+    (N, H, W) bool, low_res_logits, iou, stability, boxes (N, 4) float,
+    valid (after iou/stability), and set_index.  NMS is the caller's
+    (across all prompt batches)."""
     g = embedding.shape[0]
     b0 = point_coords.shape[0]
     dev = embedding.device
-    multimask, out_layer = cfg.sel_multimask_output, cfg.sel_output_layer
+    if dense_grid:
+        iou_thr, st_thr, st_off = (cfg.pred_iou_thresh, cfg.stability_score_thresh,
+                                   cfg.stability_score_offset)
+        multimask, out_layer = cfg.multimask_output, cfg.output_layer
+    else:
+        iou_thr, st_thr, st_off = (cfg.sel_pred_iou_thresh, cfg.sel_stability_score_thresh,
+                                   cfg.sel_stability_score_offset)
+        multimask, out_layer = cfg.sel_multimask_output, cfg.sel_output_layer
     in_hw = (model_cfg.img_size,) * 2
 
     coords = sam.transform_coords(point_coords, original_size, model_cfg.img_size)
@@ -120,8 +142,7 @@ def decode_prompt_sets(params, embedding, point_coords, point_labels, set_valid,
         up = sam.postprocess_masks(lr, model_cfg.img_size, original_size)
         th = up > model_cfg.mask_threshold
         outs.append((rows, th, lr, iou,
-                     mask_ops.stability_score(up, model_cfg.mask_threshold,
-                                              cfg.sel_stability_score_offset),
+                     mask_ops.stability_score(up, model_cfg.mask_threshold, st_off),
                      mask_ops.mask_to_box(th).float()))
 
     m = 6 - out_layer if multimask and out_layer >= 3 else 1  # slots _select_layers keeps
@@ -138,10 +159,10 @@ def decode_prompt_sets(params, embedding, point_coords, point_labels, set_valid,
     iou_all = iou_all.reshape(-1)
     stab_all = stab_all.reshape(-1)
     valid = set_valid.repeat_interleave(m)
-    if cfg.sel_pred_iou_thresh > 0:
-        valid = valid & (iou_all > cfg.sel_pred_iou_thresh)
-    if cfg.sel_stability_score_thresh > 0:
-        valid = valid & (stab_all >= cfg.sel_stability_score_thresh)
+    if iou_thr > 0:
+        valid = valid & (iou_all > iou_thr)
+    if st_thr > 0:
+        valid = valid & (stab_all >= st_thr)
     # EMPTY decoded masks stay valid, as in the reference (their [0,0,0,0]
     # boxes are never suppressed and scoring sinks them)
     return {
@@ -163,3 +184,132 @@ def nms_filter(data: dict, box_nms_thresh: float) -> dict:
 
 def concat_decodes(results) -> dict:
     return {k: torch.cat([r[k] for r in results], dim=0) for k in results[0]}
+
+
+def _linspace_f32(start: float, stop: float, num: int, device) -> torch.Tensor:
+    """``jnp.linspace`` in float32 as XLA computes it: with r = 1 / (num - 1)
+    rounded, start·(1 - i·r) + i·(stop·r), and stop itself as the last
+    entry.  (XLA:CPU's LLVM contracts the last multiply-add into an FMA,
+    which can move an entry by one float32 ulp; here nothing is fused.)"""
+    start_t = torch.tensor(start, dtype=torch.float32, device=device)
+    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    if num == 1:
+        return start_t[None]
+    r = torch.tensor(1.0, dtype=torch.float32) / (num - 1)
+    i = torch.arange(num - 1, dtype=torch.float32, device=device)
+    return torch.cat([start_t * (1 - i * r.to(device)) + i * (stop_t * r.to(device)),
+                      stop_t[None]])
+
+
+def grid_points(points_per_side: int, original_size: Tuple[int, int], device=None) -> torch.Tensor:
+    """The dense AMG grid (reference utils/amg.py:179-198): n² cell centres
+    in normalised coordinates, x fastest, scaled to (W, H) → (n², 2)
+    float32."""
+    offset = 1.0 / (2 * points_per_side)
+    ax = _linspace_f32(offset, 1.0 - offset, points_per_side, device)
+    gy, gx = torch.meshgrid(ax, ax, indexing="ij")
+    pts = torch.stack([gx, gy], dim=-1).reshape(-1, 2)
+    return pts * torch.tensor([original_size[1], original_size[0]], dtype=torch.float32,
+                              device=device)
+
+
+def generate_dense(params, embedding, model_cfg: sam.SamConfig, cfg: AmgConfig,
+                   original_size: Tuple[int, int] = (518, 518)) -> dict:
+    """The grid sweep (reference _process_crop :326-330, _process_batch
+    :385-453): ``points_per_side``² one-point prompts decoded with the
+    dense thresholds, then NMS.  The dict of ``decode_prompt_sets``."""
+    pts = grid_points(cfg.points_per_side, original_size, embedding.device)[:, None, :]
+    n = pts.shape[0]
+    labels = torch.ones((n, 1), dtype=torch.int32, device=embedding.device)
+    data = decode_prompt_sets(params, embedding, pts, labels,
+                              torch.ones((n,), dtype=torch.bool, device=embedding.device),
+                              model_cfg, cfg, original_size=original_size, dense_grid=True)
+    return nms_filter(data, cfg.box_nms_thresh)
+
+
+def generate_crop_boxes(im_size: Tuple[int, int], n_layers: int, overlap_ratio: float):
+    """The crop pyramid on the host: layer i has (2^i)² crops (reference
+    utils/amg.py:200-239) → ([(x0, y0, x1, y1), ...], [layer, ...])."""
+    im_h, im_w = im_size
+    short_side = min(im_h, im_w)
+    crop_boxes, layer_idxs = [(0, 0, im_w, im_h)], [0]
+
+    def crop_len(orig_len, n_crops, overlap):
+        return int(math.ceil((overlap * (n_crops - 1) + orig_len) / n_crops))
+
+    for i_layer in range(n_layers):
+        n_side = 2 ** (i_layer + 1)
+        overlap = int(overlap_ratio * short_side * (2 / n_side))
+        cw, ch = crop_len(im_w, n_side, overlap), crop_len(im_h, n_side, overlap)
+        xs = [int((cw - overlap) * i) for i in range(n_side)]
+        ys = [int((ch - overlap) * i) for i in range(n_side)]
+        for x0, y0 in product(xs, ys):
+            crop_boxes.append((x0, y0, min(x0 + cw, im_w), min(y0 + ch, im_h)))
+            layer_idxs.append(i_layer + 1)
+    return crop_boxes, layer_idxs
+
+
+def generate_multicrop(params, image01, model_cfg: sam.SamConfig, cfg: AmgConfig,
+                       original_size: Tuple[int, int] = (518, 518)) -> dict:
+    """Dense AMG over the crop pyramid (reference _generate_masks :245-292,
+    _process_crop :293-384): per crop one encode at ``img_size`` (crops are
+    never cached: each is its own image), the layer's point grid, the dense
+    filters, the crop-edge filter and NMS inside the crop; masks, boxes and
+    points back in the image frame; then NMS across crops scored by 1 /
+    crop area (smaller crops first).  image01 (H, W, 3) in [0, 1].  Every
+    crop's slots are kept (N = Σ crops' B·M), dead ones invalid; no
+    ``low_res_logits`` (crop-frame logits do not compare)."""
+    h, w = original_size
+    crop_boxes, layer_idxs = generate_crop_boxes((h, w), cfg.crop_n_layers,
+                                                 cfg.crop_overlap_ratio)
+    dev = image01.device
+    results = []
+    for cb, layer in zip(crop_boxes, layer_idxs):
+        x0, y0, x1, y1 = cb
+        emb = encode_target(params, image01[y0:y1, x0:x1], model_cfg)
+        n_side = max(1, cfg.points_per_side // (cfg.crop_n_points_downscale_factor ** layer))
+        pts = grid_points(n_side, (y1 - y0, x1 - x0), dev)[:, None, :]
+        n = pts.shape[0]
+        data = decode_prompt_sets(params, emb, pts,
+                                  torch.ones((n, 1), dtype=torch.int32, device=dev),
+                                  torch.ones((n,), dtype=torch.bool, device=dev), model_cfg,
+                                  cfg, original_size=(y1 - y0, x1 - x0), dense_grid=True)
+        del data["low_res_logits"]
+        boxes = mask_ops.uncrop_boxes_xyxy(data["boxes"], cb)
+        data["valid"] = data["valid"] & ~mask_ops.is_box_near_crop_edge(boxes, cb, (0, 0, w, h))
+        data = nms_filter(data, cfg.box_nms_thresh)
+        data["masks"] = mask_ops.uncrop_masks(data["masks"], cb, h, w)
+        data["boxes"] = boxes
+        data["points"] = mask_ops.uncrop_points(pts[data["set_index"], 0], cb)
+        data["crop_area"] = torch.full((data["masks"].shape[0],), float((x1 - x0) * (y1 - y0)),
+                                       dtype=torch.float32, device=dev)
+        results.append(data)
+    out = concat_decodes(results)
+    if len(crop_boxes) > 1:
+        out["valid"] = nms_ops.nms_keep(out["boxes"], 1.0 / out["crop_area"], out["valid"],
+                                        cfg.crop_nms_thresh)
+    return out
+
+
+CLEANUP_CHUNK = 32  # live masks a batched component labelling takes
+
+
+def postprocess_small_regions(data: dict, min_area: int, nms_thresh: float) -> dict:
+    """Fill holes and drop islands smaller than ``min_area`` in every live
+    mask, then NMS again with changed masks scored 0 and the rest 1 (the
+    reference's "prefer unchanged masks", automatic_mask_generator.py:558-607,
+    utils/amg.py:274-299); boxes come from the cleaned masks.  Live masks
+    are cleaned ``CLEANUP_CHUNK`` at a time; dead slots (never kept by NMS)
+    keep their masks and boxes as they came."""
+    masks, boxes = data["masks"].clone(), data["boxes"].clone()
+    changed = torch.zeros((masks.shape[0],), dtype=torch.bool, device=masks.device)
+    live = torch.nonzero(data["valid"])[:, 0]
+    for start in range(0, live.shape[0], CLEANUP_CHUNK):
+        rows = live[start:start + CLEANUP_CHUNK]
+        m1, ch_holes = components.remove_small_regions(masks[rows], float(min_area), True)
+        m2, ch_islands = components.remove_small_regions(m1, float(min_area), False)
+        masks[rows], changed[rows] = m2, ch_holes | ch_islands
+        boxes[rows] = mask_ops.mask_to_box(m2).to(boxes.dtype)
+    scores = torch.where(changed, 0.0, 1.0)
+    keep = nms_ops.nms_keep(boxes, scores, data["valid"], nms_thresh)
+    return {**data, "masks": masks, "boxes": boxes, "valid": keep}

@@ -6,24 +6,36 @@
     similarity filter, patch index → pixel-centre points;
   - RobustPromptSampler as fixed tables: every C(n, i) combination for
     n ≤ 8, Gumbel-top-k draws per size for n > 8 (reference :1226-1295);
-  - one SAM encode, one batched decode of the union of both prompt families
-    (the inactive family is invalid in place), NMS, per-mask purity,
-    coverage and EMD scores, metric filters and the merge (reference
-    :619-834), and the ranking bucket, best mask score first.
+  - negative priors (reference :304-417, :643-660): forward pairs whose
+    reverse match left the support mask (``use_negative_priors_from_
+    discarded``) and the most dissimilar pairs of a maximising auction on
+    the cost matrix (``use_negative_priors_from_cost``), co-sampled as
+    label-0 points beside each prompt set; ``merge_prompt_types`` also
+    decodes the plain sets;
+  - one SAM encode, one batched decode per prompt group (optionally with
+    the matched points' box, ``use_box``, and a previous low-res mask as
+    the cascade's ``target_mask_low_res``), NMS over all groups, per-mask
+    purity, coverage and EMD scores, metric filters and the merge
+    (reference :619-834), and the ranking bucket, best mask score first.
+
+The decode always runs over the union of both prompt families' rows (the
+inactive family is invalid in place, no host decision): the JAX package's
+``fuse_programs=True``.  Its two-program flow (``False``: a host read of
+the prompt count, then the active family's rows only) gives the same
+bucket and merged mask and is not kept: the decode already skips dead
+chunks, so it would save no work here.
 
 Stages carry ``torch.profiler`` spans ``matcher.{features, match, encode,
 decode, nms, score}``.  The prompts are the raw matched points
 (``use_points_or_centers=True``, the default) or, with it False
 (``cli_proposals --use-centers``), ``num_centers`` k-means++ centres of
-them (``ops.kmeans``; reference :579-591), rounded to pixels.  Negative
-priors, the box prompt (``use_box``), the cascade mask input
-(``target_mask_low_res``) and the two-program flow are not ported yet.
+them (``ops.kmeans``; reference :579-591), rounded to pixels.
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +57,11 @@ class MatcherConfig:
     patch_size: int = 14
     sample_range: Tuple[int, int] = (4, 6)
     max_sample_iterations: int = 30
+    use_box: bool = False
+    # negative priors (reference :304-417,643-660)
+    use_negative_priors_from_discarded: bool = False
+    use_negative_priors_from_cost: bool = False
+    merge_prompt_types: bool = False
     # mask scoring (reference :719-720): score = α·emd + β·purity·coverage^exp
     alpha: float = 1.0
     beta: float = 0.0
@@ -127,17 +144,104 @@ def prompt_points(points, point_valid, cfg: MatcherConfig,
             torch.nn.functional.pad(c_valid, (0, l - k)))
 
 
-def matched_points(s_mat, support_fg, cfg: MatcherConfig):
+def _better_half(selected, key):
+    """``selected`` (L,) kept where its rank by ``key`` ascending (stable,
+    the unselected last) is inside the better half when more than 40 are
+    selected, else all of them (reference :505-508)."""
+    l = selected.shape[0]
+    n = selected.sum()
+    reduced = torch.where(n > 40, n // 2, n)
+    order = torch.argsort(torch.where(selected, key, float("inf")), stable=True)
+    rank = torch.empty((l,), dtype=torch.int64, device=selected.device)
+    rank[order] = torch.arange(l, device=selected.device)
+    return selected & (rank < reduced)
+
+
+def matched_points(s_mat, support_fg, cfg: MatcherConfig, match=None):
     """Matching → pixel-centre points (L, 2) and validity (L,), after the
-    top-half similarity filter (reference :505-508)."""
+    top-half similarity filter (reference :505-508).  ``match``: the
+    ``bidirectional_match`` of these inputs, when already made."""
     l = s_mat.shape[1]
-    _, _, retained, sim, _ = bidirectional_match(s_mat, support_fg)
-    n_pos = retained.sum()
-    reduced = torch.where(n_pos > 40, n_pos // 2, n_pos)
-    order = torch.argsort(torch.where(retained, -sim, float("inf")), stable=True)
-    rank = torch.empty((l,), dtype=torch.int64, device=s_mat.device)
-    rank[order] = torch.arange(l, device=s_mat.device)
-    return _patch_centres(l, cfg, s_mat.device), retained & (rank < reduced)
+    _, _, retained, sim, _ = match if match is not None else bidirectional_match(s_mat,
+                                                                                  support_fg)
+    return _patch_centres(l, cfg, s_mat.device), _better_half(retained, -sim)
+
+
+def negative_points_from_discarded(s_mat, support_fg, cfg: MatcherConfig, match=None):
+    """Negative priors: forward pairs whose reverse match fell outside the
+    support mask (before the all-discarded fallback), the least similar
+    half of them when more than 40 (reference
+    sample_negative_points_from_discarded :304-348) → (points (L, 2),
+    valid (L,)).  ``match``: the positives' ``bidirectional_match`` of the
+    same inputs, reused instead of solved again."""
+    l = s_mat.shape[1]
+    _, pair_valid, _, sim, retained_raw = (match if match is not None
+                                           else bidirectional_match(s_mat, support_fg))
+    return _patch_centres(l, cfg, s_mat.device), _better_half(pair_valid & ~retained_raw, sim)
+
+
+def negative_points_from_cost(cost, support_fg, cfg: MatcherConfig):
+    """Negative priors from maximising the cost matrix (reference
+    sample_negative_points_from_cost :350-417) → (points (L, 2), valid
+    (L,)): the forward auction over every row in 5 ε-phases (on ``cost.T``
+    when R > L, the side that can assign fully), then the most dissimilar
+    half of the matched set.  The JAX package's source also solves a
+    reverse auction over the matched columns (mars_tpu/pipeline/
+    matcher.py:207-209) whose result reaches no output, so its compiled
+    program drops it (the top half is taken over the full matched set,
+    :210-217); it is not run here."""
+    r, l = cost.shape
+    dev = cost.device
+    if r <= l:
+        cols = assignment.auction_assignment(cost, torch.ones((r,), dtype=torch.bool,
+                                                              device=dev), n_phases=5)
+        matched_row = torch.full((l + 1,), -1, dtype=torch.int32, device=dev)
+        matched_row[torch.where(cols >= 0, cols, l).long()] = torch.arange(
+            r, dtype=torch.int32, device=dev)
+        matched_row = matched_row[:l]
+    else:
+        matched_row = assignment.auction_assignment(
+            cost.T, torch.ones((l,), dtype=torch.bool, device=dev), n_phases=5)
+    pair_valid = matched_row >= 0
+    cost_f = torch.where(pair_valid, cost[matched_row.clamp(0, r - 1).long(),
+                                          torch.arange(l, device=dev)], float("-inf"))
+    return _patch_centres(l, cfg, dev), _better_half(pair_valid, -cost_f)
+
+
+def co_sample_negatives(neg_points, neg_valid, cfg: MatcherConfig,
+                        neg_gumbel: Optional[torch.Tensor] = None,
+                        neg_cat_gumbel: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None):
+    """As many label-0 points beside each prompt set as its size (reference
+    :1243-1267): drawn without replacement when more than 8 negatives are
+    valid, with replacement otherwise → (coords (B, K, 2), labels (B, K)),
+    padded with label -1, rows of ``prompt_set_sizes``.
+
+    ``neg_gumbel`` (B, L) is the noise of the draw without replacement
+    (Gumbel-top-k), ``neg_cat_gumbel`` (B, K, L) that of the K categorical
+    draws with replacement (argmax of noise + log-weights, as
+    ``jax.random.categorical`` with ``shape=(K,)``); else both are standard
+    Gumbel noise from ``generator``."""
+    sizes = torch.from_numpy(prompt_set_sizes(cfg)).to(neg_points.device)
+    b, k, l = sizes.shape[0], cfg.sample_range[1], neg_points.shape[0]
+    dev = neg_points.device
+    n_neg = neg_valid.sum()
+    pts_c = neg_points[torch.argsort((~neg_valid).to(torch.int32), stable=True)]
+    if neg_gumbel is None:
+        neg_gumbel = -torch.empty((b, l), device=dev).exponential_(generator=generator).log()
+    if neg_cat_gumbel is None:
+        neg_cat_gumbel = -torch.empty((b, k, l), device=dev).exponential_(
+            generator=generator).log()
+    live = torch.arange(l, device=dev) < n_neg
+    without = torch.argsort(-torch.where(live[None, :], neg_gumbel.to(dev).float(),
+                                         float("-inf")), dim=1, stable=True)[:, :k]
+    with_repl = torch.argmax(neg_cat_gumbel.to(dev).float()
+                             + torch.where(live, 0.0, float("-inf")), dim=-1)
+    idx = torch.where(n_neg > 8, without, with_repl)
+    in_set = torch.arange(k, device=dev)[None, :] < sizes[:, None]
+    coords = torch.where(in_set[..., None], pts_c[idx], 0.0)
+    labels = torch.where(in_set & (n_neg > 0), 0, -1).to(torch.int32)
+    return coords, labels
 
 
 # ---------------------------------------------------------------------------
@@ -318,22 +422,65 @@ def _features_and_matrices(dino_params, support_images, support_masks, support_v
     return s_mat, (1.0 - s_mat) / 2.0, pooled.reshape(-1)
 
 
+def _prompt_groups(coords, labels, s_mat, cost, support_fg, match, cfg: MatcherConfig,
+                   generator, neg_noise):
+    """The decode's prompt groups (JAX ``_propose_stage``): the positive
+    sets alone, or one group per negative source (positive and co-sampled
+    negative points along K) plus, with ``merge_prompt_types``, the
+    positive sets → [(coords, labels)]."""
+    sources = []
+    if cfg.use_negative_priors_from_discarded:
+        sources.append(negative_points_from_discarded(s_mat, support_fg, cfg, match))
+    if cfg.use_negative_priors_from_cost:
+        sources.append(negative_points_from_cost(cost, support_fg, cfg))
+    if not sources:
+        return [(coords, labels)]
+    groups = []
+    for si, (neg_pts, neg_valid) in enumerate(sources):
+        noise = neg_noise[si] if neg_noise is not None else (None, None)
+        ncoords, nlabels = co_sample_negatives(neg_pts, neg_valid, cfg, *noise,
+                                               generator=generator)
+        groups.append((torch.cat([coords, ncoords], dim=1), torch.cat([labels, nlabels], dim=1)))
+    if cfg.merge_prompt_types:
+        groups.append((coords, labels))
+    return groups
+
+
+def _points_box(points, point_valid, cfg: MatcherConfig):
+    """The matched points' XYXY box clipped to the image (JAX
+    ``_propose_stage``; infinite when no point is valid)."""
+    inf = float("inf")
+    x, y = points[:, 0], points[:, 1]
+    return torch.stack([
+        torch.clamp(torch.where(point_valid, x, inf).min(), min=0),
+        torch.clamp(torch.where(point_valid, y, inf).min(), min=0),
+        torch.clamp(torch.where(point_valid, x, -inf).max(), max=cfg.input_size - 1),
+        torch.clamp(torch.where(point_valid, y, -inf).max(), max=cfg.input_size - 1)])
+
+
 def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
                        sam_cfg: sam.SamConfig, amg_cfg: amg.AmgConfig, cfg: MatcherConfig,
                        support_images, support_masks, support_valid, query_image,
                        generator: Optional[torch.Generator] = None,
                        bucket: Optional[int] = None,
                        gumbel: Optional[torch.Tensor] = None,
-                       kmeans_gumbel: Optional[torch.Tensor] = None) -> dict:
-    """The Matcher flow (reference Matcher.predict :216-249) over the union
-    of both prompt families' rows.
+                       kmeans_gumbel: Optional[torch.Tensor] = None,
+                       target_mask_low_res: Optional[torch.Tensor] = None,
+                       neg_noise: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None
+                       ) -> dict:
+    """The Matcher flow (reference Matcher.predict :216-249).
 
     support_images (S, H, W, 3) in [0, 1], support_masks (S, H, W),
     support_valid (S,), query_image (H, W, 3).  ``generator`` draws the
-    prompt sampler's noise (or pass ``gumbel``), and first the k-means
-    seeding's with centres (or pass ``kmeans_gumbel``); ``bucket``: also return
-    the ranking bucket ("bucket_masks", "bucket_valid": live rows first,
-    best mask score first).  Returns proposal masks (N, H, W) bool and
+    noise, in this order: the k-means seeding's with centres (or pass
+    ``kmeans_gumbel``), the prompt sampler's (or ``gumbel``), then each
+    negative source's co-sampling (or ``neg_noise``: one (neg_gumbel,
+    neg_cat_gumbel) pair per active source, discarded first, see
+    ``co_sample_negatives``).  ``target_mask_low_res`` (4G, 4G): a previous
+    low-res mask, the cascade's mask input to every decode.  The decode
+    runs over the union of both families' rows.  ``bucket``: also return the
+    ranking bucket ("bucket_masks", "bucket_valid": live rows first, best
+    mask score first).  Returns proposal masks (N, H, W) bool and
     validity, their scores, the merged mask, the cost matrix and the
     support footprint."""
     with record_function("matcher.features"):
@@ -341,18 +488,23 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
             dino_params, support_images, support_masks, support_valid, query_image,
             dino_cfg, cfg.grid)
     with record_function("matcher.match"):
-        points, point_valid = matched_points(s_mat, support_fg, cfg)
+        match = bidirectional_match(s_mat, support_fg)
+        points, point_valid = matched_points(s_mat, support_fg, cfg, match)
         prompt_pts, prompt_valid = prompt_points(points, point_valid, cfg, generator,
                                                  kmeans_gumbel)
+        rows = torch.tensor(union_family_rows(cfg), device=s_mat.device)
         coords, labels, set_valid = sample_prompt_sets(prompt_pts, prompt_valid, cfg,
                                                        generator=generator, gumbel=gumbel)
-        rows = torch.tensor(union_family_rows(cfg), device=coords.device)
+        groups = _prompt_groups(coords, labels, s_mat, cost, support_fg, match, cfg, generator,
+                                neg_noise)
+        box = _points_box(points, point_valid, cfg) if cfg.use_box else None
     with record_function("matcher.encode"):
         embedding = amg.encode_target(sam_params, query_image, sam_cfg)
     with record_function("matcher.decode"):
-        dec = amg.decode_prompt_sets(
-            sam_params, embedding, coords[rows], labels[rows], set_valid[rows], sam_cfg,
-            amg_cfg, original_size=(cfg.input_size, cfg.input_size))
+        dec = amg.concat_decodes([amg.decode_prompt_sets(
+            sam_params, embedding, gcoords[rows], glabels[rows], set_valid[rows], sam_cfg,
+            amg_cfg, original_size=(cfg.input_size, cfg.input_size), box=box,
+            mask_input=target_mask_low_res) for gcoords, glabels in groups])
     n_decoded = dec["valid"].sum()  # live masks before NMS
     with record_function("matcher.nms"):
         dec = amg.nms_filter(dec, amg_cfg.box_nms_thresh)
@@ -372,6 +524,9 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
             props = pad_proposals((dec["masks"][order] & valid_o[:, None, None]).float(),
                                   bucket, valid=valid_o)
             out["bucket_masks"], out["bucket_valid"] = props.masks, props.valid
+        xi = points[:, 0].long().clamp(0, merged.shape[1] - 1)
+        yi = points[:, 1].long().clamp(0, merged.shape[0] - 1)
+        inside = (point_valid & (merged[yi, xi] > 0)).sum()
     return out | {
         "proposal_masks": dec["masks"], "proposal_valid": dec["valid"],
         "low_res_logits": dec["low_res_logits"], "iou": dec["iou"],
@@ -382,6 +537,7 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
         "point_valid": point_valid, "prompt_pts": prompt_pts, "prompt_valid": prompt_valid,
         "telemetry": {"n_support_patches": support_fg.sum(),
                       "n_matched_points": point_valid.sum(),
-                      "n_prompt_sets": set_valid.sum(), "n_decoded": n_decoded,
-                      "n_proposals": dec["valid"].sum(), "n_merged": chosen.sum()},
+                      "n_prompt_sets": set_valid.sum() * len(groups), "n_decoded": n_decoded,
+                      "n_proposals": dec["valid"].sum(), "n_merged": chosen.sum(),
+                      "positive_points_inside_mask": inside},
     }

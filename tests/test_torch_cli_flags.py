@@ -5,12 +5,15 @@ import os
 import re
 import shlex
 
+import numpy as np
 import pytest
 
 from mars_tpu import cli as jcli, cli_proposals as jcli_proposals
 from mars_tpu.models import dinov2 as jdino
 from mars_tpu_torch import cli as tcli
 from mars_tpu_torch import cli_proposals as tcli_proposals
+from mars_tpu_torch.pipeline import matcher as tmatcher
+from test_torch_cli_proposals import SIZE, tiny_port, trees  # noqa: F401  (fixtures)
 
 # the flags this port gives meaning to (mars_tpu/cli.py:385-535)
 PORTED = ["benchmark", "datapath", "annotations_datapath", "models_path", "nshot", "fold",
@@ -27,9 +30,12 @@ PORTED = ["benchmark", "datapath", "annotations_datapath", "models_path", "nshot
           "vlm_kv8", "vlm_draft_tokens", "pipelined_text", "text_block", "vlm_path", "jax_vlm",
           # the fold's bookkeeping (mars_tpu/cli.py:464-525)
           "overlap_ranking", "log_path", "exp_name", "visualize", "bad_preds_path", "resume",
-          "resume_every"]
+          "resume_every",
+          # the Matcher's flow (parsed, no effect: the port runs one flow) and the
+          # tower quantization (mars_tpu/cli.py:405-410,527-534)
+          "fused_proposals", "int8_towers", "w8a8_alphaclip"]
 # the JAX CLI's flags the port does not take yet (ROADMAP Queue 1)
-NOT_PORTED = ["fused_proposals", "proposal_model", "int8_towers", "w8a8_alphaclip"]
+NOT_PORTED = ["proposal_model"]
 # the flags cli_proposals shares with it (mars_tpu/cli_proposals.py:30-57)
 PROPOSAL_FLAGS = ["benchmark", "datapath", "models_path", "fold", "nshot", "input_size",
                   "episodes", "sam_size", "dino_backbone", "num_regs", "bf16", "seed"]
@@ -237,3 +243,33 @@ def test_eval_script_flags_parse(proposal_args):
         dest = next(d for d, a in dests.items() if flag in a.option_strings)
         assert getattr(targs, dest) == getattr(jargs, dest), flag
     assert (targs.log_path, targs.exp_name) == ("output/mars/coco/fold0", "1shot")
+
+
+def test_cli_proposals_two_program_dumps_equal_union_flow(tiny_port, tmp_path, monkeypatch):
+    """The two-program evaluation's first program (cli_proposals) runs the
+    Matcher's one flow over the union of both prompt families (the JAX CLI
+    runs its two-program flow there, whose live rows are the same); every
+    array of its dumps equals that flow's output, live rows in order."""
+    outs = []
+    real = tmatcher.generate_proposals
+
+    def record(*a, **k):
+        outs.append(real(*a, **k))
+        return outs[-1]
+
+    monkeypatch.setattr(tcli_proposals.matcher, "generate_proposals", record)
+    res = tcli_proposals.main(["--episodes", "2", "--input-size", str(SIZE), "--sam-size",
+                               "vit_b", "--device", "cpu", "--out", str(tmp_path / "p")])
+    assert len(outs) == 2 and sum(res["live_proposals"]) > 0
+    rows = len(tmatcher.union_family_rows(tmatcher.MatcherConfig()))
+    for path, out in zip(res["files"], outs):
+        valid = out["proposal_valid"].numpy()
+        assert valid.shape == (3 * rows,)  # sel_output_layer 3: three mask slots a set
+        want = {"masks": out["proposal_masks"].numpy()[valid].astype(np.uint8),
+                "iou": out["iou"].numpy()[valid], "stability": out["stability"].numpy()[valid],
+                "emd": out["emd_score"].numpy()[valid],
+                "merged": out["merged"].numpy().astype(np.uint8)}
+        with np.load(path) as got:
+            for key, value in want.items():
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+

@@ -722,3 +722,80 @@ def test_predict_launch_equals_predict_without_a_sync(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(again, want)
     np.testing.assert_array_equal(got.cpu().numpy(), data["merged"])
+
+
+def test_cost_negatives_dense_contested_equal_plain_on_card(dev, monkeypatch):
+    """``negative_points_from_cost`` at one shot's 1369² (every row valid):
+    the forward auction's 5 ε-phases on the kernel (5 launches), against
+    the same flow with the plain phase on the card: the negatives bitwise
+    equal."""
+    from mars_tpu_torch.ops import assignment as asg
+    from mars_tpu_torch.pipeline import matcher
+
+    rng = np.random.RandomState(9)
+    feats = rng.randn(2 * 1369, 64).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    cost = torch.from_numpy((1.0 - feats[:1369] @ feats[1369:].T) / 2.0).to(dev)
+    fg = torch.from_numpy(rng.rand(1369) < 0.1).to(dev)
+    cfg = matcher.MatcherConfig()
+    before = asg.auction_assignment.launches
+    pts, keep = matcher.negative_points_from_cost(cost, fg, cfg)
+    assert asg.auction_assignment.launches - before == 5
+    monkeypatch.setattr(asg, "_auction_phase_kernel", asg._auction_phase_plain)
+    want_pts, want_keep = matcher.negative_points_from_cost(cost, fg, cfg)
+    assert torch.equal(keep, want_keep) and torch.equal(pts, want_pts)
+    assert int(keep.sum()) == 1369 // 2
+
+
+def test_w8a8_int_mm_equals_cpu_int32(dev):
+    """``torch._int_mm`` on the card against the CPU's int32 matmul at an
+    AlphaCLIP-L chunk's MLP shape, bitwise, with the codes column-major (as
+    ``quantize_params(act_bits=8)`` stores them) and row-major; a shape its
+    rules refuse raises."""
+    from mars_tpu_torch.models import quantization as q
+
+    rng = np.random.RandomState(0)
+    xq = torch.from_numpy(rng.randint(-127, 128, (16 * 577, 1024)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (1024, 4096)).astype(np.int8))
+    want = q.int8_product(xq, w)
+    for codes in (w.to(dev).t().contiguous().t(), w.to(dev)):
+        got = q.int8_product(xq.to(dev), codes)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="M > 16"):
+        q.int8_product(xq[:16].to(dev), w.to(dev))
+    with pytest.raises(ValueError):
+        q.int8_product(xq[:, :1020].to(dev), w[:1020].to(dev))
+
+
+def test_multicrop_launch_counts(dev, monkeypatch):
+    """``generate_multicrop`` at one crop layer encodes five crops: the tiny
+    fixture SAM (one global layer, two windowed) launches the windowed
+    kernel twice an encode with the switch on, and the grid kernel never:
+    its 4 × 4 grid is under the kernel's 1 024 tokens, where the global
+    layer takes the plain route, as in the JAX package (at ViT-H's 64 × 64,
+    ``chip_smoke.py`` counts 4 grid launches a crop)."""
+    import os
+
+    from mars_tpu_torch.models import convert, sam
+    from mars_tpu_torch.ops import sam_attention as sa
+    from mars_tpu_torch.pipeline import amg
+
+    monkeypatch.setenv("MARS_SAM_WINDOWED_IMPL", "pallas")
+    data = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "amg_multicrop_tiny.npz"))
+    sd = {k[3:]: data[k] for k in data.files if k.startswith("sd.")}
+    params = {"encoder": convert.from_reference_state_dict(sd, "sam_encoder", 3, device=dev),
+              "prompt_encoder": convert.from_reference_state_dict(sd, "sam_prompt_encoder",
+                                                                  device=dev),
+              "decoder": convert.from_reference_state_dict(sd, "sam_decoder", device=dev)}
+    cfg = sam.SamConfig(img_size=64, patch_size=16, embed_dim=32, depth=3, num_heads=2,
+                        global_attn_indexes=(1,), window_size=2, out_chans=16,
+                        decoder_mlp_dim=32, decoder_heads=2)
+    acfg = amg.AmgConfig(points_per_side=4, decode_batch=16, pred_iou_thresh=0.0,
+                         stability_score_thresh=0.0, box_nms_thresh=0.5, crop_n_layers=1,
+                         crop_nms_thresh=0.5)
+    img = torch.from_numpy(data["image"].astype(np.float32) / 255.0).to(dev)
+    g0, w0 = sa.grid_attention.launches, sa.windowed_attention.launches
+    out = amg.generate_multicrop(params, img, cfg, acfg, original_size=(64, 64))
+    assert (sa.grid_attention.launches - g0, sa.windowed_attention.launches - w0) == (0, 10)
+    assert out["masks"].shape == (5 * 48, 64, 64) and int(out["valid"].sum()) > 0
