@@ -139,7 +139,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
      launches an episode), then ``--generate-proposals`` over two;
      ``torch._int_mm`` at AlphaCLIP-L's MLP against the weight-only int8
      route and a bf16 product;
- 25. the kernels line.
+ 25. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
+     --generate-proposals --proposal-model semantic-sam`` at full width
+     (SwinL @640, the MaskDINO pixel and point decoders, 6 granularities;
+     DINOv2-L matching) over three episodes in float32, again with the notap
+     switch, then in bf16 with it: launches exact per episode (2 auction, 31
+     tap, 48 + 28 + 24 per live AlphaCLIP chunk notap with the switch),
+     every auction phase bitwise equal to the plain phase, the switched
+     run's buckets and merged masks against the plain route's, bf16's
+     merged masks' IoU with float32's; one call split by stage under
+     torch.profiler (float32, bf16); one ``SamPointBackend`` call at ViT-H;
+ 26. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -201,6 +211,8 @@ NOTAP_GEOMETRIES = (("alphaclip_l_336_chunk", 16, 16, 577, 64), ("dinov2_l_518",
 NOTAP_TOL = 2e-5
 NOTAP_PASSES = 3  # the float32 notap kernel's TF32 passes a product (split TF32)
 NOTAP_IOU = 0.99  # merged masks of the float32 notap route against the plain route's
+SS_BF16_REL = 0.05  # the bf16 Semantic-SAM network against float32: max |diff| / max |x|
+SS_BF16_IOU = 0.95  # ... and its live masks' mean IoU with float32's, on the same prompts
 # (name, windows, heads, Hw, Ww, hd): SAM ViT-H @1024's and ViT-B @1024's
 # windowed layers (64 x 64 grid padded to 70 x 70: 25 windows), a ragged
 # window at ViT-B/L's head dim
@@ -2290,6 +2302,42 @@ def _tree_bytes(tree):
     return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
 
 
+@contextlib.contextmanager
+def recorded_auction_phases(phases):
+    """Every ε-phase the auction kernel runs inside the block, appended to
+    ``phases`` as (inputs, outputs); ``assignment._auction_phase_kernel`` is
+    the global name the wrapper looks up at call time."""
+    from mars_tpu_torch.ops import assignment as asg
+
+    real = asg._auction_phase_kernel
+
+    def record(scores, row_valid, prices, eps, max_rounds, small_k=asg.SMALL_K):
+        prices_in = prices.clone()
+        col, pr, counts = real(scores, row_valid, prices, eps, max_rounds, small_k)
+        phases.append((scores, row_valid, prices_in, eps, max_rounds, small_k, col, pr, counts))
+        return col, pr, counts
+
+    asg._auction_phase_kernel = record
+    try:
+        yield phases
+    finally:
+        asg._auction_phase_kernel = real
+
+
+def _phases_equal_plain(phases):
+    """Each recorded kernel phase replayed on the plain phase: bitwise?"""
+    import torch
+
+    from mars_tpu_torch.ops import assignment as asg
+
+    out = []
+    for sc, va, pr_in, eps, mr, sk, col, pr, counts in phases:
+        col_p, pr_p, counts_p = asg._auction_phase_plain(sc, va, pr_in, eps, mr, sk)
+        out.append(bool(torch.equal(col, col_p) and counts == counts_p
+                        and torch.equal(pr.view(torch.int32), pr_p.view(torch.int32))))
+    return out
+
+
 def phase_matcher_configs(state):
     """The Matcher's other configurations at full width (DINOv2-L/14 reg4
     @518, SAM ViT-H @1024, float32, seeded random weights, the selection
@@ -2349,38 +2397,34 @@ def phase_matcher_configs(state):
                          int(out["telemetry"]["positive_points_inside_mask"]),
                      "masks_binary": bool(((masks == 0) | (masks == 1)).all())}
 
-    # a. both negative sources + merge_prompt_types; the kernel's phases recorded
-    instances = []
-    real_inputs, real_kernel = asg.phase_inputs, asg._auction_phase_kernel
+    # a. both negative sources + merge_prompt_types; the kernel's phases
+    # recorded, grouped by auction instance (each starts at phase_inputs)
+    instances, phases = [], []
+    real_inputs = asg.phase_inputs
 
     def record_inputs(scores, row_valid, n_phases=1, row_chunk=None):
-        instances.append({"shape": list(scores.shape), "n_phases": n_phases, "phases": []})
+        instances.append({"shape": list(scores.shape), "n_phases": n_phases,
+                          "start": len(phases)})
         return real_inputs(scores, row_valid, n_phases, row_chunk)
-
-    def record_kernel(scores, row_valid, prices, eps, max_rounds, small_k=asg.SMALL_K):
-        col, pr, counts = real_kernel(scores, row_valid, prices, eps, max_rounds, small_k)
-        instances[-1]["phases"].append((scores, row_valid, prices.clone(), eps, max_rounds,
-                                        small_k, col, pr, counts))
-        return col, pr, counts
 
     negatives = dict(use_negative_priors_from_discarded=True,
                      use_negative_priors_from_cost=True, merge_prompt_types=True)
     for shots in (1, 5):
         instances.clear()
-        asg.phase_inputs, asg._auction_phase_kernel = record_inputs, record_kernel
+        phases.clear()
+        asg.phase_inputs = record_inputs
         try:
-            out, row = call(shots, **negatives)
+            with recorded_auction_phases(phases):
+                out, row = call(shots, **negatives)
         finally:
-            asg.phase_inputs, asg._auction_phase_kernel = real_inputs, real_kernel
+            asg.phase_inputs = real_inputs
+        ends = [inst["start"] for inst in instances[1:]] + [len(phases)]
         rows = []
-        for k, inst in enumerate(instances):
-            equal = True
+        for k, (inst, end) in enumerate(zip(instances, ends)):
+            inst["phases"] = phases[inst["start"]:end]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for (sc, va, pr_in, eps, mr, sk, col, pr, counts) in inst["phases"]:
-                col_p, pr_p, counts_p = asg._auction_phase_plain(sc, va, pr_in, eps, mr, sk)
-                equal &= bool(torch.equal(col, col_p) and torch.equal(
-                    pr.view(torch.int32), pr_p.view(torch.int32)) and counts == counts_p)
+            equal = all(_phases_equal_plain(inst["phases"]))
             plain_ms = (time.perf_counter() - t0) * 1e3
             bidder_rows = sum(ph[8][2] + ph[8][3] for ph in inst["phases"])
             first = inst["phases"][0]
@@ -2575,6 +2619,292 @@ def phase_int8_towers(state):
         raise AssertionError(f"int8 towers failed: {failures}")
 
 
+SS_EPISODES = 3
+SS_INPUT = 518
+SS_ARGS = ["--benchmark", "synthetic", "--episodes", str(SS_EPISODES), "--gt-class-names",
+           "--generate-proposals", "--proposal-model", "semantic-sam", "--proposal-bucket",
+           "128", "--input-size", str(SS_INPUT), "--seed", "0"]
+SS_SPANS = ("matcher.features", "matcher.match", "matcher.encode", "matcher.decode",
+            "matcher.upsample", "matcher.score")
+
+
+def _semantic_sam_cli(extra=(), switches=None):
+    """``cli.main`` over ``SS_EPISODES`` with the Semantic-SAM backend, every
+    kernel's count set to 0 just before and read just after, each
+    episode's Matcher output (prompt sets, every proposal, EMD scores,
+    bucket) kept on the card and every auction phase recorded."""
+    import torch
+
+    from mars_tpu_torch import cli
+
+    calls, phases = [], []
+    real_bucket = cli.bucket_generated_proposals
+
+    def keep(out):
+        props = real_bucket(out)
+        calls.append({"coords": out["coords01"], "set_valid": out["set_valid"],
+                      "masks": out["proposal_masks"], "valid": out["proposal_valid"],
+                      "emd": out["emd_score"], "bucket": props.masks > 0.5,
+                      "bucket_valid": props.valid})
+        return props
+
+    cli.bucket_generated_proposals = keep
+    try:
+        with kernel_switches(switches or {}), recorded_auction_phases(phases):
+            for fn in cli.KERNELS.values():
+                fn.launches = 0
+            res = cli.main(SS_ARGS + list(extra), keep_masks=True)
+            launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+    finally:
+        cli.bucket_generated_proposals = real_bucket
+    torch.cuda.synchronize()
+    return res, launches, calls, phases
+
+
+def _against(call, ref):
+    """One episode's Matcher output against another run's: prompt sets and
+    proposals equal, the least IoU of a proposal live in both with its
+    counterpart row, EMD's largest difference there, the buckets equal."""
+    import torch
+
+    live = call["valid"] & ref["valid"]
+    a, b = call["masks"][live].flatten(1), ref["masks"][live].flatten(1)
+    union = (a | b).sum(1)
+    iou = torch.where(union > 0, (a & b).sum(1) / union.clamp(min=1), 1.0)
+    return {"prompts_equal": bool(torch.equal(call["coords"], ref["coords"])
+                                  and torch.equal(call["set_valid"], ref["set_valid"])),
+            "proposals_equal": bool(torch.equal(call["masks"], ref["masks"])
+                                    and torch.equal(call["valid"], ref["valid"])),
+            "live": int(call["valid"].sum()), "live_other": int(ref["valid"].sum()),
+            "live_in_both": int(live.sum()),
+            "min_row_iou": float(iou.min()) if len(iou) else None,
+            "emd_max_abs_diff": float((call["emd"] - ref["emd"])[live].abs().max())
+            if len(iou) else None,
+            "bucket_equal": bool(torch.equal(call["bucket"], ref["bucket"])
+                                 and torch.equal(call["bucket_valid"], ref["bucket_valid"]))}
+
+
+def _semantic_sam_call_split(dino, dino_cfg, ss_params, ss_cfg, ep, generator):
+    """One Semantic-SAM Matcher call (encode included: a fresh query
+    tensor) on the host clock, after a warm-up call, then one under
+    torch.profiler: device ms by ``matcher.*`` span, busy ms, idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars_tpu_torch.pipeline import matcher, matcher_oss
+
+    backend = matcher_oss.SemanticSamBackend(ss_params, ss_cfg)
+    mcfg = matcher.MatcherConfig(input_size=SS_INPUT, grid=SS_INPUT // dino_cfg.patch_size)
+
+    def call():
+        return matcher_oss.generate_proposals_oss(
+            dino, dino_cfg, backend, mcfg, ep.support_images, ep.support_masks,
+            ep.support_valid, ep.query_image.clone(), generator=generator(), bucket=128)
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, launches, spans, top = _profile_summary(prof, ("matcher.",))
+    tele = {k: int(v) for k, v in out["telemetry"].items()}
+    return {"call_ms": ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+            "span_device_ms": {k: spans.get(k) for k in SS_SPANS},
+            "encode_share_of_busy": (spans.get("matcher.encode") or 0.0) / busy_ms,
+            "live_before_filters": tele["n_proposals"], "merged_after_filters": tele["n_merged"],
+            "bucket_live": int(out["bucket_valid"].sum()), "prompt_sets": tele["n_prompt_sets"],
+            "matched_points": tele["n_matched_points"], "top_kernels": top[:8]}
+
+
+def _semantic_sam_bf16_network(dino, dino_cfg, ss_params, ss_cfg, ep, generator):
+    """The float32 call's prompt sets through the float32 and the bf16-cast
+    Semantic-SAM backends (the same matched points, so only the network's
+    type differs): the encodings' and the live sets' logits' largest
+    difference over the largest float32 magnitude, and each live mask's IoU
+    with its float32 counterpart."""
+    import torch
+
+    from mars_tpu_torch.models.precision import cast_floating
+    from mars_tpu_torch.pipeline import matcher, matcher_oss
+
+    backends = {"float32": matcher_oss.SemanticSamBackend(ss_params, ss_cfg),
+                "bf16": matcher_oss.SemanticSamBackend(cast_floating(ss_params), ss_cfg)}
+    mcfg = matcher.MatcherConfig(input_size=SS_INPUT, grid=SS_INPUT // dino_cfg.patch_size)
+    q = ep.query_image
+    with torch.no_grad():
+        out = matcher_oss.generate_proposals_oss(
+            dino, dino_cfg, backends["float32"], mcfg, ep.support_images, ep.support_masks,
+            ep.support_valid, q, generator=generator())
+        prompts = (out["coords01"], out["labels"], out["set_valid"])
+        enc = {k: b.encode(q) for k, b in backends.items()}
+        live_sets = out["set_valid"].repeat_interleave(ss_cfg.num_granularities)
+        logits = {k: b.set_logits(q, *prompts)[live_sets] for k, b in backends.items()}
+        masks = {k: b.predict_batch(q, *prompts, tuple(q.shape[:2]))[0][live_sets]
+                 for k, b in backends.items()}
+
+    def rel(a, b):
+        return float((a.float() - b).abs().max() / b.abs().max())
+
+    a, b = masks["bf16"].flatten(1), masks["float32"].flatten(1)
+    union = (a | b).sum(1)
+    iou = torch.where(union > 0, (a & b).sum(1) / union.clamp(min=1), 1.0)
+    return {"live_masks": int(live_sets.sum()),
+            "encode_dtypes": [str(t.dtype) for t in enc["bf16"]],
+            "memory_rel": rel(enc["bf16"][0], enc["float32"][0]),
+            "mask_feats_rel": rel(enc["bf16"][1], enc["float32"][1]),
+            "set_logits_rel": rel(logits["bf16"], logits["float32"]),
+            "mask_iou_min": float(iou.min()), "mask_iou_mean": float(iou.mean()),
+            "mask_iou_median": float(iou.median()),
+            "pixels_agree": float((a == b).float().mean())}
+
+
+def phase_semantic_sam(state):
+    """The Semantic-SAM proposal path at full width (SwinL @640, hidden 256,
+    8 heads, 4 points, 3 levels, 6 encoder and 9 decoder layers, 6
+    granularities; DINOv2-L/14 reg4 @518 matching; seeded random weights):
+    ``cli.main --generate-proposals --proposal-model semantic-sam`` over
+    three synthetic episodes in float32, again with
+    MARS_ATTENTION_NOTAP_IMPL=pallas, then in bf16 with it: every kernel's
+    launches exact per episode (2 auction and 31 tap; with the switch 48 +
+    28 + 24 per live AlphaCLIP chunk notap), every auction phase bitwise
+    equal to the plain phase, the switched run's buckets and merged masks
+    against the plain route's, bf16's merged masks' IoU with float32's.
+    Then one call split by stage (float32 and bf16: encode = SwinL and the
+    pixel decoder, decode = the point decoder and mask head, upsample,
+    score = scoring and merge), and one ``SamPointBackend`` call at SAM
+    ViT-H (4 grid, 2 auction launches).  Between them, the float32 call's
+    prompt sets through the bf16-cast network: its encodings and set
+    logits within ``SS_BF16_REL`` of float32's largest magnitude, its live
+    masks at a mean IoU of at least ``SS_BF16_IOU`` with float32's."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.models.precision import cast_floating
+    from mars_tpu_torch.pipeline import matcher, matcher_oss
+
+    failures, runs, by_path = [], {}, {}
+    matcher_call = {"auction": AUCTIONS, "attention_notap": MATCHER_UNTAPPED}
+    for name, extra, switches in (("float32", [], {}), ("float32_notap", [], NOTAP_ONLY),
+                                  ("bf16_notap", ["--bf16"], NOTAP_ONLY)):
+        res, launches, calls, phases = _semantic_sam_cli(extra, switches)
+        equal = _phases_equal_plain(phases)
+        want = []
+        for live in res["live_proposals"]:
+            w = _ranking_launches([live]) if switches else {
+                **{k: 0 for k in cli.KERNELS}, "attention_with_tap": TAPPED_BLOCKS}
+            w["auction"] += AUCTIONS
+            if switches:
+                w["attention_notap"] += matcher_call["attention_notap"]
+            want.append(w)
+        runs[name] = (res, calls)
+        by_path[f"semantic_sam_{name}" if name != "float32" else "semantic_sam"] = launches
+        ms, prop = res["episode_ms"], res["proposal_ms"]
+        row = {"phase": "semantic_sam", "run": name, "switches": switches,
+               "episodes": SS_EPISODES, "proposal_ms": prop,
+               "proposal_ms_after_first": sum(prop[1:]) / len(prop[1:]),
+               "ranking_ms": ms, "ranking_ms_after_first": sum(ms[1:]) / len(ms[1:]),
+               "episode_peak_memory_gib": res["episode_peak_gib"],
+               "live_proposals": res["live_proposals"], "miou": res["miou"],
+               "masks_binary": res["masks_binary"], "launches": launches,
+               "episode_launches": res["episode_launches"], "episode_launches_expected": want,
+               "auction_phases": len(phases), "auction_phases_equal_plain": equal}
+        if name != "float32":
+            ref_res, ref_calls = runs["float32"]
+            row["merged_equal_float32"] = [bool(np.array_equal(a, b)) for a, b in
+                                           zip(res["masks"], ref_res["masks"])]
+            row["merged_iou_float32"] = [float(_mask_iou(a[None], b[None])[0, 0])
+                                         for a, b in zip(res["masks"], ref_res["masks"])]
+            row["against_float32"] = [_against(c, r) for c, r in zip(calls, ref_calls)]
+        emit(row)
+        if res["episode_launches"] != want or not equal or not all(equal):
+            failures.append((name, "launches or auction phases", res["episode_launches"], want,
+                             equal))
+        if not res["masks_binary"] or not math.isfinite(res["miou"]) or not any(
+                res["live_proposals"]):
+            failures.append((name, "masks", res["masks_binary"], res["miou"],
+                             res["live_proposals"]))
+        if name == "float32_notap" and min(row["merged_iou_float32"]) < NOTAP_IOU:
+            failures.append((name, "merged masks depart from the plain route's",
+                             row["merged_iou_float32"]))
+
+    # one call split by stage, float32 then bf16 (switches off)
+    dev = torch.device("cuda")
+    dino, dino_cfg = zoo.build_dinov2(None, "vit_large", 4, 0, dev)
+    ss_params, ss_cfg = zoo.build_semantic_sam(None, device=dev)
+    ep = to_device_episode(SyntheticFSS(seed=0)[0], SS_INPUT, 1, dev)
+    for dtype in ("float32", "bf16"):
+        params = (dino, ss_params) if dtype == "float32" else (cast_floating(dino),
+                                                              cast_floating(ss_params))
+        torch.cuda.reset_peak_memory_stats()
+        split = _semantic_sam_call_split(params[0], dino_cfg, params[1], ss_cfg, ep,
+                                         lambda: cli.episode_generator(0, 0, dev))
+        emit({"phase": "semantic_sam", "run": f"call split, {dtype}", **split,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "config": {"swin_embed": ss_cfg.swin.embed_dim, "depths": ss_cfg.swin.depths,
+                         "window": ss_cfg.swin.window, "input_size": ss_cfg.input_size,
+                         "hidden": ss_cfg.hidden, "heads": ss_cfg.num_heads,
+                         "points": ss_cfg.num_points, "enc_layers": ss_cfg.enc_layers,
+                         "dec_layers": ss_cfg.dec_layers,
+                         "granularities": ss_cfg.num_granularities}})
+        if not split["live_before_filters"]:
+            failures.append((f"call split {dtype}", "no live proposal"))
+    net = _semantic_sam_bf16_network(dino, dino_cfg, ss_params, ss_cfg, ep,
+                                     lambda: cli.episode_generator(0, 0, dev))
+    emit({"phase": "semantic_sam", "run": "bf16 network on float32's prompt sets", **net,
+          "bar": SS_BF16_REL, "iou_bar": SS_BF16_IOU})
+    if not net["live_masks"] or max(net["memory_rel"], net["mask_feats_rel"],
+                                    net["set_logits_rel"]) > SS_BF16_REL or (
+                                        net["mask_iou_mean"] < SS_BF16_IOU):
+        failures.append(("bf16 network", net))
+    del ss_params
+
+    # SAM ViT-H behind the point-predictor protocol
+    sam_params, sam_cfg = zoo.build_sam(None, "vit_h", 3, dev)
+    backend = matcher_oss.SamPointBackend(sam_params, sam_cfg)
+    torch.cuda.synchronize()
+    for fn in cli.KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = matcher_oss.generate_proposals_oss(
+            dino, dino_cfg, backend,
+            matcher.MatcherConfig(input_size=SS_INPUT, grid=SS_INPUT // dino_cfg.patch_size),
+            ep.support_images,
+            ep.support_masks, ep.support_valid, ep.query_image,
+            generator=cli.episode_generator(0, 0, dev), bucket=128)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in cli.KERNELS.items()}
+    want = {**{k: 0 for k in cli.KERNELS}, "grid_attention": SAM_GLOBAL_LAYERS,
+            "auction": AUCTIONS}
+    by_path["semantic_sam_sam_backend"] = launches
+    row = {"phase": "semantic_sam", "run": "SamPointBackend, SAM ViT-H",
+           "ms": (time.perf_counter() - t0) * 1e3, "launches": launches,
+           "launches_expected": want, "masks": int(out["proposal_masks"].shape[0]),
+           "live_before_filters": int(out["proposal_valid"].sum()),
+           "merged_after_filters": int(out["chosen"].sum()),
+           "bucket_live": int(out["bucket_valid"].sum())}
+    emit(row)
+    if launches != want or out["proposal_masks"].shape[0] != 3 * out["set_valid"].shape[0]:
+        failures.append(("SamPointBackend", row))
+    state["semantic_sam_launches"] = by_path
+    if failures:
+        raise AssertionError(f"semantic-sam path failed: {failures}")
+
+
 def kernels_line(state):
     rows = state.get("kernel_rows", [])
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
@@ -2586,7 +2916,8 @@ def kernels_line(state):
              **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
              "models_path": state.get("models_path_launches", {}),
              **state.get("backbone_launches", {}), **state.get("fold_run_launches", {}),
-             **state.get("matcher_configs_launches", {}), **state.get("int8_launches", {})}
+             **state.get("matcher_configs_launches", {}), **state.get("int8_launches", {}),
+             **state.get("semantic_sam_launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in paths.values())
@@ -2715,7 +3046,7 @@ def main():
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run,
-                  phase_matcher_configs, phase_int8_towers):
+                  phase_matcher_configs, phase_int8_towers, phase_semantic_sam):
         t0 = time.perf_counter()
         try:
             phase(state)

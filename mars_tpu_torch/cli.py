@@ -20,18 +20,23 @@ Proposals are synthetic (the ground truth plus six random boxes, as
 loaded from dumps (``--mask-proposals-path``: the reference's evaluation
 mode, one ``{fold}_{idx}`` stack per episode as ``cli_proposals`` writes
 them) or, with ``--generate-proposals``, the Matcher's (DINOv2 matching
-shared with the VVA tower, SAM ``--sam-size`` @1024, AMG, bucketed best
-mask score first).  Towers are full width: the reference's checkpoints
+shared with the VVA tower, then the ``--proposal-model`` backend: ``sam``,
+SAM ``--sam-size`` @1024 and the AMG, bucketed best mask score first, or
+``semantic-sam``, the reference's Matcher_SemanticSAM configuration on the
+native network, SwinL @640 with six granularities a prompt set, bucketed
+best EMD score first).  Towers are full width: the reference's checkpoints
 from ``--models-path`` by their file names (``models.zoo``), seeded random
 weights for any file that is not there.  ``--dino-backbone``,
 ``--num-regs`` and ``--vta-backbone`` pick the towers, and the tuning
 flags reach the stage configs as in the JAX CLI.  ``--bf16`` casts the
-DINOv2, CLIP visual and AlphaCLIP visual towers (and SAM) to bfloat16, as
+DINOv2, CLIP visual and AlphaCLIP visual towers (and SAM or Semantic-SAM) to bfloat16, as
 the JAX CLI does, the text towers staying float32.  Prints each episode's
 proposal and ranking times, its live proposals and the running mIoU.
 
     python -m mars_tpu_torch.cli --benchmark synthetic --episodes 3 --gt-class-names
     python -m mars_tpu_torch.cli --episodes 2 --gt-class-names --generate-proposals
+    python -m mars_tpu_torch.cli --episodes 2 --gt-class-names --generate-proposals \
+        --proposal-model semantic-sam
     python -m mars_tpu_torch.cli --episodes 4 --vlm4bit --vlm-path /models/vip-llava-7b-hf \
         --nltk-path /data/nltk_data
     python -m mars_tpu_torch.cli_proposals --benchmark coco --nshot 5 --datapath /data \
@@ -62,14 +67,14 @@ kernels as weight-only int8 (after the ``--bf16`` cast), and
 flow over the union of both prompt families, the JAX CLI's default
 ``--fused-proposals``; ``--no-fused-proposals`` parses and changes nothing
 (the JAX package's two-program flow gives the same bucket, and is not
-ported: ``pipeline.matcher``).
+ported: ``pipeline.matcher``).  With ``--proposal-model semantic-sam`` an
+explicit ``--fused-proposals`` is refused, as in the JAX CLI.
 
 With random weights the AMG's default thresholds (predicted IoU > 0.88,
 stability >= 0.95) usually reject every mask: an episode then ranks an
 empty bucket.  The port has no loader for the ViP-LLaVA-7B checkpoint and
 its processor, whose files are not in the repository: ``build_retriever``
-raises.  ``--proposal-model`` (the Semantic-SAM backend) is not ported
-yet.
+raises.
 """
 from __future__ import annotations
 
@@ -95,7 +100,8 @@ from mars_tpu_torch.models.precision import cast_floating
 from mars_tpu_torch.models.quantization import quantize_params
 from mars_tpu_torch.models import vip_llava
 from mars_tpu_torch.ops import assignment, flash_attention, int4_matmul, sam_attention
-from mars_tpu_torch.pipeline import amg, filtering, mars as mars_lib, matcher, vta, vva
+from mars_tpu_torch.pipeline import (amg, filtering, mars as mars_lib, matcher, matcher_oss,
+                                     vta, vva)
 from mars_tpu_torch.text import retriever as retriever_lib, wordnet
 from mars_tpu_torch.utils import evaluation, logging as mlog, visualize
 
@@ -262,13 +268,33 @@ def bucket_generated_proposals(out: dict) -> Proposals:
 
 def make_inline_generator(args, dino_bundle, device):
     """Per-episode Matcher proposals inside the eval loop (the reference's
-    mask_generator slot, mars/MARS.py:21,46-51), SAM backend, sharing the
-    VVA stage's DINOv2 tower.  Returns generate(episode, generator) →
-    Proposals."""
+    mask_generator slot, mars/MARS.py:21,46-51), sharing the VVA stage's
+    DINOv2 tower.  ``--proposal-model``: ``sam`` (``matcher.generate_proposals``,
+    SAM ``--sam-size`` and the AMG) or ``semantic-sam``
+    (``matcher_oss.generate_proposals_oss`` on the native Semantic-SAM, the
+    reference's Matcher_SemanticSAM.py:151-161; ``mars_tpu/cli.py:242-263``).
+    Returns generate(episode, generator) → Proposals."""
     dino_params, dino_cfg = dino_bundle
     mcfg = matcher.MatcherConfig(input_size=args.input_size,
                                  grid=args.input_size // dino_cfg.patch_size,
                                  patch_size=dino_cfg.patch_size)
+    if args.proposal_model == "semantic-sam":
+        if getattr(args, "fused_proposals", None):  # None: the default; only an explicit ask
+            raise SystemExit("--fused-proposals applies to the SAM backend only "
+                             "(matcher_oss has its own program flow)")
+        ss_params, ss_cfg = zoo.build_semantic_sam(args.models_path, device=device)
+        if args.bf16:
+            ss_params = cast_floating(ss_params)
+        backend = matcher_oss.SemanticSamBackend(ss_params, ss_cfg)
+
+        def generate_oss(ep, generator):
+            out = matcher_oss.generate_proposals_oss(
+                dino_params, dino_cfg, backend, mcfg, ep.support_images, ep.support_masks,
+                ep.support_valid, ep.query_image, generator=generator,
+                bucket=args.proposal_bucket)
+            return bucket_generated_proposals(out)
+
+        return generate_oss
     sam_params, sam_cfg = zoo.build_sam(args.models_path, args.sam_size, device=device)
     if args.bf16:
         sam_params = cast_floating(sam_params)
@@ -390,6 +416,10 @@ def parse_args(argv=None):
     p.add_argument("--proposal-bucket", type=int, default=128)
     p.add_argument("--generate-proposals", action="store_true",
                    help="run the Matcher per episode instead of synthetic proposals")
+    p.add_argument("--proposal-model", default="sam", choices=["sam", "semantic-sam"],
+                   help="Matcher backend: SAM (reference Matcher.py) or the native "
+                        "Semantic-SAM network (the reference's Matcher_SemanticSAM "
+                        "configuration)")
     p.add_argument("--fused-proposals", action=argparse.BooleanOptionalAction, default=None,
                    help="single-flow proposal generation (union-family rows; the same "
                         "bucket, no host read of the prompt count).  The port always runs "
@@ -397,7 +427,8 @@ def parse_args(argv=None):
     p.add_argument("--mask-proposals-path", default=None,
                    help="rank the proposal dumps {fold}_{idx}.npy/.npz/.pt in this directory")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 tower weights (DINOv2, CLIP and AlphaCLIP visual, SAM)")
+                   help="bf16 tower weights (DINOv2, CLIP and AlphaCLIP visual, SAM or "
+                        "Semantic-SAM)")
     p.add_argument("--int8-towers", action="store_true",
                    help="weight-only int8 tower kernels (combine with --bf16)")
     p.add_argument("--w8a8-alphaclip", action="store_true",

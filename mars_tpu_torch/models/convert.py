@@ -1,4 +1,4 @@
-"""Parameter converters (port of ``mars_tpu/models/convert.py:24-298``).
+"""Parameter converters (port of ``mars_tpu/models/convert.py``).
 
 Two sources, one layout: the port's towers take the JAX package's nested
 parameter dicts (dense kernels (in, out), conv kernels HWIO, transposed-conv
@@ -17,6 +17,10 @@ kernels (kh, kw, O, I)).
   - ``reference_state_dict(tree, tower)``: the inverse for the ranking
     towers, a tree back to the reference's key names (seeded weights
     written as the checkpoint files the zoo reads).
+  - ``swin_tree`` / ``swin_semantic_sam_tree`` (transformers' and
+    Microsoft's Swin names), ``semantic_sam_pixel_decoder_tree`` (MaskDINO's
+    and transformers' names) and ``semantic_sam_point_decoder_tree``: the
+    Semantic-SAM checkpoint's sections (JAX ``convert.py:307-600``).
   - ``audited_trees(sd, parts, ignore)``: several converters over one
     checkpoint under ``AuditedStateDict`` (the JAX package's
     ``audit_conversion``), raising on a key no converter read or a leaf
@@ -345,6 +349,187 @@ def vip_llava_tree(sd: StateDict, v_layers: int, layers: int) -> dict:
             "mlp": {n: _dense(sd, f"{b}mlp.{n}_proj") for n in ("gate", "up", "down")},
         }
     return {"vision": vision, "projector": projector, "language": language}
+
+
+def swin_tree(sd: StateDict, depths) -> dict:
+    """transformers ``SwinModel`` names → the ``models.swin`` tree (JAX
+    ``swin_to_flax``)."""
+    params = {"patch_embed": {"kernel": _conv(sd["embeddings.patch_embeddings.projection.weight"]),
+                              "bias": sd["embeddings.patch_embeddings.projection.bias"]},
+              "patch_norm": _ln(sd, "embeddings.norm")}
+    for s, depth in enumerate(depths):
+        stage = {}
+        for i in range(depth):
+            b = f"encoder.layers.{s}.blocks.{i}"
+            names = ("query", "key", "value")
+            stage[f"block{i}"] = {
+                "ln1": _ln(sd, f"{b}.layernorm_before"),
+                "ln2": _ln(sd, f"{b}.layernorm_after"),
+                "attn": {
+                    "qkv": {"kernel": np.concatenate(
+                                [_t(sd[f"{b}.attention.self.{n}.weight"]) for n in names], axis=1),
+                            "bias": np.concatenate(
+                                [sd[f"{b}.attention.self.{n}.bias"] for n in names])},
+                    "proj": _dense(sd, f"{b}.attention.output.dense"),
+                    "rel_bias_table": sd[f"{b}.attention.self.relative_position_bias_table"]},
+                "mlp": {"fc1": _dense(sd, f"{b}.intermediate.dense"),
+                        "fc2": _dense(sd, f"{b}.output.dense")},
+            }
+        ds = f"encoder.layers.{s}.downsample"
+        if f"{ds}.reduction.weight" in sd:
+            stage["downsample"] = {"norm": _ln(sd, f"{ds}.norm"),
+                                   "reduction": {"kernel": _t(sd[f"{ds}.reduction.weight"])}}
+        params[f"stage{s}"] = stage
+    return params
+
+
+def swin_semantic_sam_tree(sd: StateDict, depths) -> dict:
+    """Microsoft-layout Swin (fused qkv; Semantic-SAM checkpoints carry it
+    under ``backbone.``) → the ``models.swin`` tree (JAX
+    ``swin_semantic_sam_to_flax``): ``patch_embed.{proj,norm}``,
+    ``layers.{s}.blocks.{i}.{norm1,norm2,attn.qkv,attn.proj,mlp.fc1,mlp.fc2,
+    attn.relative_position_bias_table}``, ``layers.{s}.downsample``."""
+    params = {"patch_embed": {"kernel": _conv(sd["patch_embed.proj.weight"]),
+                              "bias": sd["patch_embed.proj.bias"]},
+              "patch_norm": _ln(sd, "patch_embed.norm")}
+    for s, depth in enumerate(depths):
+        stage = {}
+        for i in range(depth):
+            b = f"layers.{s}.blocks.{i}"
+            stage[f"block{i}"] = {
+                "ln1": _ln(sd, f"{b}.norm1"), "ln2": _ln(sd, f"{b}.norm2"),
+                "attn": {"qkv": _dense(sd, f"{b}.attn.qkv"), "proj": _dense(sd, f"{b}.attn.proj"),
+                         "rel_bias_table": sd[f"{b}.attn.relative_position_bias_table"]},
+                "mlp": {"fc1": _dense(sd, f"{b}.mlp.fc1"), "fc2": _dense(sd, f"{b}.mlp.fc2")},
+            }
+        ds = f"layers.{s}.downsample"
+        if f"{ds}.reduction.weight" in sd:
+            stage["downsample"] = {"norm": _ln(sd, f"{ds}.norm"),
+                                   "reduction": {"kernel": _t(sd[f"{ds}.reduction.weight"])}}
+        params[f"stage{s}"] = stage
+    return params
+
+
+def _first(sd: StateDict, *names: str):
+    """The first of ``names`` the checkpoint holds (one name a dialect)."""
+    for n in names:
+        if n in sd:
+            return sd[n]
+    raise KeyError(f"none of {names} in state dict")
+
+
+def _gn(sd: StateDict, *names: str) -> dict:
+    return {"scale": _first(sd, *(f"{n}.weight" for n in names)),
+            "bias": _first(sd, *(f"{n}.bias" for n in names))}
+
+
+def _conv1x1_dense(w) -> np.ndarray:
+    """torch 1x1 Conv2d weight (O, I, 1, 1) → dense kernel (I, O)."""
+    return np.ascontiguousarray(np.asarray(w)[:, :, 0, 0].T)
+
+
+def semantic_sam_pixel_decoder_tree(sd: StateDict, enc_layers: int) -> dict:
+    """Pixel-decoder tensors → the ``models.semantic_sam`` subtree
+    (``input_proj{0..2}``, ``level_embed``, ``enc{i}``, ``adapter``,
+    ``layer``, ``mask_projection``), in both dialects of the same decoder
+    (JAX ``semantic_sam_pixel_decoder_to_flax``):
+
+    - detectron2/MaskDINO, under ``sem_seg_head.pixel_decoder.`` in
+      Semantic-SAM checkpoints: ``input_proj.{i}.{0,1}``,
+      ``transformer.level_embed``, ``transformer.encoder.layers.{i}.
+      {self_attn,norm1,linear1,linear2,norm2}``, ``adapter_1.{weight,norm}``,
+      ``layer_1.{weight,norm}``, ``mask_features``;
+    - transformers ``Mask2FormerPixelDecoder``: ``input_projections.{i}.
+      {0,1}``, ``level_embed``, ``encoder.layers.{i}.{self_attn,
+      self_attn_layer_norm,fc1,fc2,final_layer_norm}``, ``adapter_1.{0,1}``,
+      ``layer_1.{0,1}``, ``mask_projection``.
+
+    Level 0 is res5 in both."""
+    params = {"level_embed": _first(sd, "transformer.level_embed", "level_embed")}
+    for lev in range(3):
+        names = (f"input_proj.{lev}", f"input_projections.{lev}")
+        params[f"input_proj{lev}"] = {
+            "proj": {"kernel": _conv1x1_dense(_first(sd, *(f"{n}.0.weight" for n in names))),
+                     "bias": _first(sd, *(f"{n}.0.bias" for n in names))},
+            "norm": _gn(sd, *(f"{n}.1" for n in names))}
+    for i in range(enc_layers):
+        bases = (f"transformer.encoder.layers.{i}", f"encoder.layers.{i}")
+
+        def pick(subs, leaf):
+            return _first(sd, *(f"{b}.{s}.{leaf}" for b in bases for s in subs))
+
+        def dns(*subs):
+            return {"kernel": _t(pick(subs, "weight")), "bias": pick(subs, "bias")}
+
+        def lnp(*subs):
+            return {"scale": pick(subs, "weight"), "bias": pick(subs, "bias")}
+
+        params[f"enc{i}"] = {
+            "msda": {k: dns(f"self_attn.{k}") for k in
+                     ("value_proj", "sampling_offsets", "attention_weights", "output_proj")},
+            "ln1": lnp("norm1", "self_attn_layer_norm"),
+            "ln2": lnp("norm2", "final_layer_norm"),
+            "ffn": {"fc1": dns("linear1", "fc1"), "fc2": dns("linear2", "fc2")}}
+    params["adapter"] = {
+        "conv": {"kernel": _conv1x1_dense(_first(sd, "adapter_1.weight", "adapter_1.0.weight"))},
+        "norm": _gn(sd, "adapter_1.norm", "adapter_1.1")}
+    params["layer"] = {"conv": {"kernel": _conv(_first(sd, "layer_1.weight", "layer_1.0.weight"))},
+                       "norm": _gn(sd, "layer_1.norm", "layer_1.1")}
+    params["mask_projection"] = {
+        "kernel": _conv1x1_dense(_first(sd, "mask_features.weight", "mask_projection.weight")),
+        "bias": _first(sd, "mask_features.bias", "mask_projection.bias")}
+    return params
+
+
+def semantic_sam_point_decoder_tree(sd: StateDict, dec_layers: int) -> dict:
+    """Interactive point-decoder tensors (``sem_seg_head.predictor.`` of a
+    Semantic-SAM checkpoint) → the ``dec{i}``, ``mask_embed``, ``iou_head``
+    and ``granularity_embed`` subtree (JAX
+    ``semantic_sam_point_decoder_to_flax``).  MaskDINO / Deformable-DETR
+    names: a DETR self-attention (fused ``in_proj_weight``), an MSDeformAttn
+    ``cross_attn``, norms in Deformable-DETR order (norm2 after the
+    self-attention, norm1 after the cross-attention, norm3 after the FFN:
+    ln1, ln2, ln3 here); transformers' ``DeformableDetrDecoderLayer``
+    spellings as a second dialect.  The granularity queries are
+    ``query_feat``, ``query_embed`` or ``pattern``; when none is there the
+    leaf is missing and the audit reports it."""
+    params = {}
+    for n in ("query_feat.weight", "query_embed.weight", "pattern.weight"):
+        if n in sd:
+            params["granularity_embed"] = sd[n]
+            break
+    for i in range(dec_layers):
+        bases = (f"transformer.decoder.layers.{i}", f"decoder.layers.{i}", f"layers.{i}")
+
+        def first(*subs):
+            return _first(sd, *(f"{b}.{s}" for b in bases for s in subs))
+
+        def dns(*subs):
+            return {"kernel": _t(first(*(f"{s}.weight" for s in subs))),
+                    "bias": first(*(f"{s}.bias" for s in subs))}
+
+        def lnp(*subs):
+            return {"scale": first(*(f"{s}.weight" for s in subs)),
+                    "bias": first(*(f"{s}.bias" for s in subs))}
+
+        params[f"dec{i}"] = {
+            "self_attn": {"qkv": {"kernel": _t(first("self_attn.in_proj_weight")),
+                                  "bias": first("self_attn.in_proj_bias")},
+                          "proj": dns("self_attn.out_proj")},
+            "msda": {k: dns(f"cross_attn.{k}", f"encoder_attn.{k}")
+                     for k in ("value_proj", "sampling_offsets", "attention_weights",
+                               "output_proj")},
+            "ln1": lnp("norm2", "self_attn_layer_norm"),
+            "ln2": lnp("norm1", "encoder_attn_layer_norm"),
+            "ln3": lnp("norm3", "final_layer_norm"),
+            "ffn": {"fc1": dns("linear1", "fc1"), "fc2": dns("linear2", "fc2")}}
+    for head, names in (("mask_embed", ("mask_embed",)),
+                        ("iou_head", ("iou_prediction_head", "iou_embed"))):
+        params[head] = {f"l{j}": {"kernel": _t(_first(sd, *(f"{n}.layers.{j}.weight"
+                                                            for n in names))),
+                                  "bias": _first(sd, *(f"{n}.layers.{j}.bias" for n in names))}
+                        for j in range(3)}
+    return params
 
 
 def from_reference_state_dict(sd: StateDict, tower: str, depth: int = 0,

@@ -49,11 +49,18 @@ def layer_norm(p, x, eps: float = 1e-5):
 
 
 def dense(p, x):
-    if isinstance(p["kernel"], dict):  # weight-only quantized (models.quantization)
+    """x @ kernel (+ bias).  Operands of two floating types are promoted
+    to the wider one, as ``jnp``'s ``x @ k`` does (a float32 activation
+    through a bf16-cast tower's kernel runs in float32)."""
+    k = p["kernel"]
+    if isinstance(k, dict):  # weight-only quantized (models.quantization)
         from mars_tpu_torch.models.quantization import quantized_dense
 
         return quantized_dense(p, x)
-    y = x @ p["kernel"]
+    if x.dtype != k.dtype:
+        dtype = torch.promote_types(x.dtype, k.dtype)
+        x, k = x.to(dtype), k.to(dtype)
+    y = x @ k
     if "bias" in p:
         y = y + p["bias"]
     return y

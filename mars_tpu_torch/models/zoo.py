@@ -32,6 +32,7 @@ from mars_tpu_torch.models import convert
 from mars_tpu_torch.models import dinov2
 from mars_tpu_torch.models import resnet
 from mars_tpu_torch.models import sam
+from mars_tpu_torch.models import semantic_sam
 from mars_tpu_torch.models import vip_llava
 
 _DINO_LETTER = {"vit_small": "s", "vit_base": "b", "vit_large": "l", "vit_giant2": "g"}
@@ -42,6 +43,13 @@ ALPHA_CLIP_BASE = "ViT-L-14-336px.pt"
 ALPHA_CLIP_OVERRIDE = "clip_l14_336_grit_20m_4xe.pth"
 SAM_CHECKPOINTS = {"vit_b": "sam_vit_b_01ec64.pth", "vit_l": "sam_vit_l_0b3195.pth",
                    "vit_h": "sam_vit_h_4b8939.pth"}
+SEMANTIC_SAM_CHECKPOINT = "swinl_only_sam_many2many.pth"
+SEMANTIC_SAM_VARIANTS = {"swinl": semantic_sam.SEMANTIC_SAM_L,
+                         "tiny": semantic_sam.SEMANTIC_SAM_TINY}
+# a Semantic-SAM checkpoint's sections, by the tree they fill
+SEMANTIC_SAM_SECTIONS = {"backbone": "backbone.",
+                         "pixel_decoder": "sem_seg_head.pixel_decoder.",
+                         "point_decoder": "sem_seg_head.predictor."}
 # keys the reference itself drops: DINOv2's training-time mask token; the
 # scalars of OpenAI's JIT archives (clip/model.py:605-607); the CLIP-ES
 # fork's resized position table, rebuilt from positional_embedding
@@ -211,6 +219,40 @@ def build_sam(models_path: Optional[str] = None, variant: str = "vit_h", seed: i
     pe = params["prompt_encoder"]
     pe["pe_gaussian"] = torch.randn(pe["pe_gaussian"].shape, generator=gen, device=dev)
     return params, cfg
+
+
+def build_semantic_sam(models_path: Optional[str] = None, variant: str = "swinl",
+                       seed: int = 9, device=None):
+    """→ (params, SemanticSamConfig): the native Semantic-SAM network
+    (``SEMANTIC_SAM_VARIANTS[variant]``), from ``SEMANTIC_SAM_CHECKPOINT`` in
+    ``models_path`` or seeded random weights.  The file's three sections
+    (``SEMANTIC_SAM_SECTIONS``: the Microsoft-layout Swin, the MaskDINO
+    pixel decoder, the interactive point decoder) are converted under
+    ``convert.audited_trees``; keys outside them are not read.  A section
+    that fails (a name not found, a tensor left unread inside it, a leaf
+    missing or of another shape) raises, where the JAX package's zoo warns
+    and keeps random weights for that decoder."""
+    dev = device_lib.resolve(device)
+    cfg = SEMANTIC_SAM_VARIANTS[variant]
+    path = _file(models_path, SEMANTIC_SAM_CHECKPOINT)
+    if path is None:
+        return random_params(semantic_sam.param_shapes(cfg), _generator(seed, dev), dev), cfg
+    sd = load_torch_state_dict(path)
+    shapes = semantic_sam.section_shapes(cfg)
+    prefixes = SEMANTIC_SAM_SECTIONS
+    converters = {"backbone": (convert.swin_semantic_sam_tree, cfg.swin.depths),
+                  "pixel_decoder": (convert.semantic_sam_pixel_decoder_tree, cfg.enc_layers),
+                  "point_decoder": (convert.semantic_sam_point_decoder_tree, cfg.dec_layers)}
+
+    def section(name):
+        fn, arg = converters[name]
+        return (lambda s: fn(convert._prefixed(s, prefixes[name]), arg)), (), shapes[name]
+
+    outside = [k for k in sd if not k.startswith(tuple(prefixes.values()))]
+    trees = _tensors(convert.audited_trees(sd, {name: section(name) for name in prefixes},
+                                           outside), dev)
+    return {"backbone": trees["backbone"], **trees["pixel_decoder"],
+            **trees["point_decoder"]}, cfg
 
 
 def build_resnet(models_path: Optional[str] = None, variant: str = "resnet101", seed: int = 4,

@@ -396,6 +396,17 @@ def filter_and_merge(masks, valid, emd_score, purity, coverage, cfg: MatcherConf
     return merged.float(), final, chosen
 
 
+def compact_bucket(masks, valid, score, bucket: int):
+    """The ranking bucket of a Matcher output: live rows first, best
+    ``score`` first (stable), dead rows zeroed, cut or padded to ``bucket``
+    (``mars_tpu.cli.bucket_generated_proposals``).  The decode layout
+    carries dead rows in place, so a plain cut could keep only dead
+    slots."""
+    order = torch.argsort(torch.where(valid, -score, float("inf")), stable=True)[:bucket]
+    valid_o = valid[order]
+    return pad_proposals((masks[order] & valid_o[:, None, None]).float(), bucket, valid=valid_o)
+
+
 # ---------------------------------------------------------------------------
 # end-to-end proposal generation
 # ---------------------------------------------------------------------------
@@ -516,13 +527,7 @@ def generate_proposals(dino_params, dino_cfg: dinov2.DinoV2Config, sam_params,
         mask_score = cfg.alpha * emd_score + cfg.beta * purity * coverage ** cfg.exp
         out = {}
         if bucket is not None:
-            # live rows first, best mask score first: the decode layout
-            # carries dead rows in place
-            order = torch.argsort(torch.where(dec["valid"], -mask_score, float("inf")),
-                                  stable=True)
-            valid_o = dec["valid"][order]
-            props = pad_proposals((dec["masks"][order] & valid_o[:, None, None]).float(),
-                                  bucket, valid=valid_o)
+            props = compact_bucket(dec["masks"], dec["valid"], mask_score, bucket)
             out["bucket_masks"], out["bucket_valid"] = props.masks, props.valid
         xi = points[:, 0].long().clamp(0, merged.shape[1] - 1)
         yi = points[:, 1].long().clamp(0, merged.shape[0] - 1)

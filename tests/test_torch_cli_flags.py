@@ -33,9 +33,11 @@ PORTED = ["benchmark", "datapath", "annotations_datapath", "models_path", "nshot
           "resume_every",
           # the Matcher's flow (parsed, no effect: the port runs one flow) and the
           # tower quantization (mars_tpu/cli.py:405-410,527-534)
-          "fused_proposals", "int8_towers", "w8a8_alphaclip"]
+          "fused_proposals", "int8_towers", "w8a8_alphaclip",
+          # the Matcher's backend (mars_tpu/cli.py:500-504)
+          "proposal_model"]
 # the JAX CLI's flags the port does not take yet (ROADMAP Queue 1)
-NOT_PORTED = ["proposal_model"]
+NOT_PORTED = []
 # the flags cli_proposals shares with it (mars_tpu/cli_proposals.py:30-57)
 PROPOSAL_FLAGS = ["benchmark", "datapath", "models_path", "fold", "nshot", "input_size",
                   "episodes", "sam_size", "dino_backbone", "num_regs", "bf16", "seed"]

@@ -799,3 +799,54 @@ def test_multicrop_launch_counts(dev, monkeypatch):
     out = amg.generate_multicrop(params, img, cfg, acfg, original_size=(64, 64))
     assert (sa.grid_attention.launches - g0, sa.windowed_attention.launches - w0) == (0, 10)
     assert out["masks"].shape == (5 * 48, 64, 64) and int(out["valid"].sum()) > 0
+
+
+def test_semantic_sam_call_equals_cpu(dev):
+    """One tiny Semantic-SAM Matcher call (the golden Matcher fixture's
+    DINOv2, seeded ``SEMANTIC_SAM_TINY`` weights, the draw family fed the
+    same noise) on the card against the same call on the CPU: 2 auction
+    launches, the set logits at 1e-4, the same validity and chosen rows,
+    masks that differ at few pixels and a merged mask at IoU >= 0.99."""
+    import os
+
+    from mars_tpu_torch.models import convert, dinov2, zoo
+    from mars_tpu_torch.ops import assignment as asg
+    from mars_tpu_torch.pipeline import matcher, matcher_oss
+
+    data = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "golden_matcher_tiny.npz"))
+    sd = {k[8:]: data[k] for k in data.files if k.startswith("sd.dino.")}
+    cfg = matcher.MatcherConfig(input_size=64, grid=8, patch_size=8, sample_range=(2, 3),
+                                max_sample_iterations=4, deep_score_filter=0.6,
+                                deep_score_norm_filter=0.4, emd_row_bucket=16, emd_col_bucket=64)
+    dcfg = dinov2.DinoV2Config(patch_size=8, embed_dim=32, depth=3, num_heads=2,
+                               num_register_tokens=4, pos_embed_grid=8)
+    ss_params, ss_cfg = zoo.build_semantic_sam(None, "tiny", device="cpu")
+    sup = np.ascontiguousarray(data["support_images"][0].transpose(0, 2, 3, 1))
+    qry = np.ascontiguousarray(data["query_image"][0].transpose(1, 2, 0))
+    gumbel = -torch.empty((2 * 4, 64)).exponential_(
+        generator=torch.Generator().manual_seed(0)).log()
+    runs = {}
+    for where in ("cpu", dev):
+        def on(x):
+            return torch.from_numpy(x).to(where)
+
+        dino = convert.from_reference_state_dict(sd, "dinov2", 3, device=where)
+        backend = matcher_oss.SemanticSamBackend(convert.from_jax_params(ss_params, where),
+                                                 ss_cfg)
+        before = asg.auction_assignment.launches
+        out = matcher_oss.generate_proposals_oss(
+            dino, dcfg, backend, cfg, on(sup), on(np.ones_like(data["support_masks"][0])),
+            torch.ones((1,), dtype=torch.bool, device=where), on(qry), gumbel=gumbel,
+            bucket=16)
+        logits = backend.set_logits(on(qry), out["coords01"], out["labels"], out["set_valid"])
+        runs[str(where)] = (out, logits.cpu(), asg.auction_assignment.launches - before)
+    (cpu, cpu_logits, _), (card, card_logits, launches) = runs["cpu"], runs[str(dev)]
+    assert launches == 2
+    torch.testing.assert_close(card_logits, cpu_logits, atol=1e-4, rtol=1e-4)
+    for key in ("proposal_valid", "set_valid", "chosen", "bucket_valid"):
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+    flips = (card["proposal_masks"].cpu() != cpu["proposal_masks"]).sum().item()
+    assert flips <= 1e-3 * cpu["proposal_masks"].numel()
+    a, b = card["merged"].cpu() > 0, cpu["merged"] > 0
+    assert (a & b).sum() >= 0.99 * max((a | b).sum().item(), 1)
+    assert int(cpu["telemetry"]["n_matched_points"]) > 8 and cpu["proposal_valid"].any()

@@ -39,6 +39,10 @@ print(" ".join(names))
 # the text path's modules, which JAX's twins build on cv2 and nltk
 TEXT_MODULES = ("mars_tpu_torch.text.visual_prompts", "mars_tpu_torch.text.wordnet",
                 "mars_tpu_torch.text.retriever", "mars_tpu_torch.models.vip_llava")
+# Semantic-SAM's modules, whose JAX twins are checked against transformers
+SEMANTIC_SAM_MODULES = ("mars_tpu_torch.models.swin", "mars_tpu_torch.models.semantic_sam",
+                        "mars_tpu_torch.ops.deformable_attention",
+                        "mars_tpu_torch.pipeline.matcher_oss")
 
 
 def test_imports_without_jax_or_mars_tpu():
@@ -48,7 +52,7 @@ def test_imports_without_jax_or_mars_tpu():
     counts, names = r.stdout.splitlines()
     n, bad = counts.split(maxsplit=1)
     assert int(n) >= 20 and bad.strip() == "[]", r.stdout
-    assert set(TEXT_MODULES) <= set(names.split()), names
+    assert set(TEXT_MODULES + SEMANTIC_SAM_MODULES) <= set(names.split()), names
     for mod in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch."):
         path = __import__(mod.name, fromlist=["_"]).__file__
         with open(path) as f:
