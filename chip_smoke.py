@@ -149,7 +149,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
      run's buckets and merged masks against the plain route's, bf16's
      merged masks' IoU with float32's; one call split by stage under
      torch.profiler (float32, bf16); one ``SamPointBackend`` call at ViT-H;
- 26. the kernels line.
+ 26. the multi-device drivers and the serving runtime (``phase_parallel``):
+     ``cli_parallel.main`` at one NCCL rank, local batch 4, over eight
+     synthetic episodes in float32 and bf16 (merged masks against the
+     serial ``cli.main``'s, 31 tap launches an episode, ranking ms an
+     episode at local batch 1 and 4, one profiled batch of each, peak
+     memory); ``--generate-proposals --local-batch 2`` with the AMG's
+     selection thresholds at 0 (buckets bitwise equal to the serial CLI's);
+     ``MarsServer`` (a warm-up, six queued requests, one malformed: its
+     error delivered, the other masks equal to ``Mars.predict``'s, each
+     request's latency); two ranks sharing the card over gloo
+     (``evaluate_parallel`` at mesh 2 x 1 and 1 x 2, the proposal-sharded
+     ranker on one 128-row bucket), masks against the float32 run's;
+ 27. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -2905,6 +2917,346 @@ def phase_semantic_sam(state):
         raise AssertionError(f"semantic-sam path failed: {failures}")
 
 
+PAR_EPISODES = 8
+PAR_LOCAL_BATCH = 4
+PAR_ARGS = ["--benchmark", "synthetic", "--episodes", str(PAR_EPISODES), "--gt-class-names",
+            "--proposal-bucket", "128", "--input-size", "518", "--seed", "0"]
+PAR_GEN_EPISODES = 4
+PAR_GEN_LOCAL_BATCH = 2
+SERVER_REQUESTS = 6
+SERVER_MALFORMED = 3  # the request whose proposals are 2-D
+TWO_RANK_EPISODES = 4
+
+
+def _zero_counts():
+    from mars_tpu_torch import cli
+
+    for fn in cli.KERNELS.values():
+        fn.launches = 0
+
+
+def _against_serial(got, want):
+    """Per-episode IoU of two mask lists and how many are bitwise equal."""
+    import numpy as np
+
+    ious = [float(_mask_iou(a[None], b[None])[0, 0]) for a, b in zip(got, want)]
+    return ious, sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+
+
+def _parallel_timing(args, dev):
+    """One model and a one-rank NCCL mesh: ranking ms an episode at local
+    batch 1 and ``PAR_LOCAL_BATCH`` over ``PAR_EPISODES`` episodes (the
+    batches after the first), then one batch of each under torch.profiler
+    (wall, device busy, idle share)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars_tpu_torch import cli, cli_parallel
+    from mars_tpu_torch.core.episode import pad_proposals
+    from mars_tpu_torch.parallel import mesh as mesh_lib
+
+    pargs = cli.parse_args(args)
+    model = cli.build_model(pargs, dev)
+    mesh = mesh_lib.make_mesh(device="cuda")
+    out = {}
+    try:
+        def run(lb, n):
+            rng = np.random.RandomState(0)
+            return cli_parallel.evaluate_parallel(
+                model, cli.dataset(pargs), mesh, input_size=518, episodes=n,
+                proposal_bucket=128, local_batch=lb, log=lambda *a: None,
+                props_fn=lambda idx, rec: pad_proposals(
+                    cli.synthetic_proposal_masks(rec, 518, rng), 128))[3]
+
+        for lb in (1, PAR_LOCAL_BATCH):
+            times = run(lb, PAR_EPISODES)
+            out[f"ms_per_episode_lb{lb}"] = float(np.mean(times[1:]) / lb * 1e3)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(lb, lb)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            busy_ms, launches, _, top = _profile_summary(prof, ("mars.", "matcher."))
+            out[f"profiled_batch_lb{lb}"] = {
+                "episodes": lb, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+                "top_kernels": top[:5]}
+    finally:
+        mesh.close()
+    return out
+
+
+def _two_rank(rank, world, store, args, out_dir):
+    """One of two ranks sharing the card over gloo: ``evaluate_parallel``
+    at mesh 2 x 1 and 1 x 2 (tensor-parallel towers) over
+    ``TWO_RANK_EPISODES`` episodes, then ``make_proposal_parallel_ranker``
+    on episode 0's 128-row bucket; masks and kernel counts to a file."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mars_tpu_torch import cli, cli_parallel
+    from mars_tpu_torch.core.episode import pad_proposals
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.parallel import mesh as mesh_lib, runner
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        pargs = cli.parse_args(args)
+        model = cli.build_model(pargs, dev)
+        full = {k: getattr(model, k) for k in ("dino_params", "clip_v", "ac_v")}
+        result = {}
+        for shape, lb in (((2, 1), TWO_RANK_EPISODES // 2), ((1, 2), TWO_RANK_EPISODES)):
+            mesh = mesh_lib.make_mesh(*shape, device=dev)
+            for k, v in full.items():
+                setattr(model, k, mesh_lib.shard_params(v, mesh))
+            rng, masks = np.random.RandomState(0), []
+            _zero_counts()
+            t0 = time.perf_counter()
+            cli_parallel.evaluate_parallel(
+                model, cli.dataset(pargs), mesh, input_size=518, episodes=TWO_RANK_EPISODES,
+                proposal_bucket=128, local_batch=lb, log=lambda *a: None, masks=masks,
+                props_fn=lambda idx, rec: pad_proposals(
+                    cli.synthetic_proposal_masks(rec, 518, rng), 128))
+            result[f"mesh_{shape[0]}x{shape[1]}"] = {
+                "masks": masks, "launches": cli.kernel_launches(), "wall_s": time.perf_counter() - t0}
+        for k, v in full.items():
+            setattr(model, k, v)
+        mesh = mesh_lib.make_mesh(2, 1, device=dev)
+        rec = cli.dataset(pargs)[0]
+        ep = to_device_episode(rec, 518, 1, dev)
+        props = cli.synthetic_proposals(rec, 518, 128, np.random.RandomState(0), dev)
+        rank_fn = runner.make_proposal_parallel_ranker(
+            model.dino_cfg, model.clip_vcfg, model.ac_vcfg, model.cfg.vva, model.cfg.vta,
+            model.cfg.filter_merge, mesh)
+        from mars_tpu_torch.text import prompts
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        merged, final = rank_fn(
+            {"dino": model.dino_params, "clip_v": model.clip_v, "ac_v": model.ac_v,
+             "logit_scale": model.clip_scale}, *ep[:4], props.masks, props.valid,
+            model._vta_text_feats(rec.class_name),
+            model._alpha_clip_text_feats(prompts.alpha_clip_text(rec.class_name, "")))
+        result["proposal_parallel"] = {"masks": [merged.cpu().numpy() > 0.5],
+                                       "launches": cli.kernel_launches(),
+                                       "wall_s": time.perf_counter() - t0,
+                                       "finite_scores": int(torch.isfinite(final).sum())}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(state):
+    """The multi-device drivers and the serving runtime at full width, one
+    card (``cli_parallel``, ``parallel.runner``, ``serving``):
+
+    (a) ``cli_parallel.main`` at one rank over NCCL, local batch 4, over
+        eight synthetic episodes, float32 then --bf16: merged masks against
+        the serial ``cli.main``'s at IoU >= ``NOTAP_IOU`` (the count of
+        bitwise-equal ones printed), 31 tap launches an episode and no
+        other kernel; ranking ms an episode at local batch 1 and 4, one
+        profiled batch of each, the peak memory;
+    (b) ``--generate-proposals --local-batch 2`` over four episodes, the
+        AMG's selection thresholds at 0 so that the buckets hold live masks:
+        merged masks against the serial CLI's at IoU >= ``NOTAP_IOU``, 4
+        grid and 2 auction launches an episode (the buckets are printed
+        beside the serial CLI's; both run one Matcher flow,
+        ``cli.make_inline_generator``, so they are equal by construction and
+        not asserted);
+    (c) ``MarsServer``: a warm-up, then six requests from a producer
+        thread, one with 2-D proposals (its ValueError delivered, the loop
+        going on); the other masks bitwise equal to ``Mars.predict``'s;
+        each request's latency;
+    (d) two ranks sharing the card over gloo (NCCL refuses two ranks on
+        one device): ``evaluate_parallel`` at mesh 2 x 1 and 1 x 2 over
+        four episodes, ``make_proposal_parallel_ranker`` on one 128-row
+        bucket; merged masks against (a)'s float32 ones at IoU >=
+        ``NOTAP_IOU``, the bitwise-equal count printed."""
+    import functools
+    import pickle
+    import queue
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch import cli, cli_parallel, serving
+    from mars_tpu_torch.core.episode import pad_proposals
+    from mars_tpu_torch.pipeline import amg, matcher
+
+    dev = torch.device("cuda")
+    failures, launches_by_path = [], {}
+    serial_f32 = None
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)
+        for bf16 in (False, True):
+            args = PAR_ARGS + (["--bf16"] if bf16 else [])
+            tag = "bf16" if bf16 else "f32"
+            serial = cli.main(args + ["--log-path", os.path.join(tmp, f"s_{tag}")],
+                              keep_masks=True)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_counts()
+            res = cli_parallel.main(args + ["--local-batch", str(PAR_LOCAL_BATCH),
+                                            "--log-path", os.path.join(tmp, f"p_{tag}")],
+                                    keep_masks=True)
+            launches = cli.kernel_launches()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            launches_by_path[f"parallel_{tag}"] = launches
+            want = {name: 0 for name in launches}
+            want["attention_with_tap"] = TAPPED_BLOCKS * PAR_EPISODES
+            ious, equal = _against_serial(res["masks"], serial["masks"])
+            row = {"phase": "parallel_one_rank", "dtype": tag, "episodes": PAR_EPISODES,
+                   "local_batch": PAR_LOCAL_BATCH, "mesh": res["mesh"],
+                   "batch_s": res["batch_times"], "iou_with_serial": ious,
+                   "bitwise_equal_serial": equal, "iou_limit": NOTAP_IOU, "miou": res["miou"],
+                   "serial_miou": serial["miou"],
+                   "serial_ranking_ms_per_episode": float(np.mean(serial["episode_ms"][1:])),
+                   "peak_memory_gib": peak, "launches": launches, "launches_expected": want,
+                   **_parallel_timing(args, dev)}
+            emit(row)
+            if launches != want or len(ious) != PAR_EPISODES or min(ious) < NOTAP_IOU:
+                failures.append(("one_rank", tag))
+            if not bf16:
+                serial_f32 = serial["masks"]
+
+        # (b), the AMG's selection thresholds at 0 (``_zero_thresholds``'s
+        # config) so that the buckets hold live masks
+        buckets = {"serial": [], "parallel": []}
+        real, real_amg = matcher.generate_proposals, amg.AmgConfig
+        amg.AmgConfig = functools.partial(
+            real_amg, sel_pred_iou_thresh=0.0, sel_stability_score_thresh=0.0,
+            box_nms_thresh=0.5, sel_multimask_output=True, sel_output_layer=3, decode_batch=16)
+        gen_args = ["--benchmark", "synthetic", "--episodes", str(PAR_GEN_EPISODES),
+                    "--gt-class-names", "--generate-proposals", "--proposal-bucket", "128",
+                    "--input-size", "518", "--seed", "0"]
+        try:
+            for key, fn, extra in (("serial", cli.main, []),
+                                   ("parallel", cli_parallel.main,
+                                    ["--local-batch", str(PAR_GEN_LOCAL_BATCH)])):
+                def recording(*a, _key=key, **k):
+                    out = real(*a, **k)
+                    buckets[_key].append((out["bucket_masks"].cpu().numpy(),
+                                          out["bucket_valid"].cpu().numpy()))
+                    return out
+
+                matcher.generate_proposals = recording
+                _zero_counts()
+                got = fn(gen_args + extra + ["--log-path", os.path.join(tmp, f"g_{key}")],
+                         keep_masks=True)
+                buckets[key + "_launches"] = cli.kernel_launches()
+                buckets[key + "_masks"] = got["masks"]
+        finally:
+            matcher.generate_proposals, amg.AmgConfig = real, real_amg
+        launches = buckets["parallel_launches"]
+        launches_by_path["parallel_generate"] = launches
+        want = {"attention_with_tap": TAPPED_BLOCKS * PAR_GEN_EPISODES, "attention_notap": 0,
+                "grid_attention": SAM_GLOBAL_LAYERS * PAR_GEN_EPISODES, "windowed_attention": 0,
+                "auction": AUCTIONS * PAR_GEN_EPISODES}
+        equal_buckets = [bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+                         for a, b in zip(buckets["parallel"], buckets["serial"])]
+        ious, equal = _against_serial(buckets["parallel_masks"], buckets["serial_masks"])
+        emit({"phase": "parallel_generate", "episodes": PAR_GEN_EPISODES,
+              "local_batch": PAR_GEN_LOCAL_BATCH, "buckets_bitwise_equal": equal_buckets,
+              "live_proposals": [int(b[1].sum()) for b in buckets["parallel"]],
+              "iou_with_serial": ious, "bitwise_equal_serial": equal, "launches": launches,
+              "launches_expected": want})
+        if (launches != want or len(ious) != PAR_GEN_EPISODES or min(ious) < NOTAP_IOU
+                or not any(b[1].any() for b in buckets["parallel"])):
+            failures.append("generate")
+
+    # (c)
+    model = cli.build_model(cli.parse_args(PAR_ARGS), dev)
+    ds = cli.dataset(cli.parse_args(PAR_ARGS))
+    server = serving.MarsServer(model, input_size=518, proposal_bucket=128)
+    rng = np.random.RandomState(0)
+    props = [cli.synthetic_proposal_masks(ds[i], 518, rng).numpy()
+             for i in range(SERVER_REQUESTS)]
+    warm_s = server.warmup(ds[0], props[0])
+    done, sent, results = queue.Queue(), {}, {}
+    _zero_counts()
+    server.start(lambda r: (results.__setitem__(r.request_id, (r, time.perf_counter())),
+                            done.put(r.request_id)))
+
+    def produce():
+        for i in range(SERVER_REQUESTS):
+            p = props[i][0] if i == SERVER_MALFORMED else props[i]
+            sent[i] = time.perf_counter()
+            server.submit(serving.PredictRequest(ds[i], p, class_name=ds[i].class_name,
+                                                 request_id=i))
+
+    producer = threading.Thread(target=produce)
+    producer.start()
+    producer.join(timeout=300)
+    for _ in range(SERVER_REQUESTS):
+        done.get(timeout=300)
+    server.stop()
+    launches = cli.kernel_launches()
+    launches_by_path["server"] = launches
+    equal, latency = [], {}
+    for i in range(SERVER_REQUESTS):
+        res, t_done = results[i]
+        latency[i] = (t_done - sent[i]) * 1e3
+        if i == SERVER_MALFORMED:
+            continue
+        ep = cli.to_device_episode(ds[i], 518, 1, dev)
+        want = model.predict(ep, pad_proposals(torch.from_numpy(props[i]).to(dev), 128),
+                             class_name=ds[i].class_name).cpu().numpy()
+        equal.append(bool(res.error is None and np.array_equal(res.mask, want)))
+    bad = results[SERVER_MALFORMED][0]
+    emit({"phase": "parallel_server", "requests": SERVER_REQUESTS, "warmup_s": warm_s,
+          "latency_ms": [latency[i] for i in range(SERVER_REQUESTS)],
+          "predict_total_ms": [results[i][0].timings.get("total", 0) * 1e3
+                               for i in range(SERVER_REQUESTS)],
+          "malformed_error": repr(bad.error), "masks_equal_predict": equal,
+          "launches": launches})
+    if not isinstance(bad.error, ValueError) or len(equal) != SERVER_REQUESTS - 1 \
+            or not all(equal) or launches["attention_with_tap"] != \
+            TAPPED_BLOCKS * (SERVER_REQUESTS - 1):
+        failures.append("server")
+    del model, server
+
+    # (d)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_two_rank, args=(2, os.path.join(tmp, "store"), PAR_ARGS,
+                                                     tmp), nprocs=2, join=True)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    row = {"phase": "parallel_two_ranks", "backend": "gloo", "episodes": TWO_RANK_EPISODES,
+           "iou_limit": NOTAP_IOU}
+    for key in ("mesh_2x1", "mesh_1x2", "proposal_parallel"):
+        ref = serial_f32[:len(ranks[0][key]["masks"])]
+        per_rank = [_against_serial(rk[key]["masks"], ref) for rk in ranks]
+        launches = {name: sum(rk[key]["launches"][name] for rk in ranks)
+                    for name in ranks[0][key]["launches"]}
+        launches_by_path[f"two_ranks_{key}"] = launches
+        row[key] = {"iou_with_serial": [p[0] for p in per_rank],
+                    "bitwise_equal_serial": [p[1] for p in per_rank],
+                    "ranks_equal": all(np.array_equal(a, b) for a, b in
+                                       zip(ranks[0][key]["masks"], ranks[1][key]["masks"])),
+                    "launches_both_ranks": launches,
+                    "wall_s": [rk[key].get("wall_s") for rk in ranks]}
+        # 2 x 1: each rank its two episodes; 1 x 2: each rank its heads of all
+        # four; the proposal-sharded ranker: each rank the episode's towers
+        taps = TAPPED_BLOCKS * {"mesh_2x1": TWO_RANK_EPISODES, "mesh_1x2": 2 * TWO_RANK_EPISODES,
+                                "proposal_parallel": 2}[key]
+        if (any(min(p[0]) < NOTAP_IOU or len(p[0]) != len(ref) for p in per_rank)
+                or not row[key]["ranks_equal"] or launches["attention_with_tap"] != taps):
+            failures.append(("two_ranks", key))
+    emit(row)
+    state["parallel_launches"] = launches_by_path
+    if failures:
+        raise AssertionError(f"parallel phase failed: {failures}")
+
+
 def kernels_line(state):
     rows = state.get("kernel_rows", [])
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
@@ -2917,7 +3269,8 @@ def kernels_line(state):
              "models_path": state.get("models_path_launches", {}),
              **state.get("backbone_launches", {}), **state.get("fold_run_launches", {}),
              **state.get("matcher_configs_launches", {}), **state.get("int8_launches", {}),
-             **state.get("semantic_sam_launches", {})}
+             **state.get("semantic_sam_launches", {}),
+             **state.get("parallel_launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in paths.values())
@@ -3046,7 +3399,8 @@ def main():
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run,
-                  phase_matcher_configs, phase_int8_towers, phase_semantic_sam):
+                  phase_matcher_configs, phase_int8_towers, phase_semantic_sam,
+                  phase_parallel):
         t0 = time.perf_counter()
         try:
             phase(state)

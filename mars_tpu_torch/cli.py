@@ -404,6 +404,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("mars_tpu_torch evaluation")
+    add_eval_args(p)
+    return p.parse_args(argv)
+
+
+def add_eval_args(p: argparse.ArgumentParser) -> None:
+    """The evaluation flags, which ``cli_parallel`` shares
+    (``mars_tpu.cli.add_eval_args``)."""
     add_model_args(p)
     p.add_argument("--annotations-datapath", default=None,
                    help="the COCO mask-annotation folder (default "
@@ -496,7 +503,6 @@ def parse_args(argv=None):
                         "the timing rows and every host RNG stream)")
     p.add_argument("--resume-every", type=int, default=20,
                    help="episodes between resume snapshots (0 disables)")
-    return p.parse_args(argv)
 
 
 def dataset(args):

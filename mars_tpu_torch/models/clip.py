@@ -92,7 +92,8 @@ def prefinal(params, x, cfg: ClipVisualConfig, attn_tap_last_n: int = 0):
 def gradcam_last_block(params, x_prefinal, text_feats, logit_scale, cfg: ClipVisualConfig):
     """Softmax-Grad-CAM through the held-out final block.
 
-    text_feats: (T, output_dim), foreground label at row 0.
+    text_feats: (T, output_dim), foreground label at row 0, or (B, T,
+    output_dim), one set a batch row.
     Returns (cam (B, P) unscaled, probs (B, T), attn_patch_last (B, P, P)).
     """
     p = params[f"block{cfg.depth - 1}"]
@@ -103,14 +104,19 @@ def gradcam_last_block(params, x_prefinal, text_feats, logit_scale, cfg: ClipVis
         attn_out, attn_w = L.mha(p["attn"], a, cfg.num_heads, return_attn=True,
                                  force_plain=True)
         h = x_prefinal + attn_out
-        h = h + L.mlp(p["mlp"], L.layer_norm(p["ln2"], h), L.quick_gelu)
+        h = h + L.mlp(p["mlp"], L.layer_norm(p["ln2"], h), L.quick_gelu,
+                      L.block_sliced(p, h.shape[-1]))
         h = L.layer_norm(params["ln_post"], h)
         img = h[:, 1:, :].mean(dim=1) @ params["proj"]
         img = img / img.norm(dim=-1, keepdim=True)
         # a bf16 tower's img meets the f32 scale and text features: JAX
         # promotes the product to f32 (a 0-dim f32 array promotes too)
         dt = torch.promote_types(torch.promote_types(logit_scale.dtype, img.dtype), txt.dtype)
-        logits = (torch.exp(logit_scale).to(dt) * img.to(dt)) @ txt.T.to(dt)
+        scaled = torch.exp(logit_scale).to(dt) * img.to(dt)
+        if txt.dim() == 3:
+            logits = torch.einsum("bd,btd->bt", scaled, txt.to(dt))
+        else:
+            logits = scaled @ txt.T.to(dt)
         probs = torch.softmax(logits, dim=-1)
         # target: softmaxed logit of the foreground label (ClipOutputTarget(0))
         (grads,) = torch.autograd.grad(probs[:, 0].sum(), a)

@@ -41,12 +41,16 @@ DINOV2_VARIANTS = {
 }
 
 
-def forward_features(params, images, cfg: DinoV2Config, attn_tap_last_n: int = 0):
+def forward_features(params, images, cfg: DinoV2Config, attn_tap_last_n: int = 0,
+                     tap_from: int = 0):
     """images: (B, H, W, 3) normalized, NHWC.
 
     Returns dict with x_prenorm (B, 1+R+P, D), x_norm_clstoken (B, D),
     x_norm_patchtokens (B, P, D) and attn_mean (B, P, P), the mean over the
     last N blocks and all heads of patch-token attention (None if N == 0).
+    ``tap_from``: only images from this index on are tapped (attn_mean
+    (B - tap_from, P, P)); the others run the untapped route, as their own
+    untapped forward would.
     """
     b, h, w, _ = images.shape
     gh, gw = h // cfg.patch_size, w // cfg.patch_size
@@ -65,7 +69,7 @@ def forward_features(params, images, cfg: DinoV2Config, attn_tap_last_n: int = 0
     for i in range(cfg.depth):
         tap = attn_tap_last_n > 0 and i >= tap_start
         x, attn = L.block(params[f"block{i}"], x, cfg.num_heads, act=L.exact_gelu,
-                          ln_eps=cfg.ln_eps, return_attn=tap)
+                          ln_eps=cfg.ln_eps, return_attn=tap, tap_from=tap_from)
         if tap:
             pa = attn[:, num_prefix:, num_prefix:]
             attn_total = pa if attn_total is None else attn_total + pa

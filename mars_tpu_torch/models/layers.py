@@ -15,13 +15,26 @@ call) sends them through ``ops.flash_attention.mha_notap``.  Masked blocks
 and the Grad-CAM head stay plain.
 A dense whose ``kernel`` is a dict is weight-only quantized and goes to
 ``models.quantization.quantized_dense``.
+
+Tensor parallelism: a block whose parameters ``parallel.mesh.shard_params``
+sliced holds whole heads (and the matching MLP columns); it computes its
+local heads, all-reduces the partial products of ``proj``/``fc2`` in the
+group that ``tensor_parallel`` names, and adds their biases once after the
+reduce.  A block tells it is sliced from its attention's width, so an
+unsliced block (a replicated or 4-bit one) runs whole with no reduce.  This
+is the partition that GSPMD derives in the JAX package from the parameter
+shardings (``mars_tpu/parallel/mesh.py``); the reduces carry gradients (the
+Grad-CAM head differentiates through a sliced block).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from typing import Callable, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mars_tpu_torch.core import imaging
@@ -93,44 +106,168 @@ def kernel_switch(env: str) -> bool:
     return impl == "pallas"
 
 
-def mha(p, x, num_heads: int, return_attn: bool = False, mask=None,
-        force_plain: bool = False):
-    """Multi-head self-attention with an optional head-averaged prob tap
-    (B, L, L).  ``force_plain``: the Grad-CAM head differentiates through
-    its attention, so it takes the plain path (the kernels have no
-    backward), as ``force_xla`` does in the JAX package."""
-    b, l, d = x.shape
-    head_dim = d // num_heads
-    qkv = dense(p["qkv"], x).reshape(b, l, 3, num_heads, head_dim)
+_TP_GROUP = contextvars.ContextVar("mars_tensor_parallel_group", default=None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(group):
+    """Sliced blocks inside this context reduce in ``group`` (the model
+    group of ``parallel.mesh.Mesh``)."""
+    token = _TP_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _TP_GROUP.reset(token)
+
+
+def _tp_group():
+    group = _TP_GROUP.get()
+    if group is None:
+        raise RuntimeError("a block sliced by parallel.mesh.shard_params runs only inside "
+                           "layers.tensor_parallel(group)")
+    return group
+
+
+def out_features(p) -> int:
+    """A dense layer's output width, for a float or a quantized kernel."""
+    k = p["kernel"]
+    if not isinstance(k, dict):
+        return k.shape[-1]
+    return next(k[name].shape[-1] for name in ("q", "q4", "nf4") if name in k)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model group forward; the gradient passes as it is (each
+    rank's output is the same replicated tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient is summed over the model group (each
+    rank differentiates only through its own heads and columns)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def model_input(x):
+    """The replicated input of a sliced block's column-parallel layers."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToModel.apply(x, _tp_group())
+    return x
+
+
+def model_reduce(x):
+    """Sum of the model group's partial results (in place where no
+    gradient is wanted)."""
+    group = _tp_group()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, group)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def dense_reduce(p, x, sliced: bool):
+    """A row-parallel dense: with ``sliced`` the rank's partial product,
+    summed over the model group, then the bias once."""
+    if not sliced:
+        return dense(p, x)
+    y = model_reduce(dense({k: v for k, v in p.items() if k != "bias"}, x))
+    return y + p["bias"] if "bias" in p else y
+
+
+def block_sliced(p, dim: int) -> bool:
+    """Whether ``shard_params`` sliced this ViT block (its qkv is narrower
+    than 3 x ``dim``)."""
+    return out_features(p["attn"]["qkv"]) < 3 * dim
+
+
+def _attend(qkv, dtype, return_attn: bool, mask, force_plain: bool):
+    """(B, L, 3, H, hd) → (out (B, L, H*hd) in ``dtype``, head-mean probs
+    (B, L, L) or None): the tap kernel, the notap kernel behind its switch,
+    or the plain path."""
+    b, l, _, nh, head_dim = qkv.shape
     if return_attn and mask is None and not force_plain:
         out, attn = flash_attention.mha_tap(qkv)
-        return dense(p["proj"], out.to(x.dtype)), attn
+        return out.to(dtype), attn
     if not return_attn and mask is None and not force_plain and kernel_switch(NOTAP_IMPL_ENV):
-        return dense(p["proj"], flash_attention.mha_notap(qkv).to(x.dtype)), None
+        return flash_attention.mha_notap(qkv).to(dtype), None
     q, k, v = qkv.unbind(dim=2)  # (B, L, H, hd)
     q = q * head_dim ** -0.5
     logits = torch.einsum("blhd,bmhd->bhlm", q, k)
     if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits.float(), dim=-1)
-    out = torch.einsum("bhlm,bmhd->blhd", probs.to(x.dtype), v).reshape(b, l, d)
-    out = dense(p["proj"], out)
+    out = torch.einsum("bhlm,bmhd->blhd", probs.to(dtype), v).reshape(b, l, nh * head_dim)
     return out, (probs.mean(dim=1) if return_attn else None)
 
 
-def mlp(p, x, act: Callable):
-    return dense(p["fc2"], act(dense(p["fc1"], x)))
+def mha(p, x, num_heads: int, return_attn: bool = False, mask=None,
+        force_plain: bool = False, tap_from: int = 0):
+    """Multi-head self-attention with an optional head-averaged prob tap
+    (B, L, L).  ``force_plain``: the Grad-CAM head differentiates through
+    its attention, so it takes the plain path (the kernels have no
+    backward), as ``force_xla`` does in the JAX package.  ``tap_from``:
+    with ``return_attn``, batch rows before it take the untapped route and
+    only the rest are tapped (a stack of support and query images in one
+    pass); the tap then covers those rows.  A sliced block (tensor
+    parallelism, see the module note) computes its local heads; its tap
+    is the model group's sum of each rank's local head-mean scaled by its
+    share of the heads."""
+    b, l, d = x.shape
+    head_dim = d // num_heads
+    width = out_features(p["qkv"]) // 3
+    sliced = width < d
+    if sliced:
+        if width % head_dim:
+            raise ValueError(f"a rank's qkv width {width} holds no whole heads of {head_dim}")
+        x = model_input(x)
+    qkv = dense(p["qkv"], x).reshape(b, l, 3, width // head_dim, head_dim)
+    if return_attn and tap_from:
+        out_u, _ = _attend(qkv[:tap_from], x.dtype, False, mask, force_plain)
+        out_t, attn = _attend(qkv[tap_from:], x.dtype, True, mask, force_plain)
+        out = torch.cat([out_u, out_t])
+    else:
+        out, attn = _attend(qkv, x.dtype, return_attn, mask, force_plain)
+    if sliced and attn is not None:
+        attn = model_reduce(attn * (width / d))
+    return dense_reduce(p["proj"], out, sliced), attn
+
+
+def mlp(p, x, act: Callable, sliced: bool = False):
+    """fc1, ``act``, fc2; ``sliced``: the block's columns of fc1 and rows
+    of fc2, reduced over the model group."""
+    if sliced:
+        x = model_input(x)
+    return dense_reduce(p["fc2"], act(dense(p["fc1"], x)), sliced)
 
 
 def block(p, x, num_heads: int, act: Callable = exact_gelu, ln_eps: float = 1e-5,
-          return_attn: bool = False, mask=None):
+          return_attn: bool = False, mask=None, tap_from: int = 0):
     """Pre-LN residual block, DINOv2 (layerscale) and CLIP dialects."""
     a, attn_probs = mha(p["attn"], layer_norm(p["ln1"], x, ln_eps), num_heads,
-                        return_attn=return_attn, mask=mask)
+                        return_attn=return_attn, mask=mask, tap_from=tap_from)
     if "ls1" in p:
         a = a * p["ls1"]["gamma"]
     x = x + a
-    h = mlp(p["mlp"], layer_norm(p["ln2"], x, ln_eps), act)
+    h = mlp(p["mlp"], layer_norm(p["ln2"], x, ln_eps), act, block_sliced(p, x.shape[-1]))
     if "ls2" in p:
         h = h * p["ls2"]["gamma"]
     return x + h, attn_probs

@@ -92,21 +92,32 @@ def vision_hidden_states(p, pixel_values, cfg: VipLlavaConfig):
         lp = p[f"layer{i}"]
         x = x + _hf_attn(lp["attn"], L.layer_norm(lp["ln1"], x), cfg.v_heads)
         h = L.layer_norm(lp["ln2"], x)
-        x = x + L.dense(lp["mlp"]["fc2"], L.quick_gelu(L.dense(lp["mlp"]["fc1"], h)))
+        x = x + L.mlp(lp["mlp"], h, L.quick_gelu, _sliced(lp["attn"], x.shape[-1]))
         states.append(x)
     return states
+
+
+def _sliced(attn, dim: int) -> bool:
+    """Whether ``parallel.mesh.shard_params`` sliced this layer (its query
+    projection is narrower than the hidden width): the layer then computes
+    its local heads and reduces over the model group (``layers``)."""
+    return L.out_features(attn["q"]) < dim
 
 
 def _hf_attn(p, x, num_heads: int):
     b, l, d = x.shape
     hd = d // num_heads
-    q = L.dense(p["q"], x).reshape(b, l, num_heads, hd)
-    k = L.dense(p["k"], x).reshape(b, l, num_heads, hd)
-    v = L.dense(p["v"], x).reshape(b, l, num_heads, hd)
+    sliced = _sliced(p, d)
+    if sliced:
+        x = L.model_input(x)
+    heads = L.out_features(p["q"]) // hd
+    q = L.dense(p["q"], x).reshape(b, l, heads, hd)
+    k = L.dense(p["k"], x).reshape(b, l, heads, hd)
+    v = L.dense(p["v"], x).reshape(b, l, heads, hd)
     logits = torch.einsum("blhd,bmhd->bhlm", q * hd ** -0.5, k)
     probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-    out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, d)
-    return L.dense(p["out"], out)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, heads * hd)
+    return L.dense_reduce(p["out"], out, sliced)
 
 
 def image_features(p, pixel_values, cfg: VipLlavaConfig):
@@ -157,9 +168,13 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
     token and head as they are written and dequantized for the read."""
     b, l, d = x.shape
     hd = d // cfg.heads
-    q = _rope(L.dense(p["q"], x).reshape(b, l, cfg.heads, hd), positions, cfg.rope_theta)
-    k = _rope(L.dense(p["k"], x).reshape(b, l, cfg.kv_heads, hd), positions, cfg.rope_theta)
-    v = L.dense(p["v"], x).reshape(b, l, cfg.kv_heads, hd)
+    sliced = _sliced(p, d)
+    if sliced:
+        x = L.model_input(x)
+    heads, kv_heads = L.out_features(p["q"]) // hd, L.out_features(p["k"]) // hd
+    q = _rope(L.dense(p["q"], x).reshape(b, l, heads, hd), positions, cfg.rope_theta)
+    k = _rope(L.dense(p["k"], x).reshape(b, l, kv_heads, hd), positions, cfg.rope_theta)
+    v = L.dense(p["v"], x).reshape(b, l, kv_heads, hd)
 
     if kv_cache is None:
         keys, values, kv_positions = k, v, positions
@@ -190,7 +205,7 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
             keys, values = kv_cache
         kv_positions = torch.arange(keys.shape[1], device=x.device)[None]
 
-    rep = cfg.heads // cfg.kv_heads
+    rep = heads // kv_heads
     if rep > 1:
         keys = keys.repeat_interleave(rep, dim=2)
         values = values.repeat_interleave(rep, dim=2)
@@ -201,8 +216,8 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
         valid = valid & (kv_positions[:, None, None, :] <= cp + l - 1)
     logits = logits.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-    out = torch.einsum("bhlm,bmhd->blhd", probs, values).reshape(b, l, d)
-    return L.dense(p["o"], out), kv_cache
+    out = torch.einsum("bhlm,bmhd->blhd", probs, values).reshape(b, l, heads * hd)
+    return L.dense_reduce(p["o"], out, sliced), kv_cache
 
 
 def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None):
@@ -210,8 +225,11 @@ def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None):
                                    positions, cfg, kv_cache, cache_pos)
     x = x + h
     h = _rms_norm(p["post_ln"], x, cfg.rms_eps)
+    sliced = _sliced(p["attn"], x.shape[-1])
+    if sliced:
+        h = L.model_input(h)
     gate = F.silu(L.dense(p["mlp"]["gate"], h))
-    x = x + L.dense(p["mlp"]["down"], gate * L.dense(p["mlp"]["up"], h))
+    x = x + L.dense_reduce(p["mlp"]["down"], gate * L.dense(p["mlp"]["up"], h), sliced)
     return x, kv_cache
 
 
@@ -244,11 +262,13 @@ def embed_multimodal(p, input_ids, pixel_values, cfg: VipLlavaConfig):
     return torch.where(is_img[..., None], gathered.to(embeds.dtype), embeds)
 
 
-def _alloc_cache(b: int, length: int, cfg: VipLlavaConfig, dtype, device, kv_bits=None):
+def _alloc_cache(b: int, length: int, cfg: VipLlavaConfig, dtype, device, kv_bits=None,
+                 kv_heads: Optional[int] = None):
     """One layer's zeroed cache: (K, V) in ``dtype``, or with ``kv_bits=8``
     the int8 4-tuple (K_i8, V_i8, k_scale, v_scale) (zero scales at
-    unwritten slots are inert: the causal mask excludes them)."""
-    shape = (b, length, cfg.kv_heads, cfg.hidden // cfg.heads)
+    unwritten slots are inert: the causal mask excludes them).
+    ``kv_heads``: the layer's own (a sliced layer holds its local heads)."""
+    shape = (b, length, kv_heads or cfg.kv_heads, cfg.hidden // cfg.heads)
     if kv_bits == 8:
         sshape = shape[:3] + (1,)
         return (torch.zeros(shape, dtype=torch.int8, device=device),
@@ -259,6 +279,11 @@ def _alloc_cache(b: int, length: int, cfg: VipLlavaConfig, dtype, device, kv_bit
         raise ValueError(f"kv_bits must be None/16/8, got {kv_bits}")
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _kv_heads(layer, cfg: VipLlavaConfig) -> int:
+    """The key/value heads a LLaMA layer's parameters hold."""
+    return L.out_features(layer["attn"]["k"]) // (cfg.hidden // cfg.heads)
 
 
 @torch.no_grad()
@@ -274,8 +299,9 @@ def prefill_prefix(p, prefix_ids, pixel_values, cfg: VipLlavaConfig, max_len: in
     positions = torch.arange(lp, device=embeds.device)[None].expand(b, lp)
     if max_len and max_len < lp:
         raise ValueError(f"max_len {max_len} < prefix length {lp}")
-    caches = [_alloc_cache(b, max_len or lp, cfg, embeds.dtype, embeds.device, kv_bits)
-              for _ in range(cfg.layers)]
+    lang = p["language"]
+    caches = [_alloc_cache(b, max_len or lp, cfg, embeds.dtype, embeds.device, kv_bits,
+                           _kv_heads(lang[f"layer{i}"], cfg)) for i in range(cfg.layers)]
     _, caches = llama_forward(p["language"], embeds, positions, cfg, caches, 0)
     return caches
 
@@ -338,8 +364,8 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
         caches = prefix_kv
     else:
         bits = (8 if len(prefix_kv[0]) == 4 else None) if prefix_kv is not None else kv_bits
-        caches = [_alloc_cache(b, max_len, cfg, embeds.dtype, dev, bits)
-                  for _ in range(cfg.layers)]
+        caches = [_alloc_cache(b, max_len, cfg, embeds.dtype, dev, bits,
+                               _kv_heads(lang[f"layer{i}"], cfg)) for i in range(cfg.layers)]
         if prefix_kv is not None:
             for cache, pcache in zip(caches, prefix_kv):
                 for buf, pbuf in zip(cache, pcache):

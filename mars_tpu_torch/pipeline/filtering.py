@@ -13,7 +13,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,8 +49,7 @@ def alphaclip_scores(params, query_image: torch.Tensor, proposal_masks: torch.Te
     (else read from ``proposal_valid``, one sync).
     """
     s = cfg.alpha_clip_size
-    img = imaging.resize(query_image, (s, s), "bicubic")
-    img = imaging.normalize(img, imaging.CLIP_MEAN, imaging.CLIP_STD)
+    img = _clip_input(query_image, s)
     p = proposal_masks.shape[0]
     nb = cfg.alpha_clip_batch
     order = None
@@ -67,12 +66,8 @@ def alphaclip_scores(params, query_image: torch.Tensor, proposal_masks: torch.Te
     feats = img.new_zeros((p, text_feats.shape[-1]), dtype=torch.float32)
     for start in range(0, n_live, step):
         stop = start + step
-        alpha = imaging.resize(masks_in[start:stop, :, :, None], (s, s), "bilinear",
-                               antialias=False)[..., 0]
-        alpha = (alpha - 0.5) / 0.26
         imgs = img[None].expand((step,) + img.shape)
-        emb = clip_m.visual_cls(params, imgs, model_cfg, alpha=alpha)
-        feats[start:stop] = (emb / emb.norm(dim=-1, keepdim=True)).float()
+        feats[start:stop] = _region_features(params, imgs, masks_in[start:stop], model_cfg, s)
     scores = feats @ text_feats[0].float()
     if order is None:
         return scores
@@ -81,17 +76,73 @@ def alphaclip_scores(params, query_image: torch.Tensor, proposal_masks: torch.Te
     return out
 
 
+def _clip_input(query_image: torch.Tensor, s: int) -> torch.Tensor:
+    img = imaging.resize(query_image, (s, s), "bicubic")
+    return imaging.normalize(img, imaging.CLIP_MEAN, imaging.CLIP_STD)
+
+
+def _region_features(params, imgs, masks, model_cfg, s: int) -> torch.Tensor:
+    """The unit-norm AlphaCLIP embeddings (N, D) of N (image, mask) rows."""
+    alpha = imaging.resize(masks[:, :, :, None], (s, s), "bilinear", antialias=False)[..., 0]
+    alpha = (alpha - 0.5) / 0.26
+    emb = clip_m.visual_cls(params, imgs, model_cfg, alpha=alpha)
+    return (emb / emb.norm(dim=-1, keepdim=True)).float()
+
+
+def alphaclip_scores_batch(params, query_images: torch.Tensor, proposal_masks: torch.Tensor,
+                           text_feats: torch.Tensor, model_cfg: clip_m.ClipVisualConfig,
+                           cfg: FilterMergeConfig, proposal_valid: torch.Tensor,
+                           n_valid: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``alphaclip_scores`` over B episodes: query_images (B, H, W, 3),
+    proposal_masks (B, P, H, W), text_feats (B, 1, D), proposal_valid
+    (B, P) → (B, P).  The live rows of every episode, packed in episode
+    order, go through the tower in chunks of ``alpha_clip_batch``; dead
+    rows score 0 (they reach no output of ``score_and_merge_core``).
+    ``alphaclip_scores`` stays the one-episode path: it scores the dead
+    rows of a live chunk as the JAX package does, which ``Mars``'s debug
+    state is held to.  ``n_valid``: the episodes' live counts where the
+    host knows them (else one sync)."""
+    s = cfg.alpha_clip_size
+    b, p = proposal_masks.shape[:2]
+    dev = proposal_masks.device
+    imgs = torch.stack([_clip_input(q, s) for q in query_images])
+    if n_valid is None:
+        n_valid = proposal_valid.sum(dim=1).tolist()
+    order = torch.argsort((~proposal_valid).to(torch.int32), dim=1, stable=True)
+    ep = torch.cat([torch.full((n,), i, dtype=torch.long) for i, n in enumerate(n_valid)]).to(dev)
+    idx = torch.cat([order[i, :n] for i, n in enumerate(n_valid)])
+    out = torch.zeros((b, p), dtype=torch.float32, device=dev)
+    if ep.numel() == 0:
+        return out
+    masks = proposal_masks[ep, idx]
+    nb = cfg.alpha_clip_batch
+    feats = torch.cat([_region_features(params, imgs[ep[i:i + nb]], masks[i:i + nb], model_cfg, s)
+                       for i in range(0, ep.numel(), nb)])
+    out[ep, idx] = (feats * text_feats[ep, 0].float()).sum(dim=-1)
+    return out
+
+
 def score_and_merge_core(proposal_masks, proposal_valid, support_fg, cost_matrix,
                          vva, vta, aclip_scores, cfg: FilterMergeConfig,
-                         n_valid: Optional[int] = None, n_rows: Optional[int] = None
+                         n_valid: Optional[int] = None, n_rows: Optional[int] = None,
+                         any_reduce=None, minmax=None, max_reduce=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (merged mask (H, W) float {0,1}, final scores (P,)).
     ``n_valid``, ``n_rows``: the live proposal and support-footprint counts
-    where the host knows them (``ops.emd.batched_emd``)."""
+    where the host knows them (``ops.emd.batched_emd``).  The cross-proposal
+    reductions can be swapped, as in the JAX package, so that the
+    proposal-sharded ranker (``parallel.runner``) runs the same formulas
+    over collectives: ``any_reduce`` for the footprint and merged-mask
+    unions, ``minmax`` for the masked min-max scaling, ``max_reduce`` for
+    the top score.  Without them, the single-device reductions."""
     g = cfg.grid
     p = proposal_masks.shape[0]
+    if minmax is None:
+        minmax = imaging.masked_min_max_scale
     pooled = (imaging.pool_mask_to_grid(proposal_masks, g) > 0) & proposal_valid[:, None, None]
     union = pooled.any(dim=0)
+    if any_reduce is not None:
+        union = any_reduce(union)
     fp = pooled.reshape(p, -1).float()
     sizes = fp.sum(dim=1)
     coverage = sizes / (1e-7 + union.sum())
@@ -101,14 +152,18 @@ def score_and_merge_core(proposal_masks, proposal_valid, support_fg, cost_matrix
     emd = emd_ops.batched_emd(cost_matrix, support_fg, pooled.reshape(p, -1),
                               cfg.emd_row_bucket, cfg.emd_col_bucket,
                               col_valid=proposal_valid, n_valid=n_valid, n_rows=n_rows)
-    emd_n = imaging.masked_min_max_scale(1.0 - emd, proposal_valid)
-    ac_n = imaging.masked_min_max_scale(aclip_scores, proposal_valid)
+    emd_n = minmax(1.0 - emd, proposal_valid)
+    ac_n = minmax(aclip_scores, proposal_valid)
 
     final = (emd_n + ac_n + pvv + pvt) / 4.0
     final = torch.where(proposal_valid, final, float("-inf"))
     top = final.max()
+    if max_reduce is not None:
+        top = max_reduce(top)
     thr = torch.where(top < cfg.static_threshold, cfg.dynamic_threshold * top,
                       torch.full_like(top, cfg.static_threshold))
     keep = proposal_valid & (final >= thr)
     merged = (proposal_masks.bool() & keep[:, None, None]).any(dim=0)
+    if any_reduce is not None:
+        merged = any_reduce(merged)
     return merged.float(), final

@@ -115,11 +115,9 @@ class Mars:
                 self.dino_params, episode.support_images, episode.support_masks,
                 episode.support_valid, episode.query_image, self.dino_cfg, self.cfg.vva)
         with record_function("mars.vta"):
-            vta_prior = vta.compute(self.clip_v, episode.query_image, vta_text,
-                                    self.clip_scale, self.clip_vcfg, self.cfg.vta)
-            vta_prior = imaging.interpolate_2d(vta_prior, (g, g), "nearest")
-            vta_prior = (vta_prior - vta_prior.min()) / (
-                1e-7 + vta_prior.max() - vta_prior.min())
+            vta_prior = vta.scaled_to_grid(
+                vta.compute(self.clip_v, episode.query_image, vta_text, self.clip_scale,
+                            self.clip_vcfg, self.cfg.vta), g)
         with record_function("mars.alphaclip"):
             ac_scores = filtering.alphaclip_scores(
                 self.ac_v, episode.query_image, proposals.masks, ac_text, self.ac_vcfg,

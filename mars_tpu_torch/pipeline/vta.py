@@ -34,19 +34,48 @@ def _scale_cam(cam):
     return cam / (1e-7 + cam.amax(dim=-1, keepdim=True))
 
 
+def _input(query_image: torch.Tensor, cfg: VTAConfig) -> torch.Tensor:
+    img = imaging.resize(query_image, (cfg.input_size, cfg.input_size), "bicubic")
+    return imaging.normalize(img, imaging.CLIP_MEAN, imaging.CLIP_STD)
+
+
+def _cams(params, img, text_feats, logit_scale, model_cfg, cfg: VTAConfig):
+    """(B, s, s, 3) CLIP inputs → (scaled CAMs (B, grid, grid), attention
+    means (B, P, P)); one Grad-CAM backward for the batch."""
+    x = clip_m.visual_embed(params, img, model_cfg)
+    tokens, attn_sum = clip_m.prefinal(params, x, model_cfg, cfg.attn_tap_last_n)
+    cam, _, attn_last = clip_m.gradcam_last_block(params, tokens, text_feats, logit_scale,
+                                                  model_cfg)
+    attn_mean = (attn_sum + attn_last) / cfg.attn_tap_last_n
+    return _scale_cam(_scale_cam(cam)).reshape(-1, cfg.grid, cfg.grid), attn_mean
+
+
 def compute(params, query_image: torch.Tensor, fg_bg_text_feats: torch.Tensor,
             logit_scale: torch.Tensor, model_cfg: clip_m.ClipVisualConfig,
             cfg: VTAConfig) -> torch.Tensor:
     """Returns the PIR-refined CAM (grid, grid), unscaled."""
-    img = imaging.resize(query_image, (cfg.input_size, cfg.input_size), "bicubic")
-    img = imaging.normalize(img, imaging.CLIP_MEAN, imaging.CLIP_STD)[None]
-    x = clip_m.visual_embed(params, img, model_cfg)
-    tokens, attn_sum = clip_m.prefinal(params, x, model_cfg, cfg.attn_tap_last_n)
-    cam, _, attn_last = clip_m.gradcam_last_block(params, tokens, fg_bg_text_feats,
-                                                  logit_scale, model_cfg)
-    attn_mean = (attn_sum + attn_last) / cfg.attn_tap_last_n
-    cam = _scale_cam(_scale_cam(cam))[0].reshape(cfg.grid, cfg.grid)
-    return pir.refine(cam, attn_mean[0], cfg.refinement_box_threshold)
+    cam, attn_mean = _cams(params, _input(query_image, cfg)[None], fg_bg_text_feats,
+                           logit_scale, model_cfg, cfg)
+    return pir.refine(cam[0], attn_mean[0], cfg.refinement_box_threshold)
+
+
+def compute_batch(params, query_images: torch.Tensor, text_feats: torch.Tensor,
+                  logit_scale: torch.Tensor, model_cfg: clip_m.ClipVisualConfig,
+                  cfg: VTAConfig) -> list:
+    """``compute`` over B queries (B, H, W, 3) with their text pairs
+    (B, 2, D): the tower and the Grad-CAM backward once over the batch,
+    PIR per episode → B refined CAMs (grid, grid)."""
+    img = torch.stack([_input(q, cfg) for q in query_images])
+    cams, attn_mean = _cams(params, img, text_feats, logit_scale, model_cfg, cfg)
+    return [pir.refine(cams[i], attn_mean[i], cfg.refinement_box_threshold)
+            for i in range(cams.shape[0])]
+
+
+def scaled_to_grid(vta_prior: torch.Tensor, g: int) -> torch.Tensor:
+    """The refined CAM as the score tail reads it: nearest-resized to the
+    VVA grid (g, g), then min-max scaled."""
+    vta_prior = imaging.interpolate_2d(vta_prior, (g, g), "nearest")
+    return (vta_prior - vta_prior.min()) / (1e-7 + vta_prior.max() - vta_prior.min())
 
 
 def compute_text_feats(text_params, text_cfg, fg_tokens, bg_tokens) -> torch.Tensor:

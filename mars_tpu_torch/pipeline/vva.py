@@ -29,22 +29,44 @@ class VVAConfig:
     grid: int = 37  # 518 / 14
 
 
+def _norm(im):
+    return imaging.normalize(im, imaging.IMAGENET_MEAN, imaging.IMAGENET_STD)
+
+
 def compute(params, support_images: torch.Tensor, support_masks: torch.Tensor,
             support_valid: torch.Tensor, query_image: torch.Tensor,
             model_cfg: dinov2.DinoV2Config, cfg: VVAConfig
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (vva (g, g) in [0,1], cost_matrix (S·L, L), support_fg (S·L,))."""
+    """Returns (vva (g, g) in [0,1], cost_matrix (S·L, L), support_fg (S·L,)):
+    ``compute_batch`` over one episode."""
+    return compute_batch(params, support_images[None], support_masks[None],
+                         support_valid[None], query_image[None], model_cfg, cfg)[0]
+
+
+def compute_batch(params, support_images: torch.Tensor, support_masks: torch.Tensor,
+                  support_valid: torch.Tensor, query_images: torch.Tensor,
+                  model_cfg: dinov2.DinoV2Config, cfg: VVAConfig):
+    """``compute`` over B episodes, DINOv2 once over the stack of the B·S
+    supports and the B queries (only the queries tapped, so a support runs
+    the untapped route as in a forward of its own): support_images
+    (B, S, H, W, 3), support_masks (B, S, H, W), support_valid (B, S),
+    query_images (B, H, W, 3) → lists of B (vva, cost_matrix, support_fg)."""
+    b, s = support_images.shape[:2]
+    images = torch.cat([support_images.reshape((b * s,) + support_images.shape[2:]),
+                        query_images])
+    out = dinov2.forward_features(params, _norm(images), model_cfg,
+                                  attn_tap_last_n=cfg.attn_tap_last_n, tap_from=b * s)
+    feats = dinov2.patch_features(out, model_cfg.num_register_tokens).float()
+    feats = feats.reshape(b * s + b, -1, feats.shape[-1])
+    sup = feats[:b * s].reshape(b, -1, feats.shape[-1])  # (B, S*L, D)
+    s_mat = sup @ feats[b * s:].transpose(1, 2)  # (B, S*L, L)
+    return [_prior(s_mat[i], support_masks[i], support_valid[i], out["attn_mean"][i], cfg)
+            for i in range(b)]
+
+
+def _prior(s_mat, support_masks, support_valid, attn_mean, cfg: VVAConfig):
+    """The prior, the cost and the footprint from the similarity matrix."""
     g = cfg.grid
-
-    def norm(im):
-        return imaging.normalize(im, imaging.IMAGENET_MEAN, imaging.IMAGENET_STD)
-
-    out_s = dinov2.forward_features(params, norm(support_images), model_cfg)
-    out_q = dinov2.forward_features(params, norm(query_image)[None], model_cfg,
-                                    attn_tap_last_n=cfg.attn_tap_last_n)
-    sup = dinov2.patch_features(out_s, model_cfg.num_register_tokens).float()
-    qry = dinov2.patch_features(out_q, model_cfg.num_register_tokens).float()
-    s_mat = sup @ qry.T  # (S*L, L)
     cost = (1.0 - s_mat) / 2.0
 
     pooled = (imaging.pool_mask_to_grid(support_masks, g) > 0) & support_valid[:, None, None]
@@ -62,6 +84,6 @@ def compute(params, support_images: torch.Tensor, support_masks: torch.Tensor,
     vva_bg, bg_cnt = max_mean(bg)
     vva = torch.where(bg_cnt > 0, vva_fg - vva_bg, vva_fg)
     vva = (vva - vva.min()) / (1e-7 + vva.max() - vva.min())
-    refined = pir.refine(vva, out_q["attn_mean"][0], cfg.refinement_box_threshold)
+    refined = pir.refine(vva, attn_mean, cfg.refinement_box_threshold)
     refined = (refined - refined.min()) / (1e-7 + refined.max() - refined.min())
     return refined, cost, fg

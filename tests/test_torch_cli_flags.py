@@ -8,9 +8,9 @@ import shlex
 import numpy as np
 import pytest
 
-from mars_tpu import cli as jcli, cli_proposals as jcli_proposals
+from mars_tpu import cli as jcli, cli_parallel as jcli_parallel, cli_proposals as jcli_proposals
 from mars_tpu.models import dinov2 as jdino
-from mars_tpu_torch import cli as tcli
+from mars_tpu_torch import cli as tcli, cli_parallel as tcli_parallel
 from mars_tpu_torch import cli_proposals as tcli_proposals
 from mars_tpu_torch.pipeline import matcher as tmatcher
 from test_torch_cli_proposals import SIZE, tiny_port, trees  # noqa: F401  (fixtures)
@@ -275,3 +275,39 @@ def test_cli_proposals_two_program_dumps_equal_union_flow(tiny_port, tmp_path, m
             for key, value in want.items():
                 np.testing.assert_array_equal(got[key], value, err_msg=key)
 
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _jax_parallel_parser():
+    """The parser ``mars_tpu.cli_parallel.main`` builds, caught at its
+    parse_args call (which then stops main)."""
+    caught = {}
+
+    def grab(self, args=None, namespace=None):
+        caught["parser"] = self
+        raise _Parsed
+
+    real = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        jcli_parallel.main([])
+    except _Parsed:
+        pass
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return caught["parser"]
+
+
+@pytest.mark.parametrize("dest", PORTED + ["mesh_data", "mesh_model", "local_batch"])
+def test_cli_parallel_flags_match_jax(dest):
+    """``cli_parallel``'s flags (the evaluation block of ``cli.add_eval_args``
+    and the mesh flags) against ``mars_tpu/cli_parallel.py``'s parser."""
+    want = _actions(_jax_parallel_parser())[dest]
+    got = _actions(_port_parser(tcli_parallel.parse_args, []))[dest]
+    assert got.option_strings == want.option_strings
+    assert got.default == want.default and got.type == want.type
+    if want.choices is not None:
+        assert list(got.choices) == list(want.choices)

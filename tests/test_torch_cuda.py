@@ -850,3 +850,49 @@ def test_semantic_sam_call_equals_cpu(dev):
     a, b = card["merged"].cpu() > 0, cpu["merged"] > 0
     assert (a & b).sum() >= 0.99 * max((a | b).sum().item(), 1)
     assert int(cpu["telemetry"]["n_matched_points"]) > 8 and cpu["proposal_valid"].any()
+
+
+def test_batched_ranker_over_nccl_equals_serial(dev):
+    """The episode-batched ranker on a one-rank NCCL mesh against the
+    serial ``Mars`` path on the card: the golden episode, its query flipped
+    and its supports flipped, at local batch 3.  Merged masks equal, tap
+    launches the serial path's, summed, and scores within 1e-4, the golden
+    episode's score limit (``test_torch_golden_episode.py``): the same
+    float32 formulas over a stacked batch, whose products round apart by
+    ~1e-7, which the VVA prior's PIR and min-max scaling carry to ~5e-5 on
+    these weights (measured on the CPU)."""
+    from mars_tpu_torch.core.episode import Episode
+    from mars_tpu_torch.parallel import mesh as mesh_lib, runner
+    from mars_tpu_torch.text import prompts
+
+    model, ep, props, name, desc, _ = _golden_ranking(dev)
+    eps = [ep, ep._replace(query_image=ep.query_image.flip(0).contiguous()),
+           ep._replace(support_images=ep.support_images.flip(1).contiguous())]
+    want, taps = [], 0
+    for e in eps:
+        before = fa.attention_with_tap.launches
+        want.append(model._run(e, props, name, desc))
+        taps += fa.attention_with_tap.launches - before
+    mesh = mesh_lib.make_mesh(device="cuda")
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        ranker = runner.make_batched_ranker(model.dino_cfg, model.clip_vcfg, model.ac_vcfg,
+                                            model.cfg.vva, model.cfg.vta, model.cfg.filter_merge,
+                                            mesh=mesh)
+        stack = [torch.stack([getattr(e, f) for e in eps]) for f in Episode._fields[:4]]
+        text = (model._vta_text_feats(name),
+                model._alpha_clip_text_feats(prompts.alpha_clip_text(name, desc)))
+        before = fa.attention_with_tap.launches
+        merged, scores = ranker(
+            {"dino": model.dino_params, "clip_v": model.clip_v, "ac_v": model.ac_v,
+             "logit_scale": model.clip_scale}, *stack, props.masks[None].repeat(3, 1, 1, 1),
+            props.valid[None].repeat(3, 1), text[0][None].repeat(3, 1, 1),
+            text[1][None].repeat(3, 1, 1), n_valid=[props.n_live] * 3)
+        torch.cuda.synchronize()
+        assert fa.attention_with_tap.launches - before == taps
+    finally:
+        mesh.close()
+    for i, w in enumerate(want):
+        assert torch.equal(merged[i], w["merged"]), i
+        v = props.valid
+        torch.testing.assert_close(scores[i][v], w["scores"][v], atol=1e-4, rtol=0)

@@ -45,6 +45,12 @@ SEMANTIC_SAM_MODULES = ("mars_tpu_torch.models.swin", "mars_tpu_torch.models.sem
                         "mars_tpu_torch.pipeline.matcher_oss")
 
 
+# the multi-device drivers and the serving runtime
+PARALLEL_MODULES = ("mars_tpu_torch.parallel.mesh", "mars_tpu_torch.parallel.runner",
+                    "mars_tpu_torch.cli_parallel", "mars_tpu_torch.serving",
+                    "mars_tpu_torch.utils.profiling")
+
+
 def test_imports_without_jax_or_mars_tpu():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
@@ -52,7 +58,8 @@ def test_imports_without_jax_or_mars_tpu():
     counts, names = r.stdout.splitlines()
     n, bad = counts.split(maxsplit=1)
     assert int(n) >= 20 and bad.strip() == "[]", r.stdout
-    assert set(TEXT_MODULES + SEMANTIC_SAM_MODULES) <= set(names.split()), names
+    assert set(TEXT_MODULES + SEMANTIC_SAM_MODULES + PARALLEL_MODULES) <= set(names.split()), \
+        names
     for mod in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch."):
         path = __import__(mod.name, fromlist=["_"]).__file__
         with open(path) as f:
@@ -96,6 +103,19 @@ def test_tokenizer_and_meter_copies_match():
         for m, ev in ((jm, jeval), (tm, teval)):
             m.update(*ev.classify_prediction(pred, gt), cls)
     assert tm.compute_iou()[:2] == jm.compute_iou()[:2]
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from mars_tpu_torch import cli_parallel
+    from mars_tpu_torch.parallel import mesh as mesh_lib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_lib.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_parallel.main(["--episodes", "1", "--gt-class-names",
+                           "--log-path", str(tmp_path)])
+    assert not torch.distributed.is_initialized() and not os.listdir(tmp_path)
 
 
 def test_cli_proposals_default_device_raises_without_cuda(monkeypatch, tmp_path):
