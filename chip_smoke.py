@@ -161,7 +161,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
      request's latency); two ranks sharing the card over gloo
      (``evaluate_parallel`` at mesh 2 x 1 and 1 x 2, the proposal-sharded
      ranker on one 128-row bucket), masks against the float32 run's;
- 27. the kernels line.
+ 27. the SAM decoder's train step and the exact host solvers
+     (``phase_train``): ViT-H's frozen encode of eight synthetic 1024²
+     images (32 grid launches), eight steps of ``parallel.train`` at batch 8
+     (the loss falls), accumulation, remat and both against the full
+     batch's step, the step at mesh 2 x 1 and 1 x 2 on two gloo ranks
+     sharing the card against it; step ms, launches a step and peak memory
+     of each variant; the auction kernel's assignment on the one-shot
+     Matcher's forward instance against ``native.assignment_exact``, and the
+     Sinkhorn EMD on the card against ``native.emd_exact`` (the seeded 60 x
+     40 instance and a full-width ranking episode's cost matrix);
+ 28. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -3257,6 +3267,371 @@ def phase_parallel(state):
         raise AssertionError(f"parallel phase failed: {failures}")
 
 
+TRAIN_IMAGES = 8  # the batch: one synthetic episode's 1024² query image each
+TRAIN_POINTS = 3  # foreground points an example, drawn from its mask
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-3  # tests/test_parallel.py's rate: the loss falls in a few steps
+TRAIN_WARM = 2  # steps before a step is timed
+TRAIN_LOSS_TOL = 1e-5  # relative: the loss of a step computed another way
+TRAIN_PARAM_TOL = 1e-6  # the updated parameters (tests/test_parallel.py's limit)
+TRAIN_VARIANTS = (("accum", {"accum_steps": 2}), ("remat", {"remat": True}),
+                  ("both", {"accum_steps": 2, "remat": True}))
+TRAIN_MESHES = ((2, 1), (1, 2))
+AUCTION_OPT_TOL = 1e-3  # the auction's total >= optimum - this x rows (tests/test_ops.py)
+SINKHORN_TOL = 5e-3  # |Sinkhorn EMD - exact EMD| (tests/test_native.py)
+
+
+def _train_batch(dev):
+    """ViT-H with seeded random weights; the frozen encode (no grad) of
+    ``TRAIN_IMAGES`` synthetic 1024² query images, ``TRAIN_POINTS``
+    foreground points an image from its mask (seeded), the mask at the
+    256² low-res scale → (trainable, cfg, (embedding, coords, labels, gt),
+    encode ms, launches)."""
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.core import imaging
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+    from mars_tpu_torch.models import sam, zoo
+
+    params, cfg = zoo.build_sam(None, "vit_h", device=dev)
+    s = cfg.img_size
+    ds = SyntheticFSS(seed=0, size=s)
+    recs = [ds[i] for i in range(TRAIN_IMAGES)]
+    imgs = torch.from_numpy(np.stack([r.query_img for r in recs]).astype(np.float32)).to(dev)
+    imgs = imaging.normalize(imgs, sam.SAM_PIXEL_MEAN, sam.SAM_PIXEL_STD)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        emb = sam.encode_image(params["encoder"], imgs, cfg)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    launches = cli.kernel_launches()
+    rng = np.random.RandomState(0)
+    coords = []
+    for r in recs:
+        ys, xs = np.nonzero(r.query_mask > 0)
+        pick = rng.choice(len(xs), TRAIN_POINTS, replace=False)
+        coords.append(np.stack([xs[pick], ys[pick]], axis=-1).astype(np.float32))
+    masks = torch.from_numpy(np.stack([r.query_mask for r in recs]).astype(np.float32))
+    gt = (torch.nn.functional.interpolate(masks[:, None], size=(s // 4, s // 4), mode="area")[:, 0]
+          > 0.5).float()
+    batch = (emb, torch.from_numpy(np.stack(coords)).to(dev),
+             torch.ones((TRAIN_IMAGES, TRAIN_POINTS), dtype=torch.int64, device=dev), gt.to(dev))
+    trainable = {"prompt_encoder": params["prompt_encoder"], "decoder": params["decoder"]}
+    del params
+    return trainable, cfg, batch, encode_ms, launches
+
+
+def _timed_steps(step, trainable, opt_state, batch, n):
+    """``n`` steps → (trainable, state, [metrics], [ms a step], peak GiB of
+    the last step)."""
+    import torch
+
+    metrics, ms = [], []
+    for i in range(n):
+        if i == n - 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainable, opt_state, m = step(trainable, opt_state, *batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return trainable, opt_state, metrics, ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _step_against(got, got_metrics, want, want_metrics, before):
+    """One train step computed another way (``got``: trees of tensors or
+    numpy arrays) against the reference step from the same parameters
+    ``before``: the metrics' largest relative difference, the parameters'
+    largest absolute one, and that largest where the reference's Adam
+    direction ``r = -Δ/lr - wd·p`` is settled (|r| > 0.9, a gradient past
+    ~9 eps).  The first update is lr·(g / (|g| + eps) + wd·p), so a
+    gradient within float32 rounding of zero moves its parameter by up to
+    lr·δg/eps: 1e5 δg at lr 1e-3, where a full-width gradient's rounding
+    δg reaches 1e-10.  Only a float64 step holds the parameters to
+    ``TRAIN_PARAM_TOL`` everywhere."""
+    import torch
+
+    from mars_tpu_torch.parallel import train
+
+    rel = max(abs(float(got_metrics[k]) - float(want_metrics[k]))
+              / max(abs(float(want_metrics[k])), 1e-30) for k in want_metrics)
+    diff = settled = 0.0
+    for g, w, p in zip(*(train.tree_leaves(t) for t in (got, want, before))):
+        d = (torch.as_tensor(g).to(w.device, w.dtype) - w).abs()
+        r = -(w.double() - p.double()) / TRAIN_LR - 1e-4 * p.double()
+        diff = max(diff, float(d.max()))
+        if bool((r.abs() > 0.9).any()):
+            settled = max(settled, float(d[r.abs() > 0.9].max()))
+    return {"loss_rel_diff": rel, "param_max_abs_diff": diff,
+            "param_max_abs_diff_settled": settled}
+
+
+def _step_ok(f32, f64):
+    """The float32 step's metrics and the float64 step's metrics and
+    parameters within the phase's limits."""
+    return (f32["loss_rel_diff"] <= TRAIN_LOSS_TOL and f64["loss_rel_diff"] <= TRAIN_LOSS_TOL
+            and f64["param_max_abs_diff"] <= TRAIN_PARAM_TOL)
+
+
+def _train_rank(rank, world, store, path, out_dir):
+    """One of two ranks sharing the card over gloo: one step at each mesh of
+    ``TRAIN_MESHES`` on the rank's slices and data shard, the full tree
+    gathered back (``gather_params``), to a file."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mars_tpu_torch.models import sam
+    from mars_tpu_torch.parallel import mesh as mesh_lib, runner, train
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        cfg = sam.SAM_VARIANTS["vit_h"]
+        result = {}
+        for shape in TRAIN_MESHES:
+            mesh = mesh_lib.make_mesh(*shape, device=dev)
+            for dtype in (torch.float32, torch.float64):
+                full = train.tree_map(lambda a: torch.from_numpy(a).to(dev, dtype),
+                                      payload["trainable"])
+                batch = tuple(torch.from_numpy(x).to(dev) for x in payload["batch"])
+                batch = tuple(x.to(dtype) if x.is_floating_point() else x for x in batch)
+                part = mesh_lib.shard_params(full, mesh)
+                opt, step = train.make_train_step(
+                    cfg, train.TrainConfig(learning_rate=TRAIN_LR), mesh=mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, _, metrics = step(part, opt.init(part), *runner.shard_batch(batch, mesh))
+                torch.cuda.synchronize()
+                result[shape, str(dtype).split(".")[-1]] = {
+                    "s": time.perf_counter() - t0,
+                    "metrics": {k: float(v) for k, v in metrics.items()},
+                    "q_width": part["decoder"]["transformer"]["layer0"]["self_attn"]["q"][
+                        "kernel"].shape[1],
+                    "params": train.tree_map(lambda t: t.cpu().numpy(),
+                                             mesh_lib.gather_params(new, mesh, full))}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _oracle_instances(dev):
+    """Synthetic episode 0 at full width (DINOv2-L/14 reg4 @518): the
+    Matcher's one-shot forward matching instance (similarity, valid rows)
+    and the ranking's VVA cost matrix restricted to the support footprint
+    and to the first live synthetic proposal's footprint with both sides
+    non-empty."""
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.core import imaging
+    from mars_tpu_torch.data.base import to_device_episode
+    from mars_tpu_torch.data.synthetic import SyntheticFSS
+    from mars_tpu_torch.models import zoo
+    from mars_tpu_torch.pipeline import filtering, matcher, vva
+
+    params, cfg = zoo.build_dinov2(None, "vit_large", 4, 0, dev)
+    rec = SyntheticFSS(seed=0)[0]
+    ep = to_device_episode(rec, 518, 1, dev)
+    fm = filtering.FilterMergeConfig()
+    with torch.no_grad():
+        s_mat, _, fg = matcher._features_and_matrices(
+            params, ep.support_images, ep.support_masks, ep.support_valid, ep.query_image,
+            cfg, 37)
+        _, cost, support_fg = vva.compute(params, ep.support_images, ep.support_masks,
+                                          ep.support_valid, ep.query_image, cfg,
+                                          vva.VVAConfig())
+    props = cli.synthetic_proposals(rec, 518, 128, np.random.RandomState(0), dev)
+    pooled = ((imaging.pool_mask_to_grid(props.masks, fm.grid) > 0)
+              & props.valid[:, None, None]).reshape(props.masks.shape[0], -1)
+    col = int(torch.nonzero(pooled.any(dim=1))[0])
+    return s_mat, fg, cost, support_fg, pooled[col], fm
+
+
+def phase_train(state):
+    """The SAM decoder's train step (``parallel.train``) at ViT-H's full
+    width, one card, float32, TF32 off, and the exact host solvers
+    (``native``) on the card's approximate outputs:
+
+    (a) ``zoo.build_sam("vit_h")`` with seeded random weights; the frozen
+        encode of ``TRAIN_IMAGES`` synthetic 1024² images (exactly 4 grid
+        launches an image, no other kernel); ``TRAIN_STEPS`` steps at
+        batch 8, lr 1e-3: every loss finite, the last below the first;
+        ms a step after ``TRAIN_WARM`` warm ones, peak memory, one profiled
+        step (kernel launches, device busy, idle share);
+    (b) ``accum_steps=2``, ``remat=True`` and both against the full
+        batch's step from the same weights: the metrics within
+        ``TRAIN_LOSS_TOL`` (relative) in float32 and in float64, the
+        parameters within ``TRAIN_PARAM_TOL`` in float64 (``_step_against``
+        says why not in float32; its differences are printed); ms a step
+        after two warm steps and the last step's peak memory, float32;
+    (c) two ranks sharing the card over gloo: one step at mesh 2 x 1
+        (data-parallel) and 1 x 2 (tensor-parallel decoder), float32 and
+        float64, the metrics and the gathered parameters against the
+        one-process step, the same limits;
+    (d) ``native.assignment_exact`` on the auction kernel's assignment of
+        the one-shot Matcher's 1369² forward instance (valid, total >=
+        optimum - ``AUCTION_OPT_TOL`` x rows), ``native.emd_exact`` against
+        ``batched_emd`` on the card on tests/test_native.py's seeded 60 x
+        40 instance and on a full-width ranking episode's cost matrix
+        (within ``SINKHORN_TOL``); the exact solvers' seconds."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars_tpu_torch import cli, native
+    from mars_tpu_torch.ops import assignment as asg, emd
+    from mars_tpu_torch.parallel import train
+
+    dev = torch.device("cuda")
+    failures = []
+    assert not torch.backends.cuda.matmul.allow_tf32
+    # (a)
+    trainable, cfg, batch, encode_ms, launches = _train_batch(dev)
+    want = {name: 0 for name in launches}
+    want["grid_attention"] = SAM_GLOBAL_LAYERS * TRAIN_IMAGES
+    state["train_launches"] = {"train_encode": launches}
+    tcfg = train.TrainConfig(learning_rate=TRAIN_LR)
+    opt, step = train.make_train_step(cfg, tcfg)
+    _zero_counts()
+    first, first_state, first_metrics = step(trainable, opt.init(trainable), *batch)
+    tr, st, metrics, ms, peak = _timed_steps(step, first, first_state, batch, TRAIN_STEPS - 1)
+    losses = [first_metrics["loss"].item()] + [m["loss"] for m in metrics]
+    step_launches = cli.kernel_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tr, st, *batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_launch, _, top = _profile_summary(prof, ("mars.", "matcher."))
+    row = {"phase": "train", "model": "sam_vit_h", "images": TRAIN_IMAGES,
+           "embedding_shape": list(batch[0].shape), "encode_ms": encode_ms,
+           "encode_launches": launches, "encode_launches_expected": want,
+           "losses": losses, "lr": TRAIN_LR,
+           "step_ms": ms, "step_ms_warm": float(np.mean(ms[TRAIN_WARM - 1:])),
+           "peak_memory_gib": peak, "hand_kernel_launches_in_steps": step_launches,
+           "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                             "device_idle_share": 1.0 - busy_ms / wall_ms,
+                             "kernel_launches": n_launch, "top_kernels": top[:6]}}
+    emit(row)
+    if (launches != want or not np.isfinite(losses).all() or not losses[-1] < losses[0]
+            or any(step_launches.values())):
+        failures.append("train")
+
+    # (b) timed in float32; held in float32 (the loss) and float64 (the
+    # loss and the parameters: see ``_step_against``)
+    tr64 = train.tree_map(torch.Tensor.double, trainable)
+    batch64 = tuple(x.double() if x.is_floating_point() else x for x in batch)
+    _, step64 = train.make_train_step(cfg, tcfg)
+    ref64, _, ref64_metrics = step64(tr64, opt.init(tr64), *batch64)
+    rows = {}
+    for name, kw in TRAIN_VARIANTS:
+        _, vstep = train.make_train_step(cfg, tcfg, **kw)
+        got_tr, got_st, got = vstep(trainable, opt.init(trainable), *batch)
+        _, _, _, vms, vpeak = _timed_steps(vstep, got_tr, got_st, batch, TRAIN_WARM)
+        f32 = _step_against(got_tr, got, first, first_metrics, trainable)
+        g64_tr, _, g64 = vstep(tr64, opt.init(tr64), *batch64)
+        f64 = _step_against(g64_tr, g64, ref64, ref64_metrics, tr64)
+        rows[name] = {"step_ms": vms, "step_ms_warm": vms[-1], "peak_memory_gib": vpeak,
+                      "float32": f32, "float64": f64}
+        if not _step_ok(f32, f64):
+            failures.append(("variant", name))
+    emit({"phase": "train_variants", "full_step_ms_warm": row["step_ms_warm"],
+          "full_peak_memory_gib": peak, "loss_tol": TRAIN_LOSS_TOL,
+          "param_tol": TRAIN_PARAM_TOL, **rows})
+
+    # (c)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "payload.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"trainable": train.tree_map(lambda t: t.cpu().numpy(), trainable),
+                         "batch": [x.cpu().numpy() for x in batch]}, f)
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_train_rank, args=(2, os.path.join(tmp, "store"), path, tmp),
+                                    nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    row = {"phase": "train_two_ranks", "backend": "gloo", "spawn_s": spawn_s}
+    for shape in TRAIN_MESHES:
+        per = []
+        for res in ranks:
+            f32, f64 = res[shape, "float32"], res[shape, "float64"]
+            per.append({"s": f32["s"], "s_float64": f64["s"], "q_width": f32["q_width"],
+                        "float32": _step_against(f32["params"], f32["metrics"], first,
+                                                 first_metrics, trainable),
+                        "float64": _step_against(f64["params"], f64["metrics"], ref64,
+                                                 ref64_metrics, tr64)})
+        row[f"mesh_{shape[0]}x{shape[1]}"] = per
+        if any(not _step_ok(p["float32"], p["float64"]) or p["q_width"] != 256 // shape[1]
+               for p in per):
+            failures.append(("two_ranks", shape))
+    emit(row)
+    del trainable, first, tr, st, batch, tr64, batch64, ref64
+
+    # (d)
+    s_mat, fg, cost, support_fg, col_mask, fm = _oracle_instances(dev)
+    cols = asg.auction_assignment(s_mat, fg, row_chunk=128).cpu().numpy()
+    valid = fg.cpu().numpy()
+    s = s_mat.cpu().numpy()
+    t0 = time.perf_counter()
+    best = native.assignment_exact(s[valid])
+    lsa_s = time.perf_counter() - t0
+    live = cols[valid]
+    got_total = float(s[valid][np.arange(len(live)), live].astype(np.float64).sum())
+    opt_total = float(s[valid][np.arange(len(best)), best].astype(np.float64).sum())
+    t_rows = int(valid.sum())
+    auction_ok = (len(set(live.tolist())) == t_rows and (live >= 0).all()
+                  and (cols[~valid] == -1).all()
+                  and got_total >= opt_total - AUCTION_OPT_TOL * t_rows)
+    seeded = (np.random.RandomState(5).rand(60, 40) * 0.5).astype(np.float32)
+    sink_seeded = float(emd.batched_emd(
+        torch.from_numpy(seeded).to(dev), torch.ones(60, dtype=torch.bool, device=dev),
+        torch.ones((1, 40), dtype=torch.bool, device=dev), row_bucket=64, col_bucket=64)[0])
+    exact_seeded = native.emd_exact(seeded)
+    sink_episode = float(emd.batched_emd(cost, support_fg, col_mask[None], fm.emd_row_bucket,
+                                         fm.emd_col_bucket)[0])
+    sub = cost[support_fg][:, col_mask].cpu().numpy()
+    t0 = time.perf_counter()
+    exact_episode = native.emd_exact(sub)
+    emd_s = time.perf_counter() - t0
+    row = {"phase": "train_oracles",
+           "auction": {"shape": list(s.shape), "valid_rows": t_rows, "total": got_total,
+                       "exact_total": opt_total, "gap": opt_total - got_total,
+                       "limit": AUCTION_OPT_TOL * t_rows, "exact_s": lsa_s, "ok": bool(auction_ok)},
+           "emd_seeded": {"shape": [60, 40], "sinkhorn": sink_seeded, "exact": exact_seeded,
+                          "diff": abs(sink_seeded - exact_seeded)},
+           "emd_episode": {"shape": list(sub.shape), "sinkhorn": sink_episode,
+                           "exact": exact_episode, "diff": abs(sink_episode - exact_episode),
+                           "exact_s": emd_s},
+           "sinkhorn_tol": SINKHORN_TOL}
+    emit(row)
+    if not auction_ok:
+        failures.append("auction_oracle")
+    if row["emd_seeded"]["diff"] >= SINKHORN_TOL or row["emd_episode"]["diff"] >= SINKHORN_TOL:
+        failures.append("emd_oracle")
+    if failures:
+        raise AssertionError(f"train phase failed: {failures}")
+
+
 def kernels_line(state):
     rows = state.get("kernel_rows", [])
     first = next((r for r in rows if r["geometry"] == GEOMETRIES[0][0]
@@ -3270,7 +3645,7 @@ def kernels_line(state):
              **state.get("backbone_launches", {}), **state.get("fold_run_launches", {}),
              **state.get("matcher_configs_launches", {}), **state.get("int8_launches", {}),
              **state.get("semantic_sam_launches", {}),
-             **state.get("parallel_launches", {})}
+             **state.get("parallel_launches", {}), **state.get("train_launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in paths.values())
@@ -3400,7 +3775,7 @@ def main():
                   phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run,
                   phase_matcher_configs, phase_int8_towers, phase_semantic_sam,
-                  phase_parallel):
+                  phase_parallel, phase_train):
         t0 = time.perf_counter()
         try:
             phase(state)

@@ -51,10 +51,17 @@ def exact_gelu(x):
     return F.gelu(x)
 
 
+def stats_type(dtype: torch.dtype) -> torch.dtype:
+    """The type statistics are taken in: float32, or the input's own type
+    where it is wider (float64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def layer_norm(p, x, eps: float = 1e-5):
-    """LayerNorm in float32 regardless of the input type."""
+    """LayerNorm in float32 (float64 for a float64 input) whatever the
+    input type."""
     dtype = x.dtype
-    xf = x.float()
+    xf = x.to(stats_type(dtype))
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)

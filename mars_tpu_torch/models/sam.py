@@ -155,8 +155,8 @@ def _kernel_inputs(p, q, k, v, h: int, w: int):
 
 def _layer_norm_2d(p, x, eps: float = 1e-6):
     """Channel LayerNorm of an NHWC map (reference common.py LayerNorm2d),
-    statistics in float32."""
-    xf = x.float()
+    statistics in float32 (float64 for a float64 map)."""
+    xf = x.to(L.stats_type(x.dtype))
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
@@ -210,8 +210,10 @@ def encode_image(params, images, cfg: SamConfig):
 
 def _pe_encoding(gauss, coords01):
     """Random-Fourier features of [0, 1] coords (reference
-    prompt_encoder.py:186-194), sin/cos in float32."""
-    c = (2.0 * coords01.float() - 1.0) @ gauss.float()
+    prompt_encoder.py:186-194), sin/cos in float32 (float64 for float64
+    weights)."""
+    dt = L.stats_type(gauss.dtype)
+    c = (2.0 * coords01.to(dt) - 1.0) @ gauss.to(dt)
     c = 2.0 * torch.pi * c
     return torch.cat([torch.sin(c), torch.cos(c)], dim=-1).to(gauss.dtype)
 
@@ -273,22 +275,33 @@ def no_mask_dense(params, grid_hw: Tuple[int, int]):
 # two-way transformer + mask decoder
 # ---------------------------------------------------------------------------
 
-def _attn(p, q, k, v, num_heads: int, key_valid=None):
-    """Projection attention (reference transformer.py:185-240);
-    ``key_valid`` (B, Nk) masks padded key tokens out of the softmax, so a
-    prompt row padded to a common length decodes exactly as unpadded."""
+def _attn(p, q, k, v, num_heads: int, key_valid=None, downsample: int = 1):
+    """Projection attention (reference transformer.py:185-240) of internal
+    width ``embedding / downsample``; ``key_valid`` (B, Nk) masks padded
+    key tokens out of the softmax, so a prompt row padded to a common
+    length decodes exactly as unpadded.  A layer that
+    ``parallel.mesh.shard_params`` sliced (its q narrower than the internal
+    width) computes the rank's whole heads and sums ``out``'s partial
+    products over the model group, its bias added once."""
+    hd = q.shape[-1] // downsample // num_heads
+    width = L.out_features(p["q"])
+    sliced = width < hd * num_heads
+    if sliced:
+        if width % hd:
+            raise ValueError(f"a rank's attention width {width} holds no whole heads of {hd}")
+        q, k, v = L.model_input(q), L.model_input(k), L.model_input(v)
     q, k, v = L.dense(p["q"], q), L.dense(p["k"], k), L.dense(p["v"], v)
     b, nq, c = q.shape
-    hd = c // num_heads
-    qh = q.reshape(b, nq, num_heads, hd)
-    kh = k.reshape(b, k.shape[1], num_heads, hd)
-    vh = v.reshape(b, v.shape[1], num_heads, hd)
+    heads = c // hd
+    qh = q.reshape(b, nq, heads, hd)
+    kh = k.reshape(b, k.shape[1], heads, hd)
+    vh = v.reshape(b, v.shape[1], heads, hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / (hd ** 0.5)
     if key_valid is not None:
         logits = logits.masked_fill(~key_valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, nq, c)
-    return L.dense(p["out"], out)
+    return L.dense_reduce(p["out"], out, sliced)
 
 
 def _two_way_block(p, queries, keys, query_pe, key_pe, num_heads: int, skip_first_pe: bool,
@@ -303,11 +316,13 @@ def _two_way_block(p, queries, keys, query_pe, key_pe, num_heads: int, skip_firs
     queries = L.layer_norm(p["norm1"], queries)
     q, k = queries + query_pe, keys + key_pe
     queries = L.layer_norm(p["norm2"], queries + _attn(p["cross_attn_t2i"], q, k, keys,
-                                                       num_heads))
-    h = L.dense(p["mlp"]["fc2"], torch.relu(L.dense(p["mlp"]["fc1"], queries)))
+                                                       num_heads, downsample=2))
+    h = L.mlp(p["mlp"], queries, torch.relu,
+              L.out_features(p["self_attn"]["q"]) < queries.shape[-1])
     queries = L.layer_norm(p["norm3"], queries + h)
     q, k = queries + query_pe, keys + key_pe
-    keys = keys + _attn(p["cross_attn_i2t"], k, q, queries, num_heads, key_valid=token_valid)
+    keys = keys + _attn(p["cross_attn_i2t"], k, q, queries, num_heads, key_valid=token_valid,
+                        downsample=2)
     return queries, L.layer_norm(p["norm4"], keys)
 
 
@@ -322,15 +337,19 @@ def _mlp_head(p, x, depth: int):
 def decode_masks(params, image_embedding, image_pe, sparse_prompts, dense_prompts,
                  cfg: SamConfig, sparse_valid=None):
     """(B, 4, 4G, 4G) mask logits + (B, 4) IoU predictions for B prompt sets
-    against one (G, G, C) image embedding (reference mask_decoder.py:112-176).
-    ``sparse_valid`` (B, N) masks pad prompt tokens out of attention."""
+    against one (G, G, C) image embedding, or against a (B, G, G, C) stack,
+    one embedding a prompt set (reference mask_decoder.py:112-176; the rows
+    never meet).  ``sparse_valid`` (B, N) masks pad prompt tokens out of
+    attention.  Decoder layers that ``parallel.mesh.shard_params`` sliced
+    run inside ``layers.tensor_parallel``."""
     d = params
     b = sparse_prompts.shape[0]
-    g, c = image_embedding.shape[0], image_embedding.shape[-1]
+    g, c = image_embedding.shape[-3], image_embedding.shape[-1]
     num_mask_tokens = cfg.num_multimask_outputs + 1
     output_tokens = torch.cat([d["iou_token"], d["mask_tokens"]], dim=0)
     tokens = torch.cat([output_tokens.expand(b, *output_tokens.shape), sparse_prompts], dim=1)
-    src = image_embedding[None].expand(b, g, g, c)
+    src = (image_embedding if image_embedding.dim() == 4
+           else image_embedding[None].expand(b, g, g, c))
     if dense_prompts is not None:
         src = src + dense_prompts
     src = src.reshape(b, g * g, c)
@@ -347,7 +366,8 @@ def decode_masks(params, image_embedding, image_pe, sparse_prompts, dense_prompt
                                        cfg.decoder_heads, i == 0, token_valid=token_valid)
     q, k = queries + tokens, keys + pos
     queries = L.layer_norm(t["norm_final"],
-                           queries + _attn(t["final_attn"], q, k, keys, cfg.decoder_heads))
+                           queries + _attn(t["final_attn"], q, k, keys, cfg.decoder_heads,
+                                           downsample=2))
     iou_token_out = queries[:, 0]
     mask_tokens_out = queries[:, 1:1 + num_mask_tokens]
 

@@ -4,9 +4,10 @@ parameter slicer (port of ``mars_tpu/parallel/mesh.py``).
   - **data axis**: episode parallelism.  Each data rank runs whole
     episodes; the only collectives on it gather the merged masks (the
     meter) or reduce across a proposal-sharded bucket.
-  - **model axis**: tensor parallelism for the frozen towers.  ``qkv``/``fc1``
-    (and LLaMA's ``q``/``k``/``v``/``gate``/``up``) keep their output
-    features for the rank's heads, ``proj``/``fc2`` (``o``/``down``) their
+  - **model axis**: tensor parallelism for the frozen towers and SAM's
+    trained decoder.  ``qkv``/``fc1`` (and LLaMA's and SAM's decoder's
+    ``q``/``k``/``v``, LLaMA's ``gate``/``up``) keep their output features
+    for the rank's heads, ``proj``/``fc2`` (``o``/``out``/``down``) their
     input features, so each block does one all-reduce after its attention
     and one after its MLP (``models.layers``), the partition GSPMD derives
     from the JAX package's parameter shardings.
@@ -218,11 +219,20 @@ def _shard_block(block, prefix, n: int, r: int, q4: frozenset):
     return cut(block, prefix)
 
 
+def _is_block(tree: dict) -> bool:
+    """A unit that ``shard_params`` cuts all or nothing: a transformer
+    block ("attn" and "mlp"), SAM's two-way decoder layer (its attentions
+    and "mlp"), or a lone projection attention (SAM's ``final_attn``)."""
+    return (("attn" in tree and "mlp" in tree)
+            or ("self_attn" in tree and "cross_attn_t2i" in tree and "mlp" in tree)
+            or {"q", "k", "v", "out"} <= tree.keys())
+
+
 def shard_params(params, mesh: Mesh):
-    """The rank's part of a full parameter tree: in each transformer block
-    (a dict holding "attn" and "mlp") the sharded kernels, their biases and
-    int8 scales cut to the rank's model index, whole heads at a time;
-    everything else, and every block with a 4-bit or W8A8 kernel, whole."""
+    """The rank's part of a full parameter tree: in each block
+    (``_is_block``) the sharded kernels, their biases and int8 scales cut
+    to the rank's model index, whole heads at a time; everything else, and
+    every block with a 4-bit or W8A8 kernel, whole."""
     n, r = mesh.n_model, mesh.model_index
     if n == 1:
         return params
@@ -231,8 +241,31 @@ def shard_params(params, mesh: Mesh):
     def walk(tree, path):
         if not isinstance(tree, dict):
             return tree
-        if "attn" in tree and "mlp" in tree:
+        if _is_block(tree):
             return _shard_block(tree, path, n, r, q4)
         return {k: walk(v, path + (k,)) for k, v in tree.items()}
 
     return walk(params, ())
+
+
+def gather_params(part, mesh: Mesh, like):
+    """The full tree back from the ranks' ``shard_params`` parts: each leaf
+    narrower than its twin in ``like`` (the full tree) is gathered over the
+    model group along the axis it was cut on (a packed [q | k | v] axis
+    third by third).  Called on every rank of the group."""
+
+    def walk(t, full, path):
+        if isinstance(t, dict):
+            return {k: walk(v, full[k], path + (k,)) for k, v in t.items()}
+        if t.shape == full.shape:
+            return t
+        axis = next(i for i, (a, b) in enumerate(zip(t.shape, full.shape)) if a != b)
+        parts = [torch.empty_like(t) for _ in range(mesh.n_model)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
+        if "qkv" in path:
+            thirds = [p.chunk(3, dim=axis) for p in parts]
+            return torch.cat([torch.cat([p[i] for p in thirds], dim=axis) for i in range(3)],
+                             dim=axis)
+        return torch.cat(parts, dim=axis)
+
+    return walk(part, like, ())

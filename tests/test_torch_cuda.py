@@ -896,3 +896,72 @@ def test_batched_ranker_over_nccl_equals_serial(dev):
         assert torch.equal(merged[i], w["merged"]), i
         v = props.valid
         torch.testing.assert_close(scores[i][v], w["scores"][v], atol=1e-4, rtol=0)
+
+
+def _tiny_train_inputs(seed=0):
+    """SAM's tiny test config (tests/torch_tiny.SAM) with seeded random
+    trainable weights and a seeded batch of 4, on the CPU."""
+    from mars_tpu_torch.models import sam, zoo
+
+    cfg = sam.SamConfig(img_size=64, patch_size=16, embed_dim=32, depth=2, num_heads=2,
+                        global_attn_indexes=(1,), window_size=2, out_chans=16,
+                        decoder_mlp_dim=32, decoder_heads=2)
+    shapes = sam.param_shapes(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    tr = {k: zoo.random_params(shapes[k], gen, torch.device("cpu"))
+          for k in ("prompt_encoder", "decoder")}
+    rng = np.random.RandomState(seed)
+    batch = (torch.from_numpy(rng.randn(4, 4, 4, 16).astype(np.float32)),
+             torch.from_numpy((rng.rand(4, 3, 2) * 64).astype(np.float32)),
+             torch.ones((4, 3), dtype=torch.int64),
+             torch.from_numpy((rng.rand(4, 16, 16) > 0.7).astype(np.float32)))
+    return cfg, tr, batch
+
+
+@pytest.mark.parametrize("kw", [{}, {"accum_steps": 2}, {"remat": True},
+                                {"accum_steps": 2, "remat": True}],
+                         ids=["full", "accum", "remat", "both"])
+def test_train_step_on_card_equals_cpu(dev, kw):
+    """One step of ``parallel.train`` on the card (its variants too)
+    against the full-batch step on the CPU: loss and aux within 1e-5,
+    parameters within 1e-6, the limits of tests/test_torch_train.py."""
+    from mars_tpu_torch.parallel import train
+
+    cfg, tr, batch = _tiny_train_inputs()
+    tcfg = train.TrainConfig(learning_rate=1e-3)
+    opt, step = train.make_train_step(cfg, tcfg)
+    want_tr, _, want = step(tr, opt.init(tr), *batch)
+    opt, step = train.make_train_step(cfg, tcfg, **kw)
+    on = train.tree_map(lambda t: t.to(dev), tr)
+    got_tr, state, got = step(on, opt.init(on), *(x.to(dev) for x in batch))
+    assert state["count"].device.type == "cuda"
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) < 1e-5 * max(1.0, abs(float(want[k]))), k
+    for g, w in zip(train.tree_leaves(got_tr), train.tree_leaves(want_tr)):
+        assert g.is_cuda
+        torch.testing.assert_close(g.cpu(), w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("seed,t,n", [(0, 10, 10), (1, 15, 40), (2, 60, 80), (6, 300, 500)])
+def test_auction_kernel_within_tolerance_of_exact(dev, seed, t, n):
+    """The auction kernel's assignment is valid and its total within
+    1e-3 t of ``native.assignment_exact``'s optimum (tests/test_ops.py's
+    bound); the Sinkhorn EMD on the card within 5e-3 of ``emd_exact``."""
+    from mars_tpu_torch import native
+    from mars_tpu_torch.ops import assignment as asg, emd
+
+    s = np.random.RandomState(seed).rand(t, n).astype(np.float32)
+    before = asg.auction_assignment.launches
+    cols = asg.auction_assignment(torch.from_numpy(s).to(dev),
+                                  torch.ones(t, dtype=torch.bool, device=dev)).cpu().numpy()
+    assert asg.auction_assignment.launches > before
+    assert len(set(cols.tolist())) == t and (cols >= 0).all()
+    best = native.assignment_exact(s)
+    got, opt = (s[np.arange(t), c].astype(np.float64).sum() for c in (cols, best))
+    assert got >= opt - 1e-3 * t, (got, opt)
+    cost = (np.random.RandomState(5).rand(60, 40) * 0.5).astype(np.float32)
+    approx = float(emd.batched_emd(torch.from_numpy(cost).to(dev),
+                                   torch.ones(60, dtype=torch.bool, device=dev),
+                                   torch.ones((1, 40), dtype=torch.bool, device=dev),
+                                   row_bucket=64, col_bucket=64)[0])
+    assert abs(approx - native.emd_exact(cost)) < 5e-3

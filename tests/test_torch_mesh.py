@@ -10,7 +10,7 @@ import torch
 import torch_tiny
 from torch_tiny import one_torch_thread  # noqa: F401  (autouse fixture)
 from mars_tpu.models import clip as jclip, dinov2 as jdino
-from mars_tpu.models import vip_llava as jvl
+from mars_tpu.models import sam as jsam, vip_llava as jvl
 from mars_tpu.parallel import mesh as jmesh
 from mars_tpu_torch.models import convert
 from mars_tpu_torch.models.quantization import quantize_params
@@ -30,7 +30,10 @@ def trees():
         "clip": jax.eval_shape(lambda: jclip.init_visual_params(
             key, jclip.ClipVisualConfig(**torch_tiny.ALPHA_V))),
         "vip_llava": jax.eval_shape(lambda: jvl.init_random_params(0, jvl.TINY,
-                                                                   dtype=jnp.float32))}
+                                                                   dtype=jnp.float32)),
+        # SAM ViT-H's trained decoder at full width (8 heads of 32 and of 16)
+        "sam_decoder": jax.eval_shape(lambda: jsam.init_decoder_params(
+            key, jsam.SAM_VARIANTS["vit_h"]))}
     rng = np.random.RandomState(0)
     return jax.tree.map(lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
 
@@ -44,7 +47,7 @@ def _leaves(tree, path=()):
 
 
 @pytest.mark.parametrize("bits", [None, 8, 4])
-@pytest.mark.parametrize("name", ["dinov2", "clip", "vip_llava"])
+@pytest.mark.parametrize("name", ["dinov2", "clip", "vip_llava", "sam_decoder"])
 def test_spec_for_matches_jax_partition(trees, name, bits):
     port = convert.from_jax_params(trees[name])
     if bits:  # the port's quantized leaves have the JAX package's names and layouts
@@ -79,6 +82,54 @@ def test_shard_params_cuts_whole_heads_and_keeps_4bit_blocks():
     block["mlp"]["fc2"]["kernel"] = {"q4": torch.zeros(4, 4, dtype=torch.int8),
                                      "scale": torch.ones(4)}
     assert mesh_lib.shard_params({"block0": block}, _Mesh())["block0"] is block
+
+
+# (internal width, head dim) of each SAM decoder attention at ViT-H
+SAM_ATTENTIONS = {"self_attn": (256, 32), "cross_attn_t2i": (128, 16),
+                  "cross_attn_i2t": (128, 16), "final_attn": (128, 16)}
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_shard_params_cuts_sam_decoder_as_jax_whole_heads(trees, n):
+    """SAM's decoder (the train step's tensor-parallel model): each
+    attention's q/k/v keep the rank's output features, ``out`` its input
+    features (bias whole), each two-way layer's fc1/fc2 likewise, as
+    JAX's ``_spec_for`` partitions them; every rank holds whole heads, and
+    the rest of the tree (hypernetworks, IoU head, upscale) stays whole."""
+    full = convert.from_jax_params(trees["sam_decoder"])
+    want = jmesh.param_shardings(trees["sam_decoder"], jmesh.make_mesh(n_data=1, n_model=2))
+    for r in range(n):
+        class _Mesh:
+            n_model, model_index = n, r
+
+        part = mesh_lib.shard_params(full, _Mesh())
+        cut = 0
+        for path, t in _leaves(full):
+            got, spec = part, want
+            for k in path:
+                got, spec = got[k], spec[k]
+            spec = tuple(spec.spec)
+            if not spec:
+                assert got is t, path
+                continue
+            axis = 1 if spec == (None, "model") else 0
+            size = t.shape[axis] // n
+            np.testing.assert_array_equal(got.numpy(), t.narrow(axis, r * size, size).numpy(),
+                                          err_msg=str(path))
+            cut += 1
+        t = part["transformer"]
+        for name, (width, hd) in SAM_ATTENTIONS.items():
+            for layer in ([t["final_attn"]] if name == "final_attn"
+                          else [t["layer0"][name], t["layer1"][name]]):
+                for proj in ("q", "k", "v"):
+                    assert layer[proj]["kernel"].shape == (256, width // n)
+                    assert (width // n) % hd == 0
+                assert layer["out"]["kernel"].shape == (width // n, 256)
+                assert layer["out"]["bias"].shape == (256,)
+        assert t["layer0"]["mlp"]["fc1"]["kernel"].shape == (256, 2048 // n)
+        # an attention: q/k/v kernels and biases, out's kernel; a layer's MLP:
+        # fc1's kernel and bias, fc2's kernel
+        assert cut == 2 * (3 * 7 + 3) + 7
 
 
 def test_one_rank_mesh_and_its_errors(monkeypatch):

@@ -49,6 +49,8 @@ SEMANTIC_SAM_MODULES = ("mars_tpu_torch.models.swin", "mars_tpu_torch.models.sem
 PARALLEL_MODULES = ("mars_tpu_torch.parallel.mesh", "mars_tpu_torch.parallel.runner",
                     "mars_tpu_torch.cli_parallel", "mars_tpu_torch.serving",
                     "mars_tpu_torch.utils.profiling")
+# the SAM decoder's train step and the exact host solvers
+TRAIN_MODULES = ("mars_tpu_torch.parallel.train", "mars_tpu_torch.native")
 
 
 def test_imports_without_jax_or_mars_tpu():
@@ -58,8 +60,8 @@ def test_imports_without_jax_or_mars_tpu():
     counts, names = r.stdout.splitlines()
     n, bad = counts.split(maxsplit=1)
     assert int(n) >= 20 and bad.strip() == "[]", r.stdout
-    assert set(TEXT_MODULES + SEMANTIC_SAM_MODULES + PARALLEL_MODULES) <= set(names.split()), \
-        names
+    wanted = TEXT_MODULES + SEMANTIC_SAM_MODULES + PARALLEL_MODULES + TRAIN_MODULES
+    assert set(wanted) <= set(names.split()), names
     for mod in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch."):
         path = __import__(mod.name, fromlist=["_"]).__file__
         with open(path) as f:
@@ -125,3 +127,20 @@ def test_cli_proposals_default_device_raises_without_cuda(monkeypatch, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_proposals.main(["--episodes", "1", "--out", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_train_path_defaults_to_the_card(monkeypatch):
+    """The train step's inputs come from ``zoo.build_sam``, which raises
+    without a card unless asked for the CPU; the step itself follows its
+    tensors."""
+    from mars_tpu_torch.models import sam
+    from mars_tpu_torch.parallel import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.build_sam()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.build_sam(variant="vit_b")
+    opt, _ = train.make_train_step(sam.SAM_VARIANTS["vit_b"])
+    state = opt.init({"w": torch.zeros(3)})
+    assert state["count"].device.type == "cpu" and int(state["count"]) == 0

@@ -322,3 +322,55 @@ def cli_parallel_worker(rank, payload):
         meter, masks, times = evaluate(mesh, model, payload["n"], lb)
         out[shape] = (meter.inter.copy(), meter.union.copy(), masks, len(times))
     return out
+
+
+# SAM at tests/test_parallel.py's tiny size: two decoder heads, so that a
+# 2-way model axis holds one whole head of each attention a rank
+SAM = dict(img_size=64, patch_size=16, embed_dim=32, depth=2, num_heads=2,
+           global_attn_indexes=(1,), window_size=2, out_chans=16, decoder_mlp_dim=32,
+           decoder_heads=2)
+TRAIN_MESHES = ((2, 1), (1, 2))
+
+
+def train_worker(rank, payload):
+    """One train step at each mesh of ``TRAIN_MESHES`` on the same full
+    trainable and batch: the rank's slices (``shard_params``) and data
+    shard (``shard_batch``), the step's metrics and the full tree gathered
+    back (``gather_params``); at 1 x 2 also with ``accum_steps=2`` and
+    ``remat``; at 2 x 1 also shards of unequal sizes (each rank's
+    ValueError)."""
+    from mars_tpu_torch.models import sam as tsam
+    from mars_tpu_torch.parallel import mesh as mesh_lib, runner, train
+
+    cfg = tsam.SamConfig(**SAM)
+    tcfg = train.TrainConfig(learning_rate=payload["lr"])
+    full = train.tree_map(torch.from_numpy, payload["trainable"])
+    batch = tuple(torch.from_numpy(x) for x in payload["batch"])
+    out = {}
+    for shape in TRAIN_MESHES:
+        mesh = mesh_lib.make_mesh(*shape, device="cpu")
+        part = mesh_lib.shard_params(full, mesh)
+        local = runner.shard_batch(batch, mesh)
+        kws = [{}] + ([{"accum_steps": 2, "remat": True}] if shape == (1, 2) else [])
+        for kw in kws:
+            opt, step = train.make_train_step(cfg, tcfg, mesh=mesh, **kw)
+            new, state, metrics = step(part, opt.init(part), *local)
+            key = shape + tuple(sorted(kw))
+            out[key] = {
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "params": train.tree_map(torch.Tensor.numpy,
+                                         mesh_lib.gather_params(new, mesh, full)),
+                "mu_shape": tuple(state["mu"]["decoder"]["transformer"]["layer0"]["self_attn"]
+                                  ["q"]["kernel"].shape),
+                "q_width": part["decoder"]["transformer"]["final_attn"]["q"]["kernel"].shape[1],
+                "fc2_rows": part["decoder"]["transformer"]["layer0"]["mlp"]["fc2"]["kernel"]
+                .shape[0]}
+        if shape == (2, 1):
+            opt, step = train.make_train_step(cfg, tcfg, mesh=mesh)
+            rows = 2 if rank == 0 else 1
+            try:
+                step(full, opt.init(full), *(x[:rows] for x in batch))
+                out["unequal"] = None
+            except ValueError as e:
+                out["unequal"] = str(e)
+    return out
