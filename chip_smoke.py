@@ -8,12 +8,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
      nvcc per source, all started together): ptxas' registers and spill
      stores, and each library's tensor-core instructions in its SASS
      (``cuobjdump -sass``: HGMMA for wgmma, HMMA for mma.sync); fails if a
-     bfloat16 attention or 4-bit GEMM kernel, or a float32 grid, notap or
-     windowed kernel (split TF32), has none, or if one of their libraries
+     bfloat16 attention or 4-bit GEMM kernel, or a float32 tap, grid, notap
+     or windowed kernel (split TF32), has none, or if one of their libraries
      spills;
   2. ``attention_with_tap`` against its plain version at the ranking path's
      shapes, in float32 and bfloat16, rerun for bitwise equality, timed with
-     CUDA events beside its bound and a PyTorch yardstick;
+     CUDA events beside its bound (float32: split TF32's three passes, and
+     the CUDA cores' bound) and a PyTorch yardstick;
   3. ``grid_attention`` the same way at SAM ViT-H's and ViT-B's
      global-layer shapes and a ragged grid (float32 beside its split-TF32
      bound and its CUDA-core one);
@@ -29,8 +30,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   7. the ranking path at full width: ``mars_tpu_torch.cli.main`` over three
      synthetic episodes with synthetic proposals (DINOv2-L/14 reg4 @518,
      CLIP-B/16 @528, AlphaCLIP-L/14@336, seeded random weights, bucket
-     128), the kernels' launch counts read around it; then the same three
-     episodes with MARS_ATTENTION_NOTAP_IMPL=pallas alone (the float32
+     128), the kernels' launch counts read around it; the same three
+     episodes with ``attention_with_tap_plain`` in the tap kernel's place,
+     each merged mask matched to the kernel's at IoU >= 0.99 (the bitwise
+     equal ones counted); then the same three episodes with
+     MARS_ATTENTION_NOTAP_IMPL=pallas alone (the float32
      towers' untapped blocks on ``notap_f32``): its launches exactly 28 + 24
      per live AlphaCLIP chunk an episode, each merged mask matched to the
      plain route's at IoU >= 0.99;
@@ -48,7 +52,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      switch-off run, the proposals equal in count and matched at IoU >= 0.99;
  10. one ranking episode (switch off, then MARS_ATTENTION_NOTAP_IMPL=pallas:
      the float32 notap kernel's device time and launches beside the plain
-     route's), then one proposal-plus-ranking episode (switch off, then
+     route's; the tap kernels' device time and launches in both), then one
+     proposal-plus-ranking episode (switch off, then
      MARS_SAM_WINDOWED_IMPL=pallas: the float32 windowed kernel's), under
      torch.profiler: device time by stage and by kernel, idle share;
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
@@ -218,6 +223,7 @@ GEOMETRIES = (("dinov2_l_518", 16, 1374, 64), ("clip_b16_528", 12, 1090, 64))
 BACKBONE_GEOMETRIES = (("dinov2_s_518", 6, 1374, 64), ("dinov2_b_518", 12, 1374, 64),
                        ("dinov2_g2_518", 24, 1374, 64), ("clip_l14_518", 16, 1370, 64))
 TAP_TOL = 1e-5  # the tap (float32 in both types) and the float32 output
+TAP_PASSES = 3  # the float32 tap kernels' TF32 passes a product (split TF32)
 # (name, heads, grid H, grid W, head dim): SAM ViT-H and ViT-B @1024 global
 # layers, a ragged grid
 GRID_GEOMETRIES = (("sam_vit_h_global", 16, 64, 64, 80), ("sam_vit_b_global", 12, 64, 64, 64),
@@ -437,8 +443,10 @@ def _tensor_core_sass(path):
     return out
 
 
-# the tensor-core kernels (bfloat16, and float32 grid, notap and windowed):
-# each must hold HGMMA or HMMA in its SASS; notap, windowed and grid have one
+# the tensor-core kernels (bfloat16, and float32 tap, grid, notap and
+# windowed): each must hold HGMMA or HMMA in its SASS; the float32 tap
+# kernels one instantiation per padded head dim (32, 64); notap, windowed
+# and grid have one
 # bf16 instantiation per width of the second head-dim panel (0, 16, 64; the
 # resident windowed kernel takes 0 and 16), grid also one per way of taking
 # the bias (0 general, 1 W = 64, 2 wide); the float32 notap kernel one per
@@ -448,7 +456,8 @@ def _tensor_core_sass(path):
 # of 4 key rows of SAM's 14-wide window (2); the 4-bit library's bf16
 # prefill GEMM and decode GEMV, int4 (0) and NF4 (1)
 TENSOR_CORE_KERNELS = {
-    "attention_tap": ("tap_out_bf16", "tap_mean_bf16"),
+    "attention_tap": ("tap_out_bf16", "tap_mean_bf16")
+    + tuple(f"tap_{part}_f32ILi{dp}E" for part in ("out", "mean") for dp in (32, 64)),
     "attention_notap": tuple(f"notap_bf16ILi{r}E" for r in (0, 16, 64))
     + tuple(f"notap_f32ILi{dp}E" for dp in (32, 64, 80, 128)),
     "sam_windowed_attention": tuple(f"windowed_bf16_residentILi{r}E" for r in (0, 16))
@@ -507,7 +516,9 @@ def _tap_row(name, h, l, d, dtype, gen):
     size = q.element_size()
     flops = 4.0 * h * l * l * d
     nbytes = 4.0 * h * l * d * size + l * l * 4.0
-    bound = max(flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES) * 1e3
+    # float32: split TF32, three passes a product on the tensor cores
+    bound, bound_by = (_bound(TAP_PASSES * flops, nbytes, "tf32") if dt == "float32"
+                       else _bound(flops, nbytes, dt))
     row = {"phase": "kernel", "kernel": "attention_with_tap", "geometry": name,
            "shape": [h, l, d], "dtype": dt, "max_abs_err_out": agree["max_abs_err"],
            "max_abs_err_tap": err_tap, "max_abs_err_tap_rowsum": err_rows,
@@ -518,9 +529,9 @@ def _tap_row(name, h, l, d, dtype, gen):
            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                q[None], k[None], v[None])),
            "library_call": "F.scaled_dot_product_attention (out only, no tap)",
-           "bound_ms": bound,
-           "bound_by": "operations" if flops / PEAK_FLOPS[dt] > nbytes / PEAK_BYTES
-           else "bytes"}
+           "bound_ms": bound, "bound_by": bound_by}
+    if dt == "float32":
+        row["bound_f32_cuda_core_ms"] = _bound(flops, nbytes, dt)[0]
     emit(row)
     if (agree["err_over_tol"] > 1 or err_tap > TAP_TOL or err_rows > TAP_TOL
             or not rerun_equal or not torch.isfinite(out.float()).all()):
@@ -995,6 +1006,35 @@ def phase_main_path(state):
                              f"expected {TAPPED_BLOCKS * EPISODES}")
     if not res["masks_binary"] or not math.isfinite(res["miou"]):
         raise AssertionError("main path produced a non-binary mask or a non-finite mIoU")
+    _plain_tap_episodes(res["masks"])
+
+
+def _plain_tap_episodes(masks):
+    """``phase_main_path``'s three float32 episodes again with
+    ``attention_with_tap_plain`` in the kernel's place (here only, never in
+    the package): each merged mask of the kernel's run must match the plain
+    run's at IoU >= ``NOTAP_IOU``, and the kernel must not launch."""
+    import numpy as np
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.ops import flash_attention as fa
+
+    kernel = fa.attention_with_tap
+    kernel.launches = 0
+    fa.attention_with_tap = fa.attention_with_tap_plain
+    try:
+        plain = cli.main(MAIN_PATH_ARGS, keep_masks=True)
+    finally:
+        fa.attention_with_tap = kernel
+    ious = [float(_mask_iou(a[None], b[None])[0, 0]) for a, b in zip(masks, plain["masks"])]
+    equal = sum(bool(np.array_equal(a, b)) for a, b in zip(masks, plain["masks"]))
+    row = {"phase": "main_path_plain_tap", "episodes": EPISODES,
+           "iou_with_plain_tap": ious, "iou_limit": NOTAP_IOU,
+           "masks_bitwise_equal": f"{equal} of {len(ious)}",
+           "miou_plain_tap": plain["miou"], "kernel_launches": kernel.launches}
+    emit(row)
+    if kernel.launches or len(ious) != EPISODES or min(ious) < NOTAP_IOU:
+        raise AssertionError(f"the float32 tap kernel's masks depart from the plain tap's: {row}")
 
 
 def phase_f32_notap_path(state):
@@ -1646,11 +1686,14 @@ def phase_profile(state):
                 wall_ms = (time.perf_counter() - t0) * 1e3
         busy_ms, launches, spans, top = _profile_summary(prof, ("mars.",))
         notap = [k for k in top if "notap" in k["name"]]
+        tap = [k for k in top if re.search(r"::tap_(out|mean)_", k["name"])]
         emit({"phase": "profile", "switches": values, "wall_ms": wall_ms,
               "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
               "kernel_launches": launches,
               "notap_device_ms": sum(k["device_ms"] for k in notap),
               "notap_launches": sum(k["count"] for k in notap),
+              "tap_device_ms": {k["name"]: k["device_ms"] for k in tap},
+              "tap_launches": sum(k["count"] for k in tap),
               "stage_device_span_ms": spans, "top_kernels": top})
 
 
@@ -3668,8 +3711,10 @@ def kernels_line(state):
                             for r in rows if r["dtype"] == "float32"), default=None),
         **{k: first.get(k) for k in keys},
         "shape": first.get("shape"), "dtype": "float32",
-        "geometries": [{k: r[k] for k in ("geometry", "dtype", "max_abs_err_out",
-                                          "max_abs_err_tap") + keys} for r in rows],
+        "bound_f32_cuda_core_ms": first.get("bound_f32_cuda_core_ms"),
+        "geometries": [{k: r.get(k) for k in ("geometry", "dtype", "max_abs_err_out",
+                                              "max_abs_err_tap") + keys
+                        + ("bound_f32_cuda_core_ms",)} for r in rows],
     }, {
         "name": "grid_attention", "route": "cuda",
         "source": "mars_tpu_torch/csrc/sam_grid_attention.cu",

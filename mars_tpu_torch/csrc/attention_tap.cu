@@ -9,42 +9,67 @@
 //   bfloat16 the probabilities are rounded to bfloat16 before the P.V product,
 //   as the TPU kernel's probs.astype(v.dtype) does.
 //
-// What bounds it: at the main path's shapes (DINOv2-L: H=16, L=1374, d=64;
-// CLIP-B/16 @528: H=12, L=1090) the two products are 4*H*L^2*d operations
-// (7.7 GFLOP for DINOv2-L) against 19 MB (bf16) to 30 MB (float32) of input
-// and output, 7.55 MB of it the tap: the operations bound it, in float32 on the CUDA cores
-// (0.115 ms at DINOv2-L) and in bfloat16 on the tensor cores (0.008 ms).
+// What bounds it: at the main path's shapes the two products are 4 H L^2 d
+// operations against 19 MB (bf16) to 30 MB (float32) of input and output,
+// 7.55 MB of it the tap, so the operations bound it, never the memory
+// (0.009 ms of bytes at DINOv2-L in float32).  On an H100 (495 TFLOP/s TF32,
+// 67 TFLOP/s float32 on the CUDA cores, 989 TFLOP/s bf16):
+//   shape (H x L x d)         GFLOP   3 x TF32   CUDA cores   bf16
+//   DINOv2-L @518 16x1374x64    7.7   0.0469 ms  0.1154 ms    0.0078 ms
+//   CLIP-B/16 @528 12x1090x64   3.7   0.0221     0.0545       0.0037
+// float32 takes the 3 x TF32 column (below); the CUDA-core one is what the
+// same work costs at full float32 without the tensor cores.
 //
 // Design: two launches per call, deterministic, no atomics.  The TPU kernel
 // holds a whole (256, L) float32 row block in VMEM, which does not fit the
 // 227 KB of shared memory a block may use, and a CTA that owned its tap rows
 // over all heads (one CTA per 64 queries) filled 22 of 132 SMs at B = 1.
-//   1. tap_out: grid (query tiles, heads), 352 CTAs at DINOv2-L.  Pass 1
-//      sweeps the keys in tiles of 64 for each row's max and sum of
-//      exponentials and writes the row's log-sum-exp to a float32 (H, L)
-//      scratch; pass 2 sweeps them again for P = exp(s - lse), already
-//      normalised, which (rounded to bf16 in bfloat16, the contract's
-//      rounding point) feeds out += P.V.
-//   2. tap_mean: grid (query tiles, key tiles), 484 CTAs at DINOv2-L.  Each
-//      CTA loops over the heads inside itself, recomputes its 64 x 64 logit
-//      tile with the same code as tap_out, forms P = exp(s - lse) and adds
-//      P / H in registers in head order, then writes each tap element once
-//      (7.55 MB, where a read-modify-write per head moved ~240 MB).
-// Both kernels compute a logit tile with the same instructions on the same
-// tiles, so they see bitwise-equal logits and the tap rows sum to 1.
-// bfloat16: one warpgroup per CTA; Q, K and V tiles arrive through cp.async
-// (double-buffered) in the 128-byte-swizzled layout of sm90.cuh; Q K^T is
-// wgmma m64n64k16 from shared memory, P.V takes P from registers (the
-// accumulator layout of Q K^T is wgmma's A-fragment layout) and V from
-// shared memory as an MN-major operand.  float32 stays on the CUDA cores at
-// full precision (TF32 would break the 1e-5 tolerances): 256 threads, a
-// 4 x 4 register block a thread, gaining from the grid that fills the card.
+//   1. tap_out: grid (query tiles, heads) writes out and each row's
+//      log-sum-exp to a float32 (H, L) scratch.
+//   2. tap_mean: grid (query tiles, key tiles).  Each CTA loops over the
+//      heads inside itself, recomputes its logit tile with the same
+//      instructions as tap_out on the same tiles (bitwise-equal logits, so
+//      the tap rows sum to 1), forms P = exp(s - lse) and adds P / H in
+//      registers in head order, then writes each tap element once (7.55 MB
+//      at DINOv2-L, where a read-modify-write per head moved ~240 MB).
+// float32 (tap_out_f32, tap_mean_f32): split TF32 on wgmma
+// (attention_tf32.cuh: each operand hi + lo, each product three TF32 passes,
+// the small terms first; one pass would break the 1e-5 limits), two
+// warpgroups over 128 query rows, head dims padded to 32 or 64.  tap_out_f32
+// is tf32::unbiased_sweep, the loop of csrc/attention_notap.cu's notap_f32,
+// with the lse written: one sweep of 64-key tiles with an online softmax
+// (in float32 P is not rounded before P.V, so normalising at the end is
+// within the contract), a tile's P.V summed from zero and added with an
+// IEEE fma, V's split while Q K^T runs and the next K tile's while P.V
+// does; 176 CTAs at DINOv2-L (1.33 waves of one CTA an SM), bounded like
+// notap_f32 by the CUDA cores' splits and softmax beside the passes.
+// tap_mean_f32: a CTA of 128 query rows and 128 keys, two N = 64 tiles (121
+// CTAs at DINOv2-L, one wave with 11 SMs idle; 81 at CLIP-B).  Per head it
+// splits its raw Q and K tiles (tf32::split_rows), issues the next head's
+// raw tiles through cp.async, then multiplies (the same tf32::qk_pass calls
+// as tap_out's, in the same order, and the same __fmul_rn scale) and
+// exponentiates while they arrive.  Each head's 128 query rows are loaded
+// and split again in every key tile's CTA: that repeated work, ~127 MB of
+// L2 reads at DINOv2-L and the CUDA cores' splits and exps, bounds it
+// rather than the passes (not timed apart: no ncu here).  One key tile of 64 a CTA (242 CTAs, the raw tiles double
+// buffered in ~193 KB) took 0.298 ms a DINOv2-L call against 0.260
+// (tools/torch_kernel_ab.py --tap, H100 80GB HBM3 at 700 W); double
+// buffers at 128 keys would take 257 KB, past the 227 KB a block may use.
+// bfloat16: one warpgroup per CTA, 64 query rows; Q, K and V tiles arrive
+// through cp.async (double-buffered) in the 128-byte-swizzled layout of
+// sm90.cuh; Q K^T is wgmma m64n64k16 from shared memory, P.V takes P from
+// registers (the accumulator layout of Q K^T is wgmma's A-fragment layout)
+// and V from shared memory as an MN-major operand.  tap_out_bf16 sweeps the
+// keys twice: once for the row's max and sum of exponentials, once for P =
+// exp(s - lse), already normalised and rounded to bf16 (the contract's
+// rounding point), into out += P.V.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -53,174 +78,118 @@ constexpr int BK = 64;    // keys per tile
 constexpr int DMAX = 64;  // head-dim capacity; a smaller d is zero-padded
 
 // ------------------------------------------------------------ float32
-constexpr int F_THREADS = 256;  // 16 x 16: thread (ty, tx) owns rows 4ty..4ty+3
-constexpr int LD = DMAX + 1;    // padded row stride of the shared tiles
-constexpr size_t F_OUT_SMEM = (size_t)(BQ + 3 * BK) * LD * sizeof(float);
-constexpr size_t F_MEAN_SMEM = (size_t)(BQ + BK) * LD * sizeof(float);
+constexpr size_t MAX_SMEM = 227 * 1024;
 
-// Rows [row0, row0 + 64) of one head's (L, d) matrix into a (64, LD) float
-// tile; rows >= L and columns >= d are zero.
-__device__ void load_tile_f32(float* dst, const float* src, int row0, int L, int d) {
-  for (int idx = threadIdx.x; idx < 64 * DMAX; idx += F_THREADS) {
-    const int r = idx / DMAX, c = idx % DMAX, row = row0 + r;
-    dst[r * LD + c] = (row < L && c < d) ? src[(size_t)row * d + c] : 0.f;
-  }
-}
-
-// s[i][j] = scale * <Q[4ty + i], K[tx + 16j]> for this thread's 4 x 4 cells.
-__device__ __forceinline__ void tile_logits_f32(const float* Qs, const float* Ks, int ty, int tx,
-                                                float scale, float s[4][4]) {
-  float acc[4][4] = {};
-#pragma unroll 8
-  for (int dd = 0; dd < DMAX; ++dd) {
-    float qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * LD + dd];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + dd];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = acc[i][j] * scale;
-}
-
-__global__ void __launch_bounds__(F_THREADS)
+template <int DP>
+__global__ void __launch_bounds__(tf32::THREADS)
 tap_out_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            float* __restrict__ out, float* __restrict__ lse, int L, int d, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
-  const size_t head = (size_t)h * L * d;
-  const int ntiles = (L + BK - 1) / BK;
-  load_tile_f32(Qs, q + head, q0, L, d);
-
-  // pass 1: per-thread running max / sum over this thread's columns
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();
-    load_tile_f32(Ks, k + head, t * BK, L, d);
-    __syncthreads();
-    float s[4][4];
-    tile_logits_f32(Qs, Ks, ty, tx, scale, s);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (t * BK + tx + 16 * j >= L) continue;  // masked key
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (s[i][j] > m[i]) {
-          l[i] = l[i] * expf(m[i] - s[i][j]) + 1.f;
-          m[i] = s[i][j];
-        } else {
-          l[i] += expf(s[i][j] - m[i]);
-        }
-      }
-    }
-  }
-  // combine the 16 threads (one half-warp) that share each row
-  float ls[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mi = m[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) mi = fmaxf(mi, __shfl_xor_sync(0xffffffffu, mi, off));
-    float li = l[i] > 0.f ? l[i] * expf(m[i] - mi) : 0.f;
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    ls[i] = mi + logf(li);
-    const int row = q0 + 4 * ty + i;
-    if (tx == 0 && row < L) lse[(size_t)h * L + row] = ls[i];
-  }
-
-  // pass 2: P = exp(s - lse) -> P.V
-  float acc[4][4] = {};
-  for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();
-    load_tile_f32(Ks, k + head, t * BK, L, d);
-    load_tile_f32(Vs, v + head, t * BK, L, d);
-    __syncthreads();
-    float s[4][4];
-    tile_logits_f32(Qs, Ks, ty, tx, scale, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(4 * ty + i) * LD + tx + 16 * j] =
-            t * BK + tx + 16 * j < L ? expf(s[i][j] - ls[i]) : 0.f;
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int dim = tx + 16 * j;
-      if (dim < d) out[head + (size_t)row * d + dim] = acc[i][j];
-    }
-  }
+            float* __restrict__ out, float* __restrict__ lse, int L, int d, float scale, int vec) {
+  extern __shared__ uint8_t smem_raw[];
+  tf32::unbiased_sweep<DP>(q, k, v, out, lse, L, d, scale, vec, blockIdx.x * tf32::ROWS,
+                           blockIdx.y, smem_raw);
 }
 
-__global__ void __launch_bounds__(F_THREADS)
+// tap_mean_f32's key tiles of 64 a CTA, each its own N = 64 product (its
+// logits bitwise tap_out_f32's)
+constexpr int MEAN_TILES = 2;
+
+// Dynamic shared memory of tap_mean_f32: alignment slack, both warpgroups'
+// Q hi and lo, K hi and lo of each key tile, raw Q (128 rows) and raw K.
+template <int DP> constexpr size_t mean_smem() {
+  using F = tf32::F32<DP>;
+  return 1024 + 6 * (size_t)F::Q_BYTES + 3 * MEAN_TILES * (size_t)F::T_BYTES;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(tf32::THREADS)
 tap_mean_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ lse, float* __restrict__ tap, int H, int L, int d,
-             float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * BQ, k0 = blockIdx.y * BK;
+             float scale, int vec) {
+  using F = tf32::F32<DP>;
+  constexpr int KEYS = F::KEYS, NS = KEYS / 2, NT = MEAN_TILES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = sm90::aligned_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - sm90::smem_addr(smem_raw));  // base, generic
+  // Q hi and lo of warpgroup 0, then of warpgroup 1; K hi and lo of key tile
+  // 0, then of tile 1; raw Q, then raw K
+  const int group = threadIdx.x / 128;
+  const uint32_t qh = base + 2 * F::Q_BYTES * group, ql = qh + F::Q_BYTES;
+  const uint32_t ks = base + 4 * F::Q_BYTES;
+  float* raw_q = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES + 2 * NT * F::T_BYTES);
+  float* raw_k = raw_q + tf32::ROWS * DP;
+  const int q0 = blockIdx.x * tf32::ROWS, k0 = blockIdx.y * NT * KEYS;
+  const size_t hstride = (size_t)L * d;
+  const int lane = threadIdx.x % 32;
+  // rows r0 and r0 + 8 of the warpgroup's 64 (the CTA's rows g0 + r0, + 8)
+  const int g0 = 64 * group, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);  // keys 8j + c2 and + 1 of a tile
   const float inv_h = 1.0f / (float)H;
-  float acc[4][4] = {};
+  float acc[NT][NS];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < NS; ++i) acc[j][i] = 0.f;
+
+  // head h's raw Q rows and K keys
+  auto load = [&](int h) {
+    tf32::load_raw<DP>(raw_q, q + hstride * h, q0, tf32::ROWS, L, d, vec);
+    tf32::load_raw<DP>(raw_k, k + hstride * h, k0, NT * KEYS, L, d, vec);
+    sm90::cp_async_commit();
+  };
+  load(0);
   for (int h = 0; h < H; ++h) {
-    const size_t head = (size_t)h * L * d;
-    __syncthreads();
-    load_tile_f32(Qs, q + head, q0, L, d);
-    load_tile_f32(Ks, k + head, k0, L, d);
-    __syncthreads();
-    float s[4][4];
-    tile_logits_f32(Qs, Ks, ty, tx, scale, s);
+    sm90::cp_async_wait<0>();
+    float ls[2];  // the head's log-sum-exp at rows r0 and r0 + 8 (0 past L)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      const float ls = row < L ? lse[(size_t)h * L + row] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < L) acc[i][j] = fmaf(expf(s[i][j] - ls), inv_h, acc[i][j]);
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + g0 + r0 + 8 * half;
+      ls[half] = row < L ? __ldg(lse + (size_t)h * L + row) : 0.f;
     }
+    // head h's raw tiles in view; every warp is done with head h - 1's split tiles
+    __syncthreads();
+    for (int g = 0; g < 2; ++g)
+      tf32::split_rows<DP>(base + 2 * F::Q_BYTES * g, base + 2 * F::Q_BYTES * g + F::Q_BYTES,
+                           raw_q + tf32::BQ * DP * g, tf32::BQ);
+    for (int j = 0; j < NT; ++j)
+      tf32::split_rows<DP>(ks + 2 * F::T_BYTES * j, ks + 2 * F::T_BYTES * j + F::T_BYTES,
+                           raw_k + KEYS * DP * j, KEYS);
+    sm90::fence_async_smem();
+    __syncthreads();  // the split tiles in view; the raw tiles are free
+    if (h + 1 < H) load(h + 1);  // in flight while head h multiplies
+    float s[NT][NS];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint32_t kh = ks + 2 * F::T_BYTES * j, kl = kh + F::T_BYTES;
+      tf32::qk_pass<DP>(s[j], ql, kh, true);  // tap_out_f32's passes, in its order
+      tf32::qk_pass<DP>(s[j], qh, kl, false);
+      tf32::qk_pass<DP>(s[j], qh, kh, false);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) sm90::fence_regs(s[j]);
+    // register i of s[j] is (row r0 + 8 ((i / 2) % 2), key 64 j + 8 (i / 4) + c2 + i % 2)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        acc[j][i] = fmaf(__expf(__fmul_rn(s[j][i], scale) - ls[(i / 2) & 1]), inv_h, acc[j][i]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= L) continue;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      if (col < L) tap[(size_t)row * L + col] = acc[i][j];
+    for (int i = 0; i < NS; i += 2) {
+      const int row = q0 + g0 + r0 + 8 * ((i / 2) & 1), col = k0 + KEYS * j + 8 * (i / 4) + c2;
+      if (row >= L || col >= L) continue;
+      float* at = tap + (size_t)row * L + col;
+      if (L % 2 == 0) {
+        *reinterpret_cast<float2*>(at) = make_float2(acc[j][i], acc[j][i + 1]);
+      } else {
+        at[0] = acc[j][i];
+        if (col + 1 < L) at[1] = acc[j][i + 1];
+      }
     }
-  }
 }
 
 // ------------------------------------------------------------ bfloat16
@@ -409,17 +378,26 @@ tap_mean_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* tap, void* lse,
                int H, int L, int d, float scale, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(tap_out_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)F_OUT_SMEM);
+  constexpr size_t out_smem = tf32::tile_smem<DP>(), mean = mean_smem<DP>();
+  static_assert(out_smem <= MAX_SMEM && mean <= MAX_SMEM, "the tiles fit in shared memory");
+  cudaError_t err = cudaFuncSetAttribute(tap_out_f32<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)out_smem);
   if (err != cudaSuccess) return (int)err;
-  const int nt = (L + BQ - 1) / BQ;
-  tap_out_f32<<<dim3(nt, H), F_THREADS, F_OUT_SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, L, d, scale);
+  err = cudaFuncSetAttribute(tap_mean_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)mean);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  const int nt = (L + tf32::ROWS - 1) / tf32::ROWS, keys = MEAN_TILES * tf32::F32<DP>::KEYS;
+  tap_out_f32<DP><<<dim3(nt, H), tf32::THREADS, out_smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, L, d, scale,
+      vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  tap_mean_f32<<<dim3(nt, nt), F_THREADS, F_MEAN_SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)lse, (float*)tap, H, L, d, scale);
+  tap_mean_f32<DP><<<dim3(nt, (L + keys - 1) / keys), tf32::THREADS, mean, st>>>(
+      (const float*)q, (const float*)k, (const float*)lse, (float*)tap, H, L, d, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -451,7 +429,9 @@ extern "C" int mars_attention_tap_f32(const void* q, const void* k, const void* 
                                       void* tap, void* lse, int H, int L, int d, float scale,
                                       void* stream) {
   if (!valid(H, L, d)) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, out, tap, lse, H, L, d, scale, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tf32::f32_dp(d) == 32) return launch_f32<32>(q, k, v, out, tap, lse, H, L, d, scale, st);
+  return launch_f32<64>(q, k, v, out, tap, lse, H, L, d, scale, st);
 }
 
 extern "C" int mars_attention_tap_bf16(const void* q, const void* k, const void* v, void* out,

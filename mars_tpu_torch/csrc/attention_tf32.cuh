@@ -1,7 +1,9 @@
 // float32 attention tiles on the tensor cores by split TF32 (sm90.cuh), shared
 // by the float32 kernels of csrc/sam_grid_attention.cu (grid_f32),
-// csrc/sam_windowed_attention.cu (windowed_f32) and csrc/attention_notap.cu
-// (notap_f32); the first two also share the whole sweep (biased_sweep below).
+// csrc/sam_windowed_attention.cu (windowed_f32), csrc/attention_notap.cu
+// (notap_f32) and csrc/attention_tap.cu (tap_out_f32, tap_mean_f32); the
+// first two share the whole biased sweep (biased_sweep below), notap_f32 and
+// tap_out_f32 the whole unbiased one (unbiased_sweep).
 //
 // A CTA is two warpgroups over 128 query rows, 64 each, sweeping one head's
 // keys in tiles that both share: each operand is hi + lo (two TF32 values)
@@ -186,6 +188,173 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&o)[DP / 2],
       if (dim + 1 < d) at[1] = b;
     }
   }
+}
+
+// One CTA's sweep of softmax attention without a bias: query rows [q0, q0 +
+// 128) of batch-head ``bh`` of (BH, L, d) q, k, v; out = softmax(q k^T *
+// scale) v (BH, L, d), logits __fmul_rn(q . k, scale); with ``lse`` (a
+// float32 (BH, L) scratch, or null) also each live row's log-sum-exp, m +
+// log(l) of its running max and row sum.  A float32 online softmax: a
+// running max per row (shared by the row's 4 threads, two shuffles), the
+// output rescaled by exp(m_old - m_new); P is P.V's A fragment straight
+// from the accumulator registers.  Q lands raw where the K, V^T and raw
+// tiles go and is split first; then the splits run while the tensor cores
+// work: V's while Q K^T runs, the next K tile's while P.V does.  Keys past
+// L are masked (only the last tile holds any); query rows past L are
+// computed on zeros and not stored.  A tile's P.V is summed from zero in
+// its own accumulator and added to the output sum with an IEEE fma, as in
+// biased_sweep.
+template <int DP>
+__device__ __forceinline__ void unbiased_sweep(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               float* __restrict__ out, float* __restrict__ lse,
+                                               int L, int d, float scale, int vec, int q0, int bh,
+                                               uint8_t* smem_raw) {
+  using F = F32<DP>;
+  constexpr int KEYS = F::KEYS, NS = KEYS / 2;  // NS: registers of s
+  const uint32_t base = sm90::aligned_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - sm90::smem_addr(smem_raw));  // base, generic
+  // Q hi and lo of warpgroup 0, then of warpgroup 1; K hi, K lo, V^T hi,
+  // V^T lo, raw K, raw V
+  const int group = threadIdx.x / 128;
+  const uint32_t qh = base + 2 * F::Q_BYTES * group, ql = qh + F::Q_BYTES;
+  const uint32_t kh = base + 4 * F::Q_BYTES, kl = kh + F::T_BYTES;
+  const uint32_t vh = kl + F::T_BYTES, vl = vh + F::T_BYTES;
+  float* raw_k = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES + 4 * F::T_BYTES);
+  float* raw_v = raw_k + KEYS * DP;
+  const size_t head = (size_t)bh * L * d;
+  const float *qg = q + head, *kg = k + head, *vg = v + head;
+  const int ntiles = (L + KEYS - 1) / KEYS;
+  const int lane = threadIdx.x % 32;
+  // rows r0 and r0 + 8 of the warpgroup's 64 (the CTA's rows g0 + r0, + 8)
+  const int g0 = 64 * group, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);  // keys 8j + c2 and + 1 of a tile
+  bool live[2];                   // rows below L
+#pragma unroll
+  for (int half = 0; half < 2; ++half) live[half] = q0 + g0 + r0 + 8 * half < L;
+
+  // Q lands raw where the K, V^T and raw tiles go (6 T_BYTES >= 128 rows),
+  // then is split
+  float* raw_q = reinterpret_cast<float*>(gbase + 4 * F::Q_BYTES);
+  load_raw<DP>(raw_q, qg, q0, ROWS, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  for (int g = 0; g < 2; ++g)
+    split_rows<DP>(base + 2 * F::Q_BYTES * g, base + 2 * F::Q_BYTES * g + F::Q_BYTES,
+                   raw_q + BQ * DP * g, BQ);
+  sm90::fence_async_smem();
+  __syncthreads();  // the raw tiles are free
+  load_raw<DP>(raw_k, kg, 0, KEYS, L, d, vec);
+  sm90::cp_async_commit();
+  load_raw<DP>(raw_v, vg, 0, KEYS, L, d, vec);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<1>();
+  __syncthreads();
+  split_rows<DP>(kh, kl, raw_k, KEYS);
+  sm90::fence_async_smem();
+
+  // running max (shared by the row's 4 threads) and this thread's share of
+  // the row sum, per row half
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // o: the output sum; pv: a tile's P.V, which the tensor cores sum from
+  // zero, then added to o (their truncating adds over a whole sweep's chain
+  // of wgmma steps in one accumulator would break the limit)
+  float s[NS], o[DP / 2], pv[DP / 2];
+  uint32_t ph[NS], pl[NS];  // P hi and lo
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const bool next = t + 1 < ntiles;
+    sm90::cp_async_wait<0>();  // raw V tile t
+    // V tile t and the split K tile t in view; raw K and V^T free
+    __syncthreads();
+    if (next) load_raw<DP>(raw_k, kg, (t + 1) * KEYS, KEYS, L, d, vec);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    qk_pass<DP>(s, ql, kh, true);  // the small terms first
+    qk_pass<DP>(s, qh, kl, false);
+    qk_pass<DP>(s, qh, kh, false);
+    sm90::wgmma_commit();
+    split_vt<DP>(vh, vl, raw_v);  // while Q K^T runs
+    sm90::fence_async_smem();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+
+    // logits: register i of s is (row r0 + 8 ((i / 2) % 2), key 8 (i / 4) + c2 + i % 2);
+    // only the last tile holds keys past L
+    if (next || L % KEYS == 0) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = __fmul_rn(s[i], scale);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = t * KEYS + 8 * (i / 4) + c2 + (i & 1) < L ? __fmul_rn(s[i], scale) : -INFINITY;
+    }
+
+    float corr[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) tmax = fmaxf(tmax, s[4 * j + 2 * half + e]);
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[half], tmax);  // finite: every tile has a live key
+      corr[half] = __expf(m[half] - m_new);       // 0 on the first tile
+      m[half] = m_new;
+    }
+    // P = exp(s - m) (masked keys give 0), split into hi and lo; the row sum
+    // adds P
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int half = (i / 2) & 1;
+      const float p = __expf(s[i] - m[half]);
+      psum[half] += p;
+      sm90::split_tf32(p, ph[i], pl[i]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] + psum[half];
+
+    sm90::cp_async_wait<0>();  // raw K tile t + 1
+    // V^T in view; raw V free; every warp is done with the K tiles
+    __syncthreads();
+    if (next) load_raw<DP>(raw_v, vg, (t + 1) * KEYS, KEYS, L, d, vec);
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+    pv_pass<DP>(pv, pl, vh, true);
+    pv_pass<DP>(pv, ph, vl, false);
+    pv_pass<DP>(pv, ph, vh, false);
+    sm90::wgmma_commit();
+    if (next) {  // while P.V runs
+      split_rows<DP>(kh, kl, raw_k, KEYS);
+      sm90::fence_async_smem();
+    }
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(pv);
+    sm90::fence_regs(ph);
+    sm90::fence_regs(pl);
+    // o's register i is row r0 + 8 ((i / 2) % 2) as in s
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = fmaf(o[i], corr[(i / 2) & 1], pv[i]);
+  }
+
+  if (lse != nullptr) {  // the row sum of the row's 4 threads, as store_rows takes it
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float li = l[half];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      if (lane % 4 == 0 && live[half])
+        lse[(size_t)bh * L + q0 + g0 + r0 + 8 * half] = m[half] + logf(li);
+    }
+  }
+  store_rows<DP>(out + head + (size_t)(q0 + g0 + r0) * d, o, l, live, c2, d);
 }
 
 // How a biased sweep takes the bias, by the grid's width W

@@ -10,8 +10,9 @@ replace the Pallas TPU kernel; the source note says what bounds them and
 how they are laid out), two launches per call: ``tap_out`` (grid query
 tiles × heads) writes the output and each row's log-sum-exp into a float32
 (H, L) scratch, ``tap_mean`` (grid query tiles × key tiles) recomputes the
-logits head by head and writes the tap once.  bfloat16 runs on the tensor
-cores (wgmma), float32 on the CUDA cores.  Its counter
+logits head by head and writes the tap once.  Both types run on the tensor
+cores (wgmma): bfloat16 as it is, float32 in split TF32 (three TF32 passes
+a product, ``csrc/attention_tf32.cuh``).  Its counter
 ``attention_with_tap.launches`` counts calls, one per call.  On a CPU
 tensor it takes ``attention_with_tap_plain``, the plain PyTorch version the
 CPU tests hold against the JAX package.

@@ -48,8 +48,12 @@ TAP_SHAPES = [(3, 200, 32), (2, 300, 16), (16, 1374, 64), (12, 1090, 64), (1, 17
               (2, 65, 64), (3, 129, 32), (1, 200, 16), (4, 1374, 32)]
 
 
-@pytest.mark.parametrize("h,l,d", TAP_SHAPES)
+@pytest.mark.parametrize("h,l,d", TAP_SHAPES + [(2, 64, 24), (2, 100, 20), (2, 100, 18)])
 def test_kernel_matches_plain_f32(dev, h, l, d):
+    """The split-TF32 kernels, within the 1e-5 limits.  d = 24 and 20 pad to
+    a head dim of 32 (5 or 6 of its 8 16-byte chunks live); d = 18 takes the
+    element-wise tile loads (a row of 18 floats is no whole number of
+    16-byte chunks)."""
     q, k, v = _qkv(h, l, d, torch.float32, dev)
     before = fa.attention_with_tap.launches
     out, tap = fa.attention_with_tap(q, k, v)

@@ -27,33 +27,10 @@ import torch
 
 from mars_tpu.ops import sam_attention as jsa
 from mars_tpu_torch.ops import sam_attention as tsa
+from torch_tiny import PV_ORDER, tf32_product, tf32_split
 
 BK = 64  # keys per tile
 GRID_TOL = 2e-5  # the float32 kernel's limit on the card (chip_smoke.py, test_torch_cuda.py)
-PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)  # grid_f32's keys inside each group of 8 in P.V
-
-
-def _bits(x, add):
-    """float32 ``x`` plus ``add`` on its bits, the low 13 bits cleared."""
-    u = x.contiguous().numpy().view(np.uint32).astype(np.uint64)
-    return torch.from_numpy(((u + add) & 0xFFFFE000).astype(np.uint32).view(np.float32))
-
-
-def _split(x):
-    """``sm90::split_tf32``: hi = x rounded to TF32 (11 significant bits),
-    to nearest with ties away from zero; lo = x - hi truncated to TF32."""
-    hi = _bits(x, 0x1000)
-    return hi, _bits(x - hi, 0)
-
-
-def _tf32_product(a, b, mode):
-    """``a @ b`` as the kernel's TF32 wgmma passes, summed from zero in one
-    float32 accumulator: "tf32x3" a_lo b_hi, a_hi b_lo, a_hi b_hi (the small
-    terms first), "tf32" only a_hi b_hi."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    if mode == "tf32":
-        return ah @ bh
-    return (al @ bh + ah @ bl) + ah @ bh
 
 
 def _inputs(rng, nh, h, w, d):
@@ -80,7 +57,7 @@ def _grid_tiles(q, k, v, bias_h, bias_w, grid_hw, skip_tile=None, mode=None):
     for t, k0 in enumerate(range(0, l, tile)):
         keys = torch.arange(k0, min(k0 + tile, l))  # keys past L are not attended
         kt = kf[:, keys].transpose(-1, -2)
-        s = (_tf32_product(qf, kt, mode) if mode else qf @ kt) * d ** -0.5
+        s = (tf32_product(qf, kt, mode) if mode else qf @ kt) * d ** -0.5
         if w % tile == 0:
             s = (s + bh[:, :, y:y + 1]) + bw[:, :, x0:x0 + tile]
             x0 += tile
@@ -98,7 +75,7 @@ def _grid_tiles(q, k, v, bias_h, bias_w, grid_hw, skip_tile=None, mode=None):
         total = total * corr + p.sum(-1)
         if mode:
             live = order[order < len(keys)]
-            acc = torch.addcmul(_tf32_product(p[..., live], vf[:, keys[live]], mode), acc,
+            acc = torch.addcmul(tf32_product(p[..., live], vf[:, keys[live]], mode), acc,
                                 corr[..., None])
         else:
             acc = acc * corr[..., None] + p @ vf[:, keys]
@@ -166,7 +143,7 @@ def test_tf32_split_reconstructs_float32():
     x = (rng.randn(20000) * 2.0 ** rng.randint(-60, 60, 20000)).astype(np.float32)
     ties = np.float32([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), 3 + 2 ** -10])
     x = np.concatenate([x, ties])
-    hi, lo = (t.double().numpy() for t in _split(torch.from_numpy(x)))
+    hi, lo = (t.double().numpy() for t in tf32_split(torch.from_numpy(x)))
     xd = x.astype(np.float64)
     mant, exp = np.frexp(xd)
     np.testing.assert_array_equal(

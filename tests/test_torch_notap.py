@@ -26,10 +26,10 @@ from mars_tpu.models import clip as jclip, layers as jL, zoo as jzoo
 from mars_tpu.ops import flash_attention as jfa
 from mars_tpu_torch.models import clip as tclip, convert as tconvert, layers as tL
 from mars_tpu_torch.ops import flash_attention as tfa
+from torch_tiny import tf32_sweep
 
 BF16_TOL = dict(atol=1.6e-2, rtol=2 ** -7)
 NOTAP_TOL = 2e-5  # the float32 kernel's limit on the card (chip_smoke.py, test_torch_cuda.py)
-PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)  # notap_f32's keys inside each group of 8 in P.V
 
 
 def _qkv(rng, shape):
@@ -96,56 +96,12 @@ def test_bf16_card_limit_separates_rounding_from_a_lost_tile(l):
     assert worst(_flash_bf16(q, k, v, skip_tile=1)) > 2
 
 
-def _bits(x, add):
-    """float32 ``x`` plus ``add`` on its bits, the low 13 bits cleared."""
-    u = x.contiguous().numpy().view(np.uint32).astype(np.uint64)
-    return torch.from_numpy(((u + add) & 0xFFFFE000).astype(np.uint32).view(np.float32))
-
-
-def _split(x):
-    """``sm90::split_tf32``: hi = x rounded to TF32 (11 significant bits),
-    to nearest with ties away from zero; lo = x - hi truncated to TF32."""
-    hi = _bits(x, 0x1000)
-    return hi, _bits(x - hi, 0)
-
-
-def _tf32_product(a, b, mode):
-    """``a @ b`` as the kernel's TF32 wgmma passes, summed from zero in one
-    float32 accumulator: "tf32x3" a_lo b_hi, a_hi b_lo, a_hi b_hi (the small
-    terms first), "tf32" only a_hi b_hi."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    if mode == "tf32":
-        return ah @ bh
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
 def _notap_f32(q, k, v, mode="tf32x3", skip_tile=None):
-    """``notap_f32``'s arithmetic on (B, H, L, D) float32 inputs: key tiles of
-    64 (32 past head dim 80), logits scaled after the product, a running max
-    and sum per row, each tile's P·V (keys in the kernel's order) summed from
-    zero, then added to the rescaled output sum; ``mode`` "tf32" is one TF32
-    pass a product and ``skip_tile`` drops one key tile: the faults the card's
-    limit has to catch."""
-    d, l = q.shape[-1], k.shape[-2]
-    tile = 32 if d > 80 else 64
-    order = torch.tensor([8 * (i // 8) + PV_ORDER[i % 8] for i in range(tile)])
-    m = torch.full(q.shape[:-1], -torch.inf)
-    total = torch.zeros(q.shape[:-1])
-    acc = torch.zeros(q.shape)
-    for t, k0 in enumerate(range(0, l, tile)):
-        keys = torch.arange(k0, min(k0 + tile, l))  # keys past L are not attended
-        if t == skip_tile:
-            continue
-        s = _tf32_product(q, k[..., keys, :].transpose(-1, -2), mode) * d ** -0.5
-        m_new = torch.maximum(m, s.amax(-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        total = total * corr + p.sum(-1)
-        live = order[order < len(keys)]
-        acc = torch.addcmul(_tf32_product(p[..., live], v[..., keys[live], :], mode), acc,
-                            corr[..., None])
-        m = m_new
-    return acc * (1 / total)[..., None]
+    """``notap_f32``'s arithmetic on (B, H, L, D) float32 inputs
+    (``torch_tiny.tf32_sweep``); ``mode`` "tf32" is one TF32 pass a product
+    and ``skip_tile`` drops one key tile: the faults the card's limit has to
+    catch."""
+    return tf32_sweep(q, k, v, mode, skip_tile)[0]
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 577, 64), (1, 4, 1374, 64), (2, 2, 200, 32),

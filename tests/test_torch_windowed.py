@@ -32,11 +32,11 @@ from mars_tpu.models import convert as jconvert, layers as jL, sam as jsam
 from mars_tpu.ops import sam_attention as jsa
 from mars_tpu_torch.models import convert as tconvert, sam as tsam
 from mars_tpu_torch.ops import sam_attention as tsa
+from torch_tiny import PV_ORDER, tf32_product, tf32_split
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 BF16_TOL = dict(atol=1.6e-2, rtol=2 ** -7)
 WINDOW_TOL = 2e-5  # the float32 kernel's limit on the card (chip_smoke.py, test_torch_cuda.py)
-PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)  # windowed_f32's keys inside each group of 8 in P.V
 # csrc/sam_windowed_attention.cu: the window width swept in tiles of 4 key rows, and the
 # width of the last tile where 28 keys are left
 WINDOW_W, WINDOW_STEP, WINDOW_TAIL = 14, 56, 32
@@ -143,29 +143,6 @@ def test_bf16_card_limit_separates_rounding_from_a_lost_tile(h, w, d, two_sweeps
     assert worst(_windowed_tiles(*args, (h, w), two_sweeps, skip_tile=1)) > 2
 
 
-def _bits(x, add):
-    """float32 ``x`` plus ``add`` on its bits, the low 13 bits cleared."""
-    u = x.contiguous().numpy().view(np.uint32).astype(np.uint64)
-    return torch.from_numpy(((u + add) & 0xFFFFE000).astype(np.uint32).view(np.float32))
-
-
-def _split(x):
-    """``sm90::split_tf32``: hi = x rounded to TF32 (11 significant bits),
-    to nearest with ties away from zero; lo = x - hi truncated to TF32."""
-    hi = _bits(x, 0x1000)
-    return hi, _bits(x - hi, 0)
-
-
-def _tf32_product(a, b, mode):
-    """``a @ b`` as the kernel's TF32 wgmma passes, summed from zero in one
-    float32 accumulator: "tf32x3" a_lo b_hi, a_hi b_lo, a_hi b_hi (the small
-    terms first), "tf32" only a_hi b_hi."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    if mode == "tf32":
-        return ah @ bh
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
 def _key_tiles(l, w, d):
     """(first key, width) of ``windowed_f32``'s key tiles: a window 14 wide
     whose L leaves 28 keys past whole tiles of 4 key rows (SAM's 196 = 3 ·
@@ -196,7 +173,7 @@ def _windowed_f32(q, k, v, bias_h, bias_w, window_hw, mode="tf32x3", skip_tile=N
         live_keys = keys[keys < l]  # the masked keys' P is 0
         if t == skip_tile:
             continue
-        s = _tf32_product(q, k[..., live_keys, :].transpose(-1, -2), mode) * d ** -0.5
+        s = tf32_product(q, k[..., live_keys, :].transpose(-1, -2), mode) * d ** -0.5
         s = s + bias_h[..., live_keys // w]
         s = s + bias_w[..., live_keys % w]
         m_new = torch.maximum(m, s.amax(-1))
@@ -205,7 +182,7 @@ def _windowed_f32(q, k, v, bias_h, bias_w, window_hw, mode="tf32x3", skip_tile=N
         total = total * corr + p.sum(-1)
         order = torch.tensor([8 * (i // 8) + PV_ORDER[i % 8] for i in range(width)])
         live = order[order < len(live_keys)]
-        acc = torch.addcmul(_tf32_product(p[..., live], v[..., live_keys[live], :], mode), acc,
+        acc = torch.addcmul(tf32_product(p[..., live], v[..., live_keys[live], :], mode), acc,
                             corr[..., None])
         m = m_new
     return acc * (1 / total)[..., None]

@@ -1,5 +1,6 @@
 """Tiny ranking towers and a multi-rank launcher shared by the parallel
-driver tests.
+driver tests, and the split-TF32 arithmetic shared by the float32
+tensor-core kernels' emulations.
 
 ``jax_trees`` draws the JAX package's tower parameters from a seed;
 ``port_mars`` builds the port's ``Mars`` on the same arrays (numpy trees,
@@ -8,6 +9,10 @@ holds whole heads.  ``run_ranks`` starts ``world`` processes on a gloo
 group over a ``FileStore`` (``torch.multiprocessing.spawn``) and returns
 each rank's result; its workers live here, in a module that imports no
 JAX, so that a spawned rank starts quickly.
+
+``tf32_split``, ``tf32_product`` and ``PV_ORDER`` are the split-TF32
+arithmetic of ``csrc/sm90.cuh`` and ``csrc/attention_tf32.cuh``;
+``tf32_sweep`` is ``tf32::unbiased_sweep`` (``notap_f32``, ``tap_out_f32``).
 """
 import os
 import pickle
@@ -374,3 +379,60 @@ def train_worker(rank, payload):
             except ValueError as e:
                 out["unequal"] = str(e)
     return out
+
+
+# the keys inside each group of 8 in the split-TF32 kernels' P.V
+PV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _tf32_bits(x, add):
+    """float32 ``x`` plus ``add`` on its bits, the low 13 bits cleared."""
+    u = x.contiguous().numpy().view(np.uint32).astype(np.uint64)
+    return torch.from_numpy(((u + add) & 0xFFFFE000).astype(np.uint32).view(np.float32))
+
+
+def tf32_split(x):
+    """``sm90::split_tf32``: hi = x rounded to TF32 (11 significant bits),
+    to nearest with ties away from zero; lo = x - hi truncated to TF32."""
+    hi = _tf32_bits(x, 0x1000)
+    return hi, _tf32_bits(x - hi, 0)
+
+
+def tf32_product(a, b, mode):
+    """``a @ b`` as the kernels' TF32 wgmma passes, summed from zero in one
+    float32 accumulator: "tf32x3" a_lo b_hi, a_hi b_lo, a_hi b_hi (the small
+    terms first), "tf32" only a_hi b_hi."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    if mode == "tf32":
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def tf32_sweep(q, k, v, mode="tf32x3", skip_tile=None):
+    """``tf32::unbiased_sweep``'s arithmetic on (..., L, D) float32 inputs →
+    (out, lse): key tiles of 64 (32 past head dim 80), logits scaled after
+    the product, a running max and sum per row, each tile's P·V (keys in
+    the kernel's order) summed from zero, then added to the rescaled output
+    sum; lse = max + log(sum).  ``mode`` "tf32" is one TF32 pass a product
+    and ``skip_tile`` drops one key tile: the faults the card's limits have
+    to catch."""
+    d, l = q.shape[-1], k.shape[-2]
+    tile = 32 if d > 80 else 64
+    order = torch.tensor([8 * (i // 8) + PV_ORDER[i % 8] for i in range(tile)])
+    m = torch.full(q.shape[:-1], -torch.inf)
+    total = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for t, k0 in enumerate(range(0, l, tile)):
+        keys = torch.arange(k0, min(k0 + tile, l))  # keys past L are not attended
+        if t == skip_tile:
+            continue
+        s = tf32_product(q, k[..., keys, :].transpose(-1, -2), mode) * d ** -0.5
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        total = total * corr + p.sum(-1)
+        live = order[order < len(keys)]
+        acc = torch.addcmul(tf32_product(p[..., live], v[..., keys[live], :], mode), acc,
+                            corr[..., None])
+        m = m_new
+    return acc * (1 / total)[..., None], m + torch.log(total)

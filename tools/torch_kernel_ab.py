@@ -5,6 +5,7 @@
     python3 tools/torch_kernel_ab.py --text-path PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --grid PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --notap PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --tap PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --windowed PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --profile PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
 
@@ -42,7 +43,12 @@ difference from ``attention_notap_plain``, a digest and its time with the
 device held (``held_ms``: a ~40 µs kernel's ``ms`` may read the host's
 enqueue pace), then a digest of
 each notap kernel's machine code (its SASS instructions, addresses left
-out: equal digests, the same code).  With ``--windowed`` each root builds
+out: equal digests, the same code).  With ``--tap`` each root builds only
+its tap library and times ``attention_with_tap`` in both types at
+``chip_smoke.GEOMETRIES + BACKBONE_GEOMETRIES``, warm and device-held, each
+row with its largest differences from ``attention_with_tap_plain`` (output,
+tap) and a digest of its output and tap, then the SASS digests of the tap
+kernels.  With ``--windowed`` each root builds
 only its windowed and grid libraries and times ``windowed_attention`` at
 SAM ViT-H's and ViT-B's windowed layers in both types, warm and
 device-held, beside SDPA with the bias expanded, each row with its largest
@@ -252,6 +258,35 @@ def notap_worker(root):
     emit(kernel="attention_notap", sass=sass_digests(build.library_path("attention_notap")))
 
 
+def tap_worker(root):
+    import torch
+
+    smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch.ops import build, flash_attention as fa
+
+    build.build_all(["attention_tap"])
+
+    def emit(**row):
+        print(json.dumps({"root": root, **row}), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, h, l, d in smoke.GEOMETRIES + smoke.BACKBONE_GEOMETRIES:
+        for dt in ("float32", "bfloat16"):
+            q, k, v = (torch.randn((h, l, d), generator=gen, device="cuda").to(getattr(torch, dt))
+                       for _ in range(3))
+            out, tap = fa.attention_with_tap(q, k, v)
+            want_out, want_tap = fa.attention_with_tap_plain(q, k, v)
+            emit(kernel="attention_with_tap", geometry=name, shape=[h, l, d], dtype=dt,
+                 ms=smoke.cuda_ms(lambda: fa.attention_with_tap(q, k, v)),
+                 held_ms=smoke.held_ms(lambda: fa.attention_with_tap(q, k, v)),
+                 max_abs_err_out=(out.float() - want_out.float()).abs().max().item(),
+                 max_abs_err_tap=(tap - want_tap).abs().max().item(),
+                 digest=digest(out) + digest(tap))
+    emit(kernel="attention_with_tap", sass=sass_digests(
+        build.library_path("attention_tap"), r"tap_(?:out|mean)_(?:bf16|f32)(?:ILi\d+E)?"))
+
+
 def windowed_rows(smoke, emit, gen):
     import torch
     import torch.nn.functional as F
@@ -389,6 +424,7 @@ def worker(root):
 def main(argv):
     workers = {"--worker": worker, "--text-worker": text_worker, "--grid-worker": grid_worker,
                "--notap-worker": notap_worker, "--windowed-worker": windowed_worker,
+               "--tap-worker": tap_worker,
                "--profile-worker": profile_worker}
     if len(argv) >= 2 and argv[0] in workers:
         workers[argv[0]](os.path.abspath(argv[1]))
@@ -396,6 +432,7 @@ def main(argv):
     mode = "--worker"
     modes = {"--text-path": "--text-worker", "--grid": "--grid-worker",
              "--notap": "--notap-worker", "--windowed": "--windowed-worker",
+             "--tap": "--tap-worker",
              "--profile": "--profile-worker"}
     if argv and argv[0] in modes:
         mode, argv = modes[argv[0]], argv[1:]
