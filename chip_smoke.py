@@ -111,7 +111,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
      tap 31 per episode; each block's speculative streams against the same
      requests decoded plainly, a split allowed only where the plain step's
      top-two logit gap is under 2^-7 of the top logit;
- 22. the fold run as scripts/_eval_common.sh drives it (``phase_fold_run``):
+ 22. ViP-LLaVA-7B from its files (``phase_text_files``): a directory in the
+     release's layout at full width (CLIP-L/14@336, 24 layers; LLaMA hidden
+     4096, MLP 11008, 32 heads, vocabulary 32 064) with the LLaMA cut to 2
+     of its 32 layers (``reduced``): seeded bf16 shards (~2 GB) under the
+     release's names with their index, a seeded legacy tokenizer.json
+     (32 000 pieces, <image> 32000, <pad> 32001), CLIP's preprocessor at
+     336 and processor_config.json (tests/vip_llava_files.py);
+     ``TorchVipLlava(dir)`` in int4, then NF4, answering one text block of
+     518² images: the 4-bit launches exact (146 per vision call + 14 per
+     forward), the loaded tree, greedy tokens and answers bitwise equal to
+     the same arrays passed as ``params=`` through ``convert_hf``, the
+     first forward's logits through the kernel and the plain version; one
+     episode of ``cli.main --vlm-path dir --vlm4bit``; load seconds, peak
+     memory, tokens a second;
+ 23. the fold run as scripts/_eval_common.sh drives it (``phase_fold_run``):
      ``cli_proposals --bf16 --use-centers --coco-rle --visualize 2`` over two
      episodes with both switches on (the Matcher's launches exact; the
      zero-threshold Matcher call's masks through the port's RLE and back,
@@ -126,7 +140,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      event files' CRCs, the known-bad line, 31 tap launches an episode;
      ranking ms an episode at overlap 0 and 2 (wall over the fold); then
      ``--visualize 2``: two PNGs that decode;
- 23. the Matcher's other configurations (``phase_matcher_configs``), float32
+ 24. the Matcher's other configurations (``phase_matcher_configs``), float32
      at full width with the selection thresholds at 0: both negative
      sources with ``merge_prompt_types`` at one shot and at five (the
      auction's launches exact per ε-phase, every phase the kernel ran
@@ -137,14 +151,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      a side with MARS_SAM_WINDOWED_IMPL=pallas (grid 4 and windowed 28
      launches a crop), then ``postprocess_small_regions(min_area=100)``:
      live masks before and after, ms, peak memory;
- 24. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
+ 25. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
      synthetic episodes, then with ``--int8-towers``, then also
      ``--w8a8-alphaclip`` (merged masks' IoU with the ``--bf16`` run's,
      the towers' weight bytes, peak memory, ranking ms an episode, 31 tap
      launches an episode), then ``--generate-proposals`` over two;
      ``torch._int_mm`` at AlphaCLIP-L's MLP against the weight-only int8
      route and a bf16 product;
- 25. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
+ 26. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
      --generate-proposals --proposal-model semantic-sam`` at full width
      (SwinL @640, the MaskDINO pixel and point decoders, 6 granularities;
      DINOv2-L matching) over three episodes in float32, again with the notap
@@ -154,7 +168,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      run's buckets and merged masks against the plain route's, bf16's
      merged masks' IoU with float32's; one call split by stage under
      torch.profiler (float32, bf16); one ``SamPointBackend`` call at ViT-H;
- 26. the multi-device drivers and the serving runtime (``phase_parallel``):
+ 27. the multi-device drivers and the serving runtime (``phase_parallel``):
      ``cli_parallel.main`` at one NCCL rank, local batch 4, over eight
      synthetic episodes in float32 and bf16 (merged masks against the
      serial ``cli.main``'s, 31 tap launches an episode, ranking ms an
@@ -166,7 +180,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      request's latency); two ranks sharing the card over gloo
      (``evaluate_parallel`` at mesh 2 x 1 and 1 x 2, the proposal-sharded
      ranker on one 128-row bucket), masks against the float32 run's;
- 27. the SAM decoder's train step and the exact host solvers
+ 28. the SAM decoder's train step and the exact host solvers
      (``phase_train``): ViT-H's frozen encode of eight synthetic 1024²
      images (32 grid launches), eight steps of ``parallel.train`` at batch 8
      (the loss falls), accumulation, remat and both against the full
@@ -176,7 +190,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      Matcher's forward instance against ``native.assignment_exact``, and the
      Sinkhorn EMD on the card against ``native.emd_exact`` (the seeded 60 x
      40 instance and a full-width ranking episode's cost matrix);
- 28. the kernels line.
+ 29. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -305,6 +319,11 @@ TEXT_CLI_ARGS = ["--benchmark", "synthetic", "--proposal-bucket", "128", "--inpu
                  "--seed", "0"]
 TEXT_CLI_EPISODES = 4
 PIPELINED_EPISODES = 2
+# the files phase: ViP-LLaVA-7B's directory at full width, the LLaMA cut to 2
+# of its 32 layers (bf16 shards of ~2 GB), split into shards of 1 GB
+TEXT_FILES_LAYERS = 2
+TEXT_FILES_SHARD_BYTES = 1 << 30
+TEXT_FILES_IMAGE = 518  # the support images' side at the CLI's --input-size
 SPLIT_REL_GAP = 2 ** -7  # bf16: a stream may split only where the top-two gap is this small
 # the fold run: scripts/_eval_common.sh's ranking flags (:21-50) on synthetic
 # episodes; --gt-class-names as the VLM checkpoint is not in the repository
@@ -1842,6 +1861,36 @@ def _text_block(vlm, images):
     return names, defs
 
 
+def _first_logits(params, cfg, proc, image):
+    """The last position's logits of LOGITS_PROMPT's first forward through
+    the 4-bit kernels and through their plain versions (the wrappers
+    swapped in this script only): the largest difference against a tenth
+    of the largest logit, argmax, finiteness."""
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    inputs = proc(LOGITS_PROMPT, image)
+    ids_t = torch.from_numpy(inputs["input_ids"]).cuda()
+    pix_t = torch.from_numpy(np.ascontiguousarray(
+        inputs["pixel_values"].transpose(0, 2, 3, 1))).cuda()
+    got = vl.forward_logits(params, ids_t, pix_t, cfg)[0, -1].float()
+    swapped = im.matmul_int4, im.matmul_nf4
+    im.matmul_int4, im.matmul_nf4 = im.matmul_int4_plain, im.matmul_nf4_plain
+    try:
+        plain = vl.forward_logits(params, ids_t, pix_t, cfg)[0, -1].float()
+    finally:
+        im.matmul_int4, im.matmul_nf4 = swapped
+    err = (got - plain).abs().max().item()
+    top = plain.abs().max().item()
+    return {"first_logits_max_abs_err": err, "first_logits_max_abs": top,
+            "first_logits_tol": 0.1 * top,
+            "first_argmax_equal": int(got.argmax()) == int(plain.argmax()),
+            "first_logits_ok": err <= 0.1 * top and bool(torch.isfinite(got).all())}
+
+
 def phase_text_path(state):
     """ViP-LLaVA-7B at full width, int4 then NF4: one text block through
     ``TorchVipLlava.generate_batch`` with the kernels' counts set to 0 just
@@ -1906,27 +1955,12 @@ def phase_text_path(state):
                "first_name": names[0][:60]}
         launches_by_fmt[kernel] = launches[kernel]
 
-        # first forward's logits, kernel path against plain path
-        inputs = proc(LOGITS_PROMPT, images[0])
-        ids_t = torch.from_numpy(inputs["input_ids"]).cuda()
-        pix_t = torch.from_numpy(np.ascontiguousarray(
-            inputs["pixel_values"].transpose(0, 2, 3, 1))).cuda()
-        got = vl.forward_logits(params, ids_t, pix_t, cfg)[0, -1].float()
-        swapped = im.matmul_int4, im.matmul_nf4
-        im.matmul_int4, im.matmul_nf4 = im.matmul_int4_plain, im.matmul_nf4_plain
-        try:
-            plain = vl.forward_logits(params, ids_t, pix_t, cfg)[0, -1].float()
-        finally:
-            im.matmul_int4, im.matmul_nf4 = swapped
-        err = (got - plain).abs().max().item()
-        top = plain.abs().max().item()
-        row.update({"first_logits_max_abs_err": err, "first_logits_max_abs": top,
-                    "first_logits_tol": 0.1 * top,
-                    "first_argmax_equal": int(got.argmax()) == int(plain.argmax())})
+        logits = _first_logits(params, cfg, proc, images[0])
+        row.update(logits)
         emit(row)
         ok = (launches[kernel] == want and sum(launches.values()) == want
-              and len(prefill_ms) == 1 and err <= 0.1 * top
-              and bool(torch.isfinite(got).all()) and len(names) == len(defs) == TEXT_ROWS)
+              and len(prefill_ms) == 1 and logits["first_logits_ok"]
+              and len(names) == len(defs) == TEXT_ROWS)
         del vlm, params
         torch.cuda.empty_cache()
         if not ok:
@@ -2133,6 +2167,189 @@ def phase_text_cli(state):
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"text CLI runs failed: {failures}")
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _trees_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _recording_decode(tokenizer):
+    """Record every row ``decode`` is handed (the retriever cuts each row
+    at its first EOS) → the list it appends to."""
+    rows, decode = [], tokenizer.decode
+
+    def recorded(ids, skip_special_tokens=False):
+        rows.append([int(i) for i in ids])
+        return decode(ids, skip_special_tokens=skip_special_tokens)
+
+    tokenizer.decode = recorded
+    return rows
+
+
+def phase_text_files(state):
+    """ViP-LLaVA-7B from its files: a directory in the release's layout
+    written by tests/vip_llava_files.py at full width (CLIP-L/14@336 with
+    its 24 layers, LLaMA at hidden 4096, MLP 11008, 32 heads, vocabulary
+    32 064), the LLaMA cut to TEXT_FILES_LAYERS of its 32 layers: seeded
+    bf16 weights under the release's names in 1 GB shards with their index,
+    a seeded legacy tokenizer.json (the byte pieces, then pieces and merges
+    up to id 31 999; <image> 32000, <pad> 32001), CLIP's preprocessor at 336
+    and processor_config.json.  ``TorchVipLlava(dir)`` in int4, then NF4,
+    answers one BlockTextStage-shaped block of TEXT_ROWS 518² images, the
+    counts set to 0 just before and read just after: the 4-bit launches
+    equal 146 per vision call + 7 per LLaMA layer per forward as the token
+    trace implies; the loaded tree, the greedy tokens and the answers equal
+    those of the same arrays passed as ``params=`` through ``convert_hf``
+    with the same quantization and the loaded processor; the first
+    forward's logits through the kernel and the plain version.  Then one
+    episode of ``cli.main --vlm-path dir --vlm4bit`` without
+    --gt-class-names.  Load seconds, peak device memory, tokens a second."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.data.coco import COCO_CLASS_NAMES
+    from mars_tpu_torch.models import vip_llava as vl, zoo
+    from mars_tpu_torch.ops import int4_matmul as im
+    from mars_tpu_torch.text.prompts import VISUAL_PROMPTS, VISUAL_PROMPTS_DESCRIPTIONS
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from nltk_minicorpus import ensure_minicorpus
+    from vip_llava_files import random_state_dict, tokenizer_spec, write_vip_llava_dir
+
+    cfg = dataclasses.replace(vl.VipLlavaConfig(), layers=TEXT_FILES_LAYERS)
+    llama_denses = 7 * TEXT_FILES_LAYERS
+    corpus = list(VISUAL_PROMPTS.values()) + list(VISUAL_PROMPTS_DESCRIPTIONS.values()) + list(
+        COCO_CLASS_NAMES)
+    tmp = tempfile.mkdtemp(prefix="vip_llava_files_")
+    failures, launches_by_fmt = [], {}
+    try:
+        path = os.path.join(tmp, "vip-llava-7b-hf")
+        t0 = time.perf_counter()
+        tensors = random_state_dict(cfg, seed=11, dtype=torch.bfloat16, device="cuda")
+        spec = tokenizer_spec(32000, seed=0, form="legacy", corpus=corpus)
+        spec_s = time.perf_counter() - t0
+        write_vip_llava_dir(path, cfg, tensors, spec, TEXT_FILES_SHARD_BYTES)
+        write_s = time.perf_counter() - t0 - spec_s
+        # the params= route: the same arrays through convert_hf, float32 on the card
+        t0 = time.perf_counter()
+        ref_tree = vl.convert_hf({zoo.vip_llava_key(k): v.float().cpu().numpy()
+                                  for k, v in tensors.items()}, cfg, "cuda")
+        convert_s = time.perf_counter() - t0
+        file_bytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        del tensors
+        rs = np.random.RandomState(2)
+        images = [rs.randint(0, 256, (TEXT_FILES_IMAGE, TEXT_FILES_IMAGE, 3)).astype(np.uint8)
+                  for _ in range(TEXT_ROWS)]
+        for fmt in ("affine", "nf4"):
+            kernel = "matmul_int4" if fmt == "affine" else "matmul_nf4"
+            kw = dict(dtype=torch.bfloat16, quantize_bits=4, int4_format=fmt, draft_tokens=0)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # the params= route's tree
+            t0 = time.perf_counter()
+            vlm = TorchVipLlava(path, **kw)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            load_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+            model_gib = (torch.cuda.memory_allocated() - held) / 2 ** 30
+            rows = _recording_decode(vlm.processor.tokenizer)
+            im.matmul_int4.launches = im.matmul_nf4.launches = 0
+            for k in vl.STATS:
+                vl.STATS[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            names, defs = _text_block(vlm, images)
+            torch.cuda.synchronize()
+            block_ms = (time.perf_counter() - t0) * 1e3
+            launches = {"matmul_int4": im.matmul_int4.launches,
+                        "matmul_nf4": im.matmul_nf4.launches}
+            stats = dict(vl.STATS)
+            name_rows, def_rows = rows[:TEXT_ROWS], rows[TEXT_ROWS:]
+            forwards = 1 + _decode_forwards(name_rows, 20) + _decode_forwards(def_rows, 50)
+            want = VISION_DENSES + llama_denses * forwards
+            tokens = sum(len(r) for r in rows)
+            row = {"phase": "text_files", "format": fmt, "rows": TEXT_ROWS,
+                   "llama_layers": TEXT_FILES_LAYERS, "checkpoint_gb": file_bytes / 1e9,
+                   "spec_s": spec_s, "write_s": write_s, "convert_hf_s": convert_s,
+                   "load_s": load_s, "load_peak_memory_gib": load_peak,
+                   "model_memory_gib": model_gib, "block_ms": block_ms, "tokens": tokens,
+                   "tokens_per_s": tokens / block_ms * 1e3,
+                   "block_peak_memory_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                   "vision_calls": stats["vision"], "llama_forwards": stats["forwards"],
+                   "forwards_from_tokens": forwards, "launches": launches,
+                   "launches_expected": {kernel: want},
+                   "name_lengths": [len(r) for r in name_rows],
+                   "definition_lengths": [len(r) for r in def_rows],
+                   "first_name": names[0][:60]}
+            row.update(_first_logits(vlm.params, vlm.cfg, vlm.processor, images[0]))
+            launches_by_fmt[kernel] = {"text_files": launches[kernel]}
+
+            ref = TorchVipLlava(params=ref_tree, cfg=cfg, processor=vlm.processor, **kw)
+            same_tree = _trees_equal(vlm.params, ref.params)
+            decoded = len(rows)
+            ref_names, ref_defs = _text_block(ref, images)
+            row.update({"tree_equal_params_route": same_tree,
+                        "tokens_equal_params_route": rows[decoded:] == rows[:decoded],
+                        "answers_equal_params_route": (ref_names, ref_defs) == (names, defs)})
+            emit(row)
+            ok = (launches[kernel] == want and sum(launches.values()) == want
+                  and stats["vision"] == 1 and stats["forwards"] == forwards
+                  and row["first_logits_ok"] and same_tree and row["tokens_equal_params_route"]
+                  and row["answers_equal_params_route"] and len(names) == len(defs) == TEXT_ROWS)
+            if not ok:
+                failures.append(fmt)
+            del vlm, ref
+            torch.cuda.empty_cache()
+        del ref_tree
+
+        nltk_root = ensure_minicorpus(os.path.join(tmp, "nltk"))
+        for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
+            fn.launches = 0
+        for k in vl.STATS:
+            vl.STATS[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = cli.main(TEXT_CLI_ARGS + ["--episodes", "1", "--nltk-path", nltk_root,
+                                        "--vlm-path", path, "--vlm4bit"])
+        cli_s = time.perf_counter() - t0
+        counts = res["text_counts"]
+        want = VISION_DENSES * counts["vision"] + llama_denses * counts["forwards"]
+        row = {"phase": "text_files_cli", "episodes": 1, "wall_s": cli_s,
+               "text_ms": res["text_ms"], "names": [n[:40] for n in res["names"]],
+               "definitions": res["descriptions"], "vision_calls": counts["vision"],
+               "llama_forwards": counts["forwards"],
+               "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
+               "launches_expected": {"matmul_int4": want},
+               "tap_launches": res["launches"]["attention_with_tap"],
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "miou": res["miou"], "masks_binary": res["masks_binary"]}
+        emit(row)
+        launches_by_fmt.setdefault("matmul_int4", {})["cli_files"] = counts["matmul_int4"]
+        if not (counts["matmul_int4"] == want and counts["matmul_nf4"] == 0 and want > 0
+                and res["launches"]["attention_with_tap"] == TAPPED_BLOCKS
+                and len(res["names"]) == 1 and res["masks_binary"]
+                and math.isfinite(res["miou"])):
+            failures.append("cli")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    state["text_files_launches"] = launches_by_fmt
+    if failures:
+        raise AssertionError(f"text files phase failed: {failures}")
 
 
 class _Interrupted(RuntimeError):
@@ -3781,7 +3998,8 @@ def _quant_entry(state, fmt, line):
     cold = ("held_ms", "cold_ms", "library_held_ms", "library_cold_ms")
     paths = {"text_block": state.get("text_launches", {}).get(f"matmul_{fmt}", 0),
              **{path: n for path, n in state.get("text_cli_launches", {}).items()
-                if (path == "cli_nf4") == (fmt == "nf4")}}
+                if (path == "cli_nf4") == (fmt == "nf4")},
+             **state.get("text_files_launches", {}).get(f"matmul_{fmt}", {})}
     verify = [r for r in rows if r["shape"][0] in VERIFY_ROWS]
     return {"name": f"matmul_{fmt}", "route": "cuda",
             "source": "mars_tpu_torch/csrc/int4_matmul.cu",
@@ -3818,7 +4036,8 @@ def main():
                   phase_backbones,
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
-                  phase_text_path, phase_profile_text, phase_text_cli, phase_fold_run,
+                  phase_text_path, phase_profile_text, phase_text_cli, phase_text_files,
+                  phase_fold_run,
                   phase_matcher_configs, phase_int8_towers, phase_semantic_sam,
                   phase_parallel, phase_train):
         t0 = time.perf_counter()

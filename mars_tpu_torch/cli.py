@@ -72,9 +72,8 @@ explicit ``--fused-proposals`` is refused, as in the JAX CLI.
 
 With random weights the AMG's default thresholds (predicted IoU > 0.88,
 stability >= 0.95) usually reject every mask: an episode then ranks an
-empty bucket.  The port has no loader for the ViP-LLaVA-7B checkpoint and
-its processor, whose files are not in the repository: ``build_retriever``
-raises.
+empty bucket.  Without ``--gt-class-names``, ``--vlm-path`` names a
+ViP-LLaVA directory in transformers' format (``build_retriever``).
 """
 from __future__ import annotations
 
@@ -173,18 +172,19 @@ def build_retriever(args) -> retriever_lib.TextRetriever:
     (``--vlm4bit``, NF4 with ``--vlm4bit-nf4``) or else 8-bit, prompt-lookup
     speculation of ``--vlm-draft-tokens``, the int8 KV cache with
     ``--vlm-kv8``; the visual prompts and ensembles of the prompt flags
-    (``main`` puts ``--nltk-path`` on WordNet's search path).  The port has
-    no loader for the ViP-LLaVA checkpoint or its processor (the LLaMA
-    tokenizer, CLIP's image processor), so ``TorchVipLlava`` raises:
-    FileNotFoundError naming the files that are missing at ``--vlm-path``,
-    NotImplementedError where they are all there.  ``--jax-vlm`` picks
-    JAX's own decoder there, whose counterpart this is: it changes nothing
-    here."""
+    (``main`` puts ``--nltk-path`` on WordNet's search path).
+    ``--vlm-path`` is a ViP-LLaVA directory in transformers' format (the
+    release ``llava-hf/vip-llava-7b-hf``): ``TorchVipLlava`` reads its
+    weights onto ``--device`` one tensor at a time and its processor (the
+    LLaMA tokenizer, CLIP's image processor), and raises FileNotFoundError
+    naming the files missing there.  ``--jax-vlm`` picks JAX's own decoder
+    there, whose counterpart this is: it changes nothing here."""
     bits = 4 if args.vlm4bit else (8 if args.vlm8bit else None)
     vlm = retriever_lib.TorchVipLlava(
         args.vlm_path, dtype=torch.bfloat16, quantize_bits=bits or 8,
         int4_format="nf4" if args.vlm4bit_nf4 else "affine",
-        draft_tokens=args.vlm_draft_tokens, kv_bits=8 if args.vlm_kv8 else None)
+        draft_tokens=args.vlm_draft_tokens, kv_bits=8 if args.vlm_kv8 else None,
+        device=args.device)
     gen_cfg, ensemble = retriever_configs(args)
     return retriever_lib.TextRetriever(vlm, gen_cfg=gen_cfg, ensemble=ensemble)
 
@@ -521,7 +521,8 @@ def dataset(args):
 def fold_meter(ds) -> evaluation.AverageMeter:
     """The fold's meter.  PASCAL-5i lists its classes 1-indexed and records
     them 0-indexed (reference logger.py:21-23), so its ids shift; the JAX
-    CLI passes them unshifted (``mars_tpu/cli.py``, ROADMAP Queue 3)."""
+    CLI passes them unshifted (``mars_tpu/cli.py``; ROADMAP, the faults
+    found against the reference: the PASCAL-5i meter)."""
     return evaluation.AverageMeter(ds.benchmark, list(ds.class_ids),
                                    zero_indexed=ds.benchmark != "pascal5i")
 

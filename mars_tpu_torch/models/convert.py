@@ -13,7 +13,8 @@ kernels (kh, kw, O, I)).
     Matcher's alternative encoder (BatchNorm folded).
   - ``vip_llava_tree(sd, v_layers, layers)``: an HF ViP-LLaVA state dict →
     the VLM's tree (numpy), which ``models.vip_llava.convert_hf`` makes
-    tensors of.
+    tensors of; over ``safetensors_io.Deferred`` tensors, a tree of them,
+    which ``models.zoo.load_vip_llava`` reads one leaf at a time.
   - ``reference_state_dict(tree, tower)``: the inverse for the ranking
     towers, a tree back to the reference's key names (seeded weights
     written as the checkpoint files the zoo reads).
@@ -53,7 +54,10 @@ def from_jax_params(tree, device="cpu", dtype=torch.float32):
 
 
 def _t(w):
-    """torch Linear weight (out, in) → dense kernel (in, out)."""
+    """torch Linear weight (out, in) → dense kernel (in, out); a
+    ``safetensors_io.Deferred`` tensor stays unread, its axes swapped."""
+    if getattr(w, "deferred", False):
+        return w.permuted((1, 0))
     return np.ascontiguousarray(np.asarray(w).T)
 
 
@@ -61,7 +65,10 @@ def _conv(w):
     """torch Conv2d weight (O, I, kh, kw) → HWIO kernel (kh, kw, I, O).
     The same axis order takes a ConvTranspose2d weight (I, O, kh, kw) to
     (kh, kw, O, I), the layout of the JAX package's
-    ``conv_transpose(transpose_kernel=True)`` and ``models.sam._conv_transpose``."""
+    ``conv_transpose(transpose_kernel=True)`` and ``models.sam._conv_transpose``.
+    A ``safetensors_io.Deferred`` tensor stays unread, its axes reordered."""
+    if getattr(w, "deferred", False):
+        return w.permuted((2, 3, 1, 0))
     return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
 
 

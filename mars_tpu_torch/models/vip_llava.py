@@ -23,7 +23,9 @@ products run through ``ops.int4_matmul`` (``layers.dense``).  Every entry
 point runs on the device its parameters lie on and holds no state but
 ``STATS``, the counts the decode loops keep (LLaMA forwards, speculative
 rounds, verify rounds and accepted drafts; vision-tower calls), which a
-caller may reset.
+caller may reset.  ``config_from_hf`` reads transformers' ``config.json``
+and ``param_shapes`` gives the tree's shapes, which a checkpoint is
+audited against (``models.zoo.load_vip_llava``).
 """
 from __future__ import annotations
 
@@ -589,10 +591,119 @@ def forward_logits(p, input_ids, pixel_values, cfg: VipLlavaConfig):
 # parameters
 # --------------------------------------------------------------------------
 
+# transformers' defaults for what a ViP-LLaVA ``config.json`` leaves out
+# (``LlamaConfig``, ``CLIPVisionConfig``, ``VipLlavaConfig``), and the vision
+# tower ``VipLlavaConfig`` builds when the file has none
+_HF_TOP = {"model_type": "vipllava", "projector_hidden_act": "gelu",
+           "projector_layernorm_eps": 1e-5, "vision_feature_layers": [-2, -5, -8, -11, 6],
+           "image_token_index": 32000}
+_HF_TEXT = {"model_type": "llama", "vocab_size": 32000, "hidden_size": 4096,
+            "intermediate_size": 11008, "num_hidden_layers": 32, "num_attention_heads": 32,
+            "num_key_value_heads": None, "head_dim": None, "hidden_act": "silu",
+            "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "rope_scaling": None,
+            "attention_bias": False, "mlp_bias": False, "tie_word_embeddings": False}
+_HF_VISION = {"model_type": "clip_vision_model", "hidden_size": 768, "intermediate_size": 3072,
+              "num_hidden_layers": 12, "num_attention_heads": 12, "num_channels": 3,
+              "image_size": 224, "patch_size": 32, "hidden_act": "quick_gelu",
+              "layer_norm_eps": 1e-5}
+_HF_VIP_VISION = {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+                  "num_attention_heads": 16, "image_size": 336, "patch_size": 14}
+# (section, field, the one value the model implements): the projector's
+# LayerNorm and every vision LayerNorm run at ``layers.layer_norm``'s 1e-5
+_HF_FIXED = (("", "model_type", "vipllava"), ("", "projector_hidden_act", "gelu"),
+             ("", "projector_layernorm_eps", 1e-5),
+             ("text_config", "model_type", "llama"), ("text_config", "hidden_act", "silu"),
+             ("text_config", "rope_scaling", None), ("text_config", "attention_bias", False),
+             ("text_config", "mlp_bias", False), ("text_config", "tie_word_embeddings", False),
+             ("vision_config", "model_type", "clip_vision_model"),
+             ("vision_config", "hidden_act", "quick_gelu"),
+             ("vision_config", "layer_norm_eps", 1e-5), ("vision_config", "num_channels", 3))
+
+
+def config_from_hf(d: dict) -> VipLlavaConfig:
+    """transformers' ViP-LLaVA ``config.json`` (parsed) → VipLlavaConfig,
+    transformers' defaults filling the fields it leaves out.  Raises
+    ``ValueError`` on a value the model does not implement (a rope scaling,
+    another activation, LayerNorm epsilon or head width, biased LLaMA
+    projections, tied embeddings)."""
+    top = {**_HF_TOP, **d}
+    if "image_token_id" in d and "image_token_index" not in d:
+        top["image_token_index"] = d["image_token_id"]
+    sections = {"": top, "text_config": {**_HF_TEXT, **(d.get("text_config") or {})},
+                "vision_config": {**_HF_VISION, **(_HF_VIP_VISION if d.get("vision_config") is None
+                                                   else d["vision_config"])}}
+    for section, key, want in _HF_FIXED:
+        got = sections[section][key]
+        if got != want:
+            name = f"{section}.{key}" if section else key
+            raise ValueError(f"config.json: {name} is {got!r}; the model implements {want!r}")
+    text, vision = sections["text_config"], sections["vision_config"]
+    heads = text["num_attention_heads"]
+    if text["head_dim"] is not None and text["head_dim"] * heads != text["hidden_size"]:
+        raise ValueError(f"config.json: text_config.head_dim is {text['head_dim']}; the model "
+                         f"implements hidden_size / num_attention_heads")
+    return VipLlavaConfig(
+        v_hidden=vision["hidden_size"], v_intermediate=vision["intermediate_size"],
+        v_layers=vision["num_hidden_layers"], v_heads=vision["num_attention_heads"],
+        image_size=vision["image_size"], patch_size=vision["patch_size"],
+        vision_feature_layers=tuple(top["vision_feature_layers"]),
+        hidden=text["hidden_size"], intermediate=text["intermediate_size"],
+        layers=text["num_hidden_layers"], heads=heads,
+        kv_heads=text["num_key_value_heads"] or heads, vocab=text["vocab_size"],
+        rope_theta=float(text["rope_theta"]), rms_eps=float(text["rms_norm_eps"]),
+        image_token_index=top["image_token_index"])
+
+
 def convert_hf(sd: dict, cfg: VipLlavaConfig, device="cpu", dtype=torch.float32) -> dict:
     """HF ``VipLlavaForConditionalGeneration`` state dict (numpy) → params."""
     return convert.from_jax_params(convert.vip_llava_tree(sd, cfg.v_layers, cfg.layers),
                                    device, dtype)
+
+
+def param_shapes(cfg: VipLlavaConfig) -> dict:
+    """The parameter tree's shapes (``convert_hf``'s layout)."""
+    c = cfg
+    g = c.image_size // c.patch_size
+    hd = c.hidden // c.heads
+
+    def ln(d):
+        return {"scale": (d,), "bias": (d,)}
+
+    def dense(din, dout, bias=True):
+        return {"kernel": (din, dout), **({"bias": (dout,)} if bias else {})}
+
+    vision = {"patch_embed": {"kernel": (c.patch_size, c.patch_size, 3, c.v_hidden)},
+              "class_embedding": (c.v_hidden,), "position_embedding": (g * g + 1, c.v_hidden),
+              "pre_layernorm": ln(c.v_hidden)}
+    for i in range(c.v_layers):
+        vision[f"layer{i}"] = {
+            "ln1": ln(c.v_hidden), "ln2": ln(c.v_hidden),
+            "attn": {n: dense(c.v_hidden, c.v_hidden) for n in ("q", "k", "v", "out")},
+            "mlp": {"fc1": dense(c.v_hidden, c.v_intermediate),
+                    "fc2": dense(c.v_intermediate, c.v_hidden)},
+        }
+    n_feat = len(c.vision_feature_layers)
+    projector = {"ln": ln(c.v_hidden * n_feat),
+                 "linear_1": dense(c.v_hidden * n_feat, c.hidden),
+                 "linear_2": dense(c.hidden, c.hidden)}
+    language = {"embed_tokens": (c.vocab, c.hidden), "norm": (c.hidden,),
+                "lm_head": (c.hidden, c.vocab)}
+    for i in range(c.layers):
+        language[f"layer{i}"] = {
+            "input_ln": (c.hidden,), "post_ln": (c.hidden,),
+            "attn": {"q": dense(c.hidden, c.hidden, False),
+                     "k": dense(c.hidden, c.kv_heads * hd, False),
+                     "v": dense(c.hidden, c.kv_heads * hd, False),
+                     "o": dense(c.hidden, c.hidden, False)},
+            "mlp": {"gate": dense(c.hidden, c.intermediate, False),
+                    "up": dense(c.hidden, c.intermediate, False),
+                    "down": dense(c.intermediate, c.hidden, False)},
+        }
+    return {"vision": vision, "projector": projector, "language": language}
+
+
+# the leaves drawn as ones; "bias" leaves are zeros, every other leaf is drawn
+_ONES = ("scale", "norm", "input_ln", "post_ln")
 
 
 def init_random_params(seed: int, cfg: VipLlavaConfig, quantize_bits: Optional[int] = None,
@@ -611,9 +722,6 @@ def init_random_params(seed: int, cfg: VipLlavaConfig, quantize_bits: Optional[i
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=dev) * 0.02
 
-    def vec(*shape):
-        return normal(*shape).to(dtype)
-
     def scales(n):
         return torch.empty((n,), device=dev).uniform_(1e-4, 3e-4, generator=gen)
 
@@ -627,54 +735,17 @@ def init_random_params(seed: int, cfg: VipLlavaConfig, quantize_bits: Optional[i
                 return Q.quantize_kernel_nf4(normal(din, dout))
             q = torch.randint(-7, 8, (din, dout), generator=gen, device=dev, dtype=torch.int8)
             return {"q4": int4_matmul.pack_int4(q), "scale": scales(dout)}
-        return vec(din, dout)
+        return normal(din, dout).to(dtype)
 
-    def ones(d):
-        return torch.ones((d,), dtype=dtype, device=dev)
+    def draw(name, shape):
+        if isinstance(shape, dict):
+            return {k: draw(k, v) for k, v in shape.items()}
+        if name in _ONES:
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if name == "bias":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if name == "kernel" and len(shape) == 2:
+            return kernel(*shape)
+        return normal(*shape).to(dtype)
 
-    def zeros(d):
-        return torch.zeros((d,), dtype=dtype, device=dev)
-
-    def ln(d):
-        return {"scale": ones(d), "bias": zeros(d)}
-
-    def dense(din, dout, bias=True):
-        out = {"kernel": kernel(din, dout)}
-        if bias:
-            out["bias"] = zeros(dout)
-        return out
-
-    c = cfg
-    g = c.image_size // c.patch_size
-    vision = {
-        "patch_embed": {"kernel": vec(c.patch_size, c.patch_size, 3, c.v_hidden)},
-        "class_embedding": vec(c.v_hidden),
-        "position_embedding": vec(g * g + 1, c.v_hidden),
-        "pre_layernorm": ln(c.v_hidden),
-    }
-    for i in range(c.v_layers):
-        vision[f"layer{i}"] = {
-            "ln1": ln(c.v_hidden), "ln2": ln(c.v_hidden),
-            "attn": {n: dense(c.v_hidden, c.v_hidden) for n in ("q", "k", "v", "out")},
-            "mlp": {"fc1": dense(c.v_hidden, c.v_intermediate),
-                    "fc2": dense(c.v_intermediate, c.v_hidden)},
-        }
-    n_feat = len(c.vision_feature_layers)
-    projector = {"ln": ln(c.v_hidden * n_feat),
-                 "linear_1": dense(c.v_hidden * n_feat, c.hidden),
-                 "linear_2": dense(c.hidden, c.hidden)}
-    hd = c.hidden // c.heads
-    language = {"embed_tokens": vec(c.vocab, c.hidden), "norm": ones(c.hidden),
-                "lm_head": vec(c.hidden, c.vocab)}
-    for i in range(c.layers):
-        language[f"layer{i}"] = {
-            "input_ln": ones(c.hidden), "post_ln": ones(c.hidden),
-            "attn": {"q": dense(c.hidden, c.hidden, False),
-                     "k": dense(c.hidden, c.kv_heads * hd, False),
-                     "v": dense(c.hidden, c.kv_heads * hd, False),
-                     "o": dense(c.hidden, c.hidden, False)},
-            "mlp": {"gate": dense(c.hidden, c.intermediate, False),
-                    "up": dense(c.hidden, c.intermediate, False),
-                    "down": dense(c.intermediate, c.hidden, False)},
-        }
-    return {"vision": vision, "projector": projector, "language": language}
+    return draw("", param_shapes(cfg))

@@ -15,12 +15,16 @@ differ from JAX's threefry draws.  SAM's relative-position tables are
 drawn like any other leaf (JAX's init zeroes them), so the bias path of
 the grid attention is exercised.  ViP-LLaVA draws as the JAX package's
 ``vip_llava.init_random_params`` does (normal leaves, quantized kernels
-drawn quantized).
+drawn quantized), or ``load_vip_llava`` reads it from a directory in
+transformers' format (safetensors shards, ``config.json``), one tensor at
+a time.
 """
 from __future__ import annotations
 
+import json
 import math
 import os
+import re
 import zipfile
 from typing import Optional
 
@@ -30,7 +34,9 @@ from mars_tpu_torch import device as device_lib
 from mars_tpu_torch.models import clip as clip_m
 from mars_tpu_torch.models import convert
 from mars_tpu_torch.models import dinov2
+from mars_tpu_torch.models import quantization
 from mars_tpu_torch.models import resnet
+from mars_tpu_torch.models import safetensors_io
 from mars_tpu_torch.models import sam
 from mars_tpu_torch.models import semantic_sam
 from mars_tpu_torch.models import vip_llava
@@ -56,6 +62,20 @@ SEMANTIC_SAM_SECTIONS = {"backbone": "backbone.",
 IGNORED_KEYS = {"dinov2": ("mask_token",),
                 "clip": ("input_resolution", "context_length", "vocab_size",
                          "visual.positional_embedding_new")}
+
+
+# ViP-LLaVA's released names → the names transformers >= 4.52 writes, which
+# ``convert.vip_llava_tree`` reads (modeling_vipllava's
+# ``_checkpoint_conversion_mapping``)
+VIP_LLAVA_RENAMES = ((r"^language_model\.model\.", "model.language_model."),
+                     (r"^language_model\.lm_head\.", "lm_head."),
+                     (r"^vision_tower\.", "model.vision_tower."),
+                     (r"^multi_modal_projector\.", "model.multi_modal_projector."))
+# tensors of a ViP-LLaVA checkpoint the model does not use: CLIP's final
+# LayerNorm (the features are taps of the hidden states) and the position
+# ids and rotary tables older transformers saved as buffers
+VIP_LLAVA_UNREAD = ("vision_model.post_layernorm.weight", "vision_model.post_layernorm.bias",
+                    "embeddings.position_ids", "rotary_emb.inv_freq")
 
 
 def dinov2_checkpoint(variant: str, num_register_tokens: int) -> str:
@@ -282,3 +302,54 @@ def build_vip_llava(seed: int = 0, quantize_bits=4, int4_format: str = "affine",
     cfg = vip_llava.VipLlavaConfig()
     return vip_llava.init_random_params(seed, cfg, quantize_bits, dtype, int4_format,
                                         device), cfg
+
+
+def vip_llava_key(key: str) -> str:
+    """A ViP-LLaVA checkpoint's tensor name → the name ``convert.vip_llava_tree``
+    reads (``VIP_LLAVA_RENAMES``)."""
+    for pattern, new in VIP_LLAVA_RENAMES:
+        key, n = re.subn(pattern, new, key)
+        if n:
+            break
+    return key
+
+
+def load_vip_llava(path: str, dtype=None, quantize_bits=None, int4_format: str = "affine",
+                   device=None):
+    """→ (params, VipLlavaConfig) from a ViP-LLaVA directory in
+    transformers' format: ``config.json`` (``vip_llava.config_from_hf``) and
+    the safetensors weights (``safetensors_io.Checkpoint``: the shard index
+    or one ``model.safetensors``) under the release's names or those of
+    transformers >= 4.52, converted under ``convert.audited_trees`` (a
+    tensor missing, unread or of another shape raises; ``VIP_LLAVA_UNREAD``
+    names what the model does not use).  Each leaf is read, moved to
+    ``device``, cast to ``dtype`` (None: float32) and its kernel quantized
+    as ``TorchVipLlava``'s ``quantize_bits`` / ``int4_format`` say before
+    the next is read: the tree of ``TorchVipLlava(params=
+    vip_llava.convert_hf(sd), dtype=..., quantize_bits=...)`` without a
+    float32 or second copy of the model."""
+    dev = device_lib.resolve(device)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = vip_llava.config_from_hf(json.load(f))
+    with safetensors_io.Checkpoint(path) as ckpt:
+        sd = {vip_llava_key(k): ckpt.deferred(k) for k in ckpt.keys()}
+        ignore = [k for k in sd if k.endswith(VIP_LLAVA_UNREAD)]
+        try:
+            tree = convert.audited_trees(sd, {"vip_llava": (
+                convert.vip_llava_tree, (cfg.v_layers, cfg.layers),
+                vip_llava.param_shapes(cfg))}, ignore)["vip_llava"]
+        except KeyError as e:
+            raise ValueError(f"checkpoint conversion: {path} is missing {e.args[0]}") from e
+
+        def read(name, leaf):
+            if isinstance(leaf, dict):
+                return {k: read(k, v) for k, v in leaf.items()}
+            t = leaf.load(dev)
+            if t.is_floating_point():
+                t = t.to(dtype or torch.float32)
+            if quantize_bits is not None and name == "kernel":
+                t = quantization.quantize_params({"kernel": t}, bits=quantize_bits,
+                                                 int4_format=int4_format)["kernel"]
+            return t
+
+        return read("", tree), cfg

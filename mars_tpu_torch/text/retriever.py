@@ -20,14 +20,14 @@ counterpart) and ``OracleVLM`` (a fixed answer).  The transformers
 side-car ``HFVipLlava`` has no counterpart: transformers is not on the
 card's machine.
 
-``TorchVipLlava``'s processor (tokenizer and image preprocessing) is
-injected and duck-typed like transformers' ``AutoProcessor``:
+``TorchVipLlava`` reads a ViP-LLaVA directory in transformers' format:
+the weights through ``models.zoo.load_vip_llava``, the processor (the LLaMA
+tokenizer, CLIP's image processor, the ``<image>`` expansion) through
+``text.processor``.  A caller may pass either instead, duck-typed like
+transformers' ``AutoProcessor``:
 ``processor(text=..., images=<(H, W, 3) uint8 numpy>, return_tensors="np")``
 → ``{"input_ids": (1, L), "pixel_values": (1, 3, H, W)}``, with
-``processor.tokenizer``'s ``eos_token_id`` and ``decode``.  The port has
-no loader for the ViP-LLaVA-7B checkpoint or its processor (the LLaMA
-tokenizer, CLIP's image processor), whose files are not in the repository:
-the caller passes ``params=`` and ``processor=``.
+``processor.tokenizer``'s ``eos_token_id`` and ``decode``.
 """
 from __future__ import annotations
 
@@ -41,6 +41,10 @@ import numpy as np
 import torch
 
 from mars_tpu_torch.models import vip_llava as vl
+from mars_tpu_torch.models import zoo
+from mars_tpu_torch.models.precision import cast_floating
+from mars_tpu_torch.models.quantization import quantize_params
+from mars_tpu_torch.text import processor as processor_lib
 from mars_tpu_torch.text import wordnet
 from mars_tpu_torch.text.prompts import (COLORS, VISUAL_PROMPTS, VISUAL_PROMPTS_DESCRIPTIONS,
                                          VLM_SYSTEM_TEMPLATE)
@@ -66,18 +70,23 @@ class OracleVLM:
 
 
 # the checkpoint and processor files of a transformers ViP-LLaVA directory
-_VLM_FILES = ("config.json", "model*.safetensors", "tokenizer.model", "tokenizer_config.json",
+_VLM_FILES = ("config.json", "model*.safetensors", "tokenizer.json", "tokenizer_config.json",
               "preprocessor_config.json")
 
 
 class TorchVipLlava:
     """ViP-LLaVA on the card through ``models.vip_llava``.
 
-    ``params``: the model's parameter tree (``vl.convert_hf`` of a
-    checkpoint, or ``models.zoo.build_vip_llava``'s random weights), on the
-    device the decode should run on.  ``dtype`` casts its floating leaves
-    first, then ``quantize_bits`` (8, or 4 with ``int4_format`` "affine" or
-    "nf4") quantizes its dense kernels, as ``JaxVipLlava`` does.
+    ``model_path``: a ViP-LLaVA directory in transformers' format
+    (``_VLM_FILES``), read for what the caller does not pass: the weights
+    onto ``device`` (``device.resolve``: the card unless "cpu") with their
+    ``config.json`` (``models.zoo.load_vip_llava``), the processor
+    (``text.processor``).  ``params``: the model's parameter tree
+    (``vl.convert_hf`` of a checkpoint, or ``models.zoo.build_vip_llava``'s
+    random weights) on the device the decode should run on, with its
+    ``cfg``.  ``dtype`` casts the floating leaves first, then
+    ``quantize_bits`` (8, or 4 with ``int4_format`` "affine" or "nf4")
+    quantizes the dense kernels, as ``JaxVipLlava`` does.
     ``draft_tokens``, ``ngram``, ``draft_gate``: prompt-lookup speculative
     decoding (exact greedy; 0 draft tokens turns it off); ``kv_bits=8``:
     the int8 KV cache."""
@@ -96,32 +105,26 @@ class TorchVipLlava:
     def __init__(self, model_path: str = "llava-hf/vip-llava-7b-hf", params=None, cfg=None,
                  dtype=None, quantize_bits=None, int4_format: str = "affine",
                  draft_tokens: int = 8, ngram: int = 3, draft_gate: int = 2, kv_bits=None,
-                 processor=None):
+                 processor=None, device=None):
         if params is None or processor is None:
             missing = [f for f in _VLM_FILES if not glob.glob(os.path.join(model_path, f))]
-            given = ("pass params= (models.zoo.build_vip_llava for random weights) and "
-                     "processor=")
             if missing:
                 raise FileNotFoundError(
-                    f"TorchVipLlava: the ViP-LLaVA-7B checkpoint and processor files are not "
-                    f"at {model_path} (missing: {', '.join(missing)}), and the port has no "
-                    f"loader for them: {given}")
-            raise NotImplementedError(
-                f"TorchVipLlava: the port has no loader for the ViP-LLaVA-7B checkpoint or "
-                f"its processor (the LLaMA tokenizer, CLIP's image processor) at "
-                f"{model_path} (ROADMAP Queue 1 item 4): {given}")
+                    f"TorchVipLlava: the ViP-LLaVA checkpoint and processor files are not all "
+                    f"at {model_path} (missing: {', '.join(missing)}); pass params= "
+                    f"(models.zoo.build_vip_llava for random weights) and processor= instead")
         self.draft_tokens, self.ngram, self.draft_gate = draft_tokens, ngram, draft_gate
         self.kv_bits = kv_bits
-        self.processor = processor
+        self.processor = processor if processor is not None else processor_lib.load(model_path)
+        if params is None:
+            params, cfg = zoo.load_vip_llava(model_path, dtype, quantize_bits, int4_format,
+                                             device)
+        else:
+            if dtype is not None:
+                params = cast_floating(params, dtype)
+            if quantize_bits is not None:
+                params = quantize_params(params, bits=quantize_bits, int4_format=int4_format)
         self.cfg = cfg or vl.VipLlavaConfig()
-        if dtype is not None:
-            from mars_tpu_torch.models.precision import cast_floating
-
-            params = cast_floating(params, dtype)
-        if quantize_bits is not None:
-            from mars_tpu_torch.models.quantization import quantize_params
-
-            params = quantize_params(params, bits=quantize_bits, int4_format=int4_format)
         self.params = params
         self.device = params["language"]["embed_tokens"].device
         self._prefix_ids_cache = {}

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mars_tpu import cli as jcli
 from mars_tpu.models import clip as jclip, convert as jconvert, dinov2 as jdino, zoo as jzoo
@@ -24,8 +25,10 @@ from mars_tpu.pipeline import mars as jmars
 from mars_tpu.text import retriever as jret
 from mars_tpu_torch import cli as tcli
 from mars_tpu_torch.models import clip as tclip, convert as tconvert, dinov2 as tdino, zoo
-from mars_tpu_torch.text import retriever as tret
+from mars_tpu_torch.models import vip_llava as tvl
+from mars_tpu_torch.text import processor as tproc, retriever as tret
 from nltk_minicorpus import ensure_minicorpus
+from vip_llava_files import random_state_dict, tokenizer_spec, write_vip_llava_dir
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 SIZE = 112
@@ -35,6 +38,12 @@ ARGV = ["--benchmark", "synthetic", "--episodes", str(EPISODES), "--input-size",
 DINO = dict(patch_size=14, embed_dim=32, depth=3, num_heads=2, num_register_tokens=4,
             pos_embed_grid=8)
 NAMES = ("dog", "plant", "sheep", "potted plant", "hotdog")
+# a tiny ViP-LLaVA for the CLI's reading of --vlm-path (vocabulary: the
+# test tokenizer's 640 pieces, <image> and <pad>)
+VLM_CFG = tvl.VipLlavaConfig(v_hidden=32, v_intermediate=64, v_layers=4, v_heads=2,
+                             image_size=56, patch_size=14, vision_feature_layers=(-2, -4),
+                             hidden=32, intermediate=64, layers=2, heads=4, kv_heads=2,
+                             vocab=648, rms_eps=1e-5, image_token_index=640)
 
 
 class ScriptedVLM:
@@ -188,14 +197,45 @@ def test_build_retriever_without_checkpoint_raises():
 
 
 def test_build_retriever_with_files_names_the_missing_loader(tmp_path):
-    """With every file in place the port still cannot read them: it says
-    so, and does not claim a file is missing."""
+    """A directory with SentencePiece's tokenizer.model in place of
+    tokenizer.json: the port names the file it reads."""
     for name in ("config.json", "model-00001-of-00003.safetensors", "tokenizer.model",
                  "tokenizer_config.json", "preprocessor_config.json"):
         (tmp_path / name).write_bytes(b"")
     args = tcli.parse_args(["--vlm4bit", "--vlm-path", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="no loader"):
+    with pytest.raises(FileNotFoundError, match="missing: tokenizer.json"):
         tcli.build_retriever(args)
-    (tmp_path / "tokenizer.model").unlink()
-    with pytest.raises(FileNotFoundError, match="missing: tokenizer.model"):
-        tcli.build_retriever(args)
+
+
+@pytest.fixture(scope="module")
+def vlm_dir(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("vip_llava"))
+    write_vip_llava_dir(path, VLM_CFG, random_state_dict(VLM_CFG, seed=7, dtype=torch.float32),
+                        tokenizer_spec(640, seed=1, corpus=NAMES), shard_bytes=60_000)
+    return path
+
+
+def test_cli_names_the_class_through_the_files(tiny_towers, monkeypatch, nltk_root, vlm_dir):
+    """``cli.main`` without --gt-class-names reads --vlm-path (the weights
+    onto --device, the tokenizer and image processor): its names and
+    definitions equal those of the same arrays passed as ``params=`` with
+    the directory's processor."""
+    argv = ARGV[:2] + ["--episodes", "2", "--input-size", str(SIZE), "--proposal-bucket", "16",
+                       "--seed", "3", "--device", "cpu", "--nltk-path", nltk_root,
+                       "--vlm-path", vlm_dir, "--vlm4bit", "--text-block", "2"]
+    got = tcli.main(argv)
+    real, built = tret.TorchVipLlava, []
+
+    def from_params(path, **kw):
+        sd = {zoo.vip_llava_key(k): v.numpy() for k, v in
+              random_state_dict(VLM_CFG, seed=7, dtype=torch.float32).items()}
+        built.append(path)
+        return real(params=tvl.convert_hf(sd, VLM_CFG), cfg=VLM_CFG, processor=tproc.load(path),
+                    **{k: v for k, v in kw.items() if k != "device"})
+
+    monkeypatch.setattr(tret, "TorchVipLlava", from_params)
+    want = tcli.main(argv)
+    assert built == [vlm_dir]
+    assert got["names"] == want["names"] and len(got["names"]) == 2
+    assert got["descriptions"] == want["descriptions"]
+    assert any(n.strip() for n in got["names"]), got["names"]

@@ -969,3 +969,44 @@ def test_auction_kernel_within_tolerance_of_exact(dev, seed, t, n):
                                    torch.ones((1, 40), dtype=torch.bool, device=dev),
                                    row_bucket=64, col_bucket=64)[0])
     assert abs(approx - native.emd_exact(cost)) < 5e-3
+
+
+@pytest.mark.parametrize("fmt", ["affine", "nf4"])
+def test_vip_llava_loader_on_card_equals_params_route(dev, tmp_path, fmt):
+    """``TorchVipLlava(dir)`` on the card, bf16 with 4-bit kernels, decodes
+    the tokens of the same arrays passed as ``params=`` through
+    ``convert_hf`` with the same quantization and the directory's
+    processor; the 4-bit kernel runs on both routes."""
+    from mars_tpu_torch.models import vip_llava as vl, zoo
+    from mars_tpu_torch.ops import int4_matmul as im
+    from mars_tpu_torch.text import processor as proc_lib, retriever as R
+    from vip_llava_files import random_state_dict, tokenizer_spec, write_vip_llava_dir
+
+    cfg = vl.VipLlavaConfig(v_hidden=64, v_intermediate=128, v_layers=2, v_heads=2,
+                            image_size=56, patch_size=14, vision_feature_layers=(-1, -2),
+                            hidden=256, intermediate=512, layers=2, heads=4, kv_heads=4,
+                            vocab=704, rms_eps=1e-5, image_token_index=640)
+    tensors = random_state_dict(cfg, seed=3, dtype=torch.bfloat16)
+    write_vip_llava_dir(str(tmp_path), cfg, tensors, tokenizer_spec(640, seed=1),
+                        shard_bytes=1 << 20)
+    sd = {zoo.vip_llava_key(k): v.float().numpy() for k, v in tensors.items()}
+    kw = dict(dtype=torch.bfloat16, quantize_bits=4, int4_format=fmt, draft_tokens=0)
+    rs = np.random.RandomState(2)
+    images = [rs.randint(0, 256, (60, 80, 3)).astype(np.uint8) for _ in range(2)]
+    prompt = "Human: <image>\nWhat is the name of the object?\nAssistant:"
+    rows, launches = [], []
+    counter = im.matmul_nf4 if fmt == "nf4" else im.matmul_int4
+    for vlm in (R.TorchVipLlava(str(tmp_path), **kw),
+                R.TorchVipLlava(params=vl.convert_hf(sd, cfg, dev), cfg=cfg,
+                                processor=proc_lib.load(str(tmp_path)), **kw)):
+        assert vlm.cfg == cfg and vlm.device.type == "cuda"
+        seen, decode = [], vlm.processor.tokenizer.decode
+        vlm.processor.tokenizer.decode = lambda ids, **k: seen.append(list(ids)) or decode(ids, **k)
+        before = counter.launches
+        vlm.generate_batch(images, [prompt] * 2, max_new_tokens=8,
+                           shared_prefix="Human: <image>\n")
+        torch.cuda.synchronize()
+        rows.append(seen)
+        launches.append(counter.launches - before)
+    assert rows[0] == rows[1] and all(len(r) for r in rows[0])
+    assert launches[0] == launches[1] > 0

@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import pkgutil, sys
 BLOCKED = ("jax", "mars_tpu", "triton", "transformers", "PIL", "cv2", "nltk", "matplotlib",
-           "tensorboard")
+           "tensorboard", "tokenizers", "safetensors", "sentencepiece")
 for b in BLOCKED:
     sys.modules[b] = None  # importing any of them now raises
 import mars_tpu_torch
@@ -51,6 +51,10 @@ PARALLEL_MODULES = ("mars_tpu_torch.parallel.mesh", "mars_tpu_torch.parallel.run
                     "mars_tpu_torch.utils.profiling")
 # the SAM decoder's train step and the exact host solvers
 TRAIN_MODULES = ("mars_tpu_torch.parallel.train", "mars_tpu_torch.native")
+# the readers of a ViP-LLaVA directory, whose JAX side is transformers,
+# tokenizers, safetensors and PIL
+VLM_FILE_MODULES = ("mars_tpu_torch.models.safetensors_io", "mars_tpu_torch.text.llama_tokenizer",
+                    "mars_tpu_torch.text.image_processor", "mars_tpu_torch.text.processor")
 
 
 def test_imports_without_jax_or_mars_tpu():
@@ -60,7 +64,8 @@ def test_imports_without_jax_or_mars_tpu():
     counts, names = r.stdout.splitlines()
     n, bad = counts.split(maxsplit=1)
     assert int(n) >= 20 and bad.strip() == "[]", r.stdout
-    wanted = TEXT_MODULES + SEMANTIC_SAM_MODULES + PARALLEL_MODULES + TRAIN_MODULES
+    wanted = (TEXT_MODULES + SEMANTIC_SAM_MODULES + PARALLEL_MODULES + TRAIN_MODULES
+              + VLM_FILE_MODULES)
     assert set(wanted) <= set(names.split()), names
     for mod in pkgutil.walk_packages(mars_tpu_torch.__path__, "mars_tpu_torch."):
         path = __import__(mod.name, fromlist=["_"]).__file__
