@@ -140,7 +140,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
      event files' CRCs, the known-bad line, 31 tap launches an episode;
      ranking ms an episode at overlap 0 and 2 (wall over the fold); then
      ``--visualize 2``: two PNGs that decode;
- 24. the Matcher's other configurations (``phase_matcher_configs``), float32
+ 24. the benchmarks' own files (``phase_real_files``): tests/real_layouts.py
+     lays the committed JPEG and PNG fixtures out as COCO-20i, PASCAL-5i,
+     FSS-1000, LVIS-92i and PACO-Part; the port's decodes, resizes,
+     polygon rasters, records and ``episode_host_u8`` arrays against the
+     digests of PIL's and the JAX loaders' (expected.json); host ms to
+     decode, resize, draw polygons and prepare an episode; ``cli.main
+     --benchmark coco`` over three episodes in float32 (31 tap launches
+     each), ``cli_proposals --bf16 --benchmark pascal5i`` then ``cli --bf16
+     --mask-proposals-path`` with both switches on (launches exact), one
+     ``MarsServer`` request with a 640x480 record (its mask equal to
+     ``Mars.predict``'s);
+ 25. the Matcher's other configurations (``phase_matcher_configs``), float32
      at full width with the selection thresholds at 0: both negative
      sources with ``merge_prompt_types`` at one shot and at five (the
      auction's launches exact per ε-phase, every phase the kernel ran
@@ -151,14 +162,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      a side with MARS_SAM_WINDOWED_IMPL=pallas (grid 4 and windowed 28
      launches a crop), then ``postprocess_small_regions(min_area=100)``:
      live masks before and after, ms, peak memory;
- 25. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
+ 26. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
      synthetic episodes, then with ``--int8-towers``, then also
      ``--w8a8-alphaclip`` (merged masks' IoU with the ``--bf16`` run's,
      the towers' weight bytes, peak memory, ranking ms an episode, 31 tap
      launches an episode), then ``--generate-proposals`` over two;
      ``torch._int_mm`` at AlphaCLIP-L's MLP against the weight-only int8
      route and a bf16 product;
- 26. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
+ 27. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
      --generate-proposals --proposal-model semantic-sam`` at full width
      (SwinL @640, the MaskDINO pixel and point decoders, 6 granularities;
      DINOv2-L matching) over three episodes in float32, again with the notap
@@ -168,7 +179,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      run's buckets and merged masks against the plain route's, bf16's
      merged masks' IoU with float32's; one call split by stage under
      torch.profiler (float32, bf16); one ``SamPointBackend`` call at ViT-H;
- 27. the multi-device drivers and the serving runtime (``phase_parallel``):
+ 28. the multi-device drivers and the serving runtime (``phase_parallel``):
      ``cli_parallel.main`` at one NCCL rank, local batch 4, over eight
      synthetic episodes in float32 and bf16 (merged masks against the
      serial ``cli.main``'s, 31 tap launches an episode, ranking ms an
@@ -180,7 +191,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      request's latency); two ranks sharing the card over gloo
      (``evaluate_parallel`` at mesh 2 x 1 and 1 x 2, the proposal-sharded
      ranker on one 128-row bucket), masks against the float32 run's;
- 28. the SAM decoder's train step and the exact host solvers
+ 29. the SAM decoder's train step and the exact host solvers
      (``phase_train``): ViT-H's frozen encode of eight synthetic 1024²
      images (32 grid launches), eight steps of ``parallel.train`` at batch 8
      (the loss falls), accumulation, remat and both against the full
@@ -190,7 +201,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      Matcher's forward instance against ``native.assignment_exact``, and the
      Sinkhorn EMD on the card against ``native.emd_exact`` (the seeded 60 x
      40 instance and a full-width ranking episode's cost matrix);
- 29. the kernels line.
+ 30. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -2560,6 +2571,189 @@ def phase_fold_run(state):
         raise AssertionError(f"fold run failed: {failures}")
 
 
+REAL_PASCAL_EPISODES = 2
+REAL_TIMING_REPEATS = 5  # host timings: the median of this many calls
+
+
+def _median_ms(fn, repeats=REAL_TIMING_REPEATS):
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_real_files(state):
+    """The benchmarks' own files on the card's installation (no PIL, no
+    regex): tests/real_layouts.py lays the committed JPEG and PNG fixtures
+    out as COCO-20i, PASCAL-5i, FSS-1000, LVIS-92i and PACO-Part; the
+    port's decodes, resizes, polygon rasters, records and
+    ``episode_host_u8`` arrays are held to the digests of PIL's and of the
+    JAX loaders' (tests/fixtures/images/expected.json); then the float32
+    ranking over three COCO-20i episodes, the bf16 two-program evaluation
+    on PASCAL-5i with both switches on, and one ``MarsServer`` request with
+    a 640x480 record, every kernel's launches exact.  Host times (decode,
+    resize, polygon, host prep) and ranking ms are printed beside the
+    card's name and power limit."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import real_layouts as rl
+    from mars_tpu_torch import cli, cli_proposals, serving
+    from mars_tpu_torch.data import image_io, lvis
+    from mars_tpu_torch.data.base import episode_host_u8
+    from mars_tpu_torch.data.registry import build_dataset
+    from mars_tpu_torch.text.tokenizer import tokenize
+
+    def start():
+        torch.cuda.synchronize()
+        for fn in cli.KERNELS.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in cli.KERNELS.items()}
+
+    card, exp, failures, by_path = nvidia_smi(), rl.expected(), [], {}
+    tap_only = {name: TAPPED_BLOCKS if name == "attention_with_tap" else 0
+                for name in cli.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. the fixtures and the five layouts against PIL's and JAX's digests
+        files = {}
+        for name, want in exp["files"].items():
+            path = os.path.join(rl.FIXTURES, name)
+            got = {key: rl.array_sha(image_io.read_image(path, None if key == "none" else key))
+                   == want["decode"][key] for key in want["decode"]}
+            rgb, gray = image_io.read_image(path, "RGB"), image_io.read_image(path, "L")
+            got["bilinear_RGB"] = rl.array_sha(image_io.resize(
+                rgb, rl.SIZE, rl.SIZE, image_io.BILINEAR)) == want["resize518"]["bilinear_RGB"]
+            got["nearest_L"] = rl.array_sha(image_io.resize(
+                gray, rl.SIZE, rl.SIZE, image_io.NEAREST)) == want["resize518"]["nearest_L"]
+            files[name] = all(got.values())
+        polys = [rl.array_sha(image_io.polygon_mask(p["polygons"], p["h"], p["w"]))["sha256"]
+                 == p["sha256"] for p in exp["polygons"]]
+        root = rl.lay_out_all(os.path.join(tmp, "data"))
+        layouts, prep_ms = {}, {}
+        for bench in rl.BENCHMARKS:
+            ds = build_dataset(bench, root, 0, "test", 1, rl.SEED)
+            layouts[bench], prep_ms[bench] = [], []
+            for idx, want in enumerate(exp["layouts"][bench]["episodes"]):
+                t0 = time.perf_counter()
+                rec = ds[idx]
+                host = episode_host_u8(rec, rl.SIZE, 1)
+                prep_ms[bench].append((time.perf_counter() - t0) * 1e3)
+                layouts[bench].append(rl.record_digest(rec) == want["record"]
+                                      and rl.arrays_digest(host) == want["host_u8"])
+        ids = tokenize(["a photo of a jalapeño"])[0][:7].tolist()
+        emit({"phase": "real_files", "run": "digests against PIL and the JAX loaders",
+              "card": card, "files_equal": files, "polygons_equal": polys,
+              "layouts_equal": layouts, "jalapeno_ids": ids})
+        if not (all(files.values()) and all(polys) and all(all(v) for v in layouts.values())
+                and len(files) == len(exp["files"])):
+            failures.append(("digests", files, polys, layouts))
+        if ids != [49406, 320, 1125, 539, 320, 43017, 49407]:
+            failures.append(("tokenizer", ids))
+
+        # host times: decode by format and size, resize, polygon, host prep
+        decode_ms = {}
+        for name in sorted(exp["files"]):
+            path = os.path.join(rl.FIXTURES, name)
+            decode_ms[name] = _median_ms(lambda: image_io.read_image(path))
+        img = image_io.read_image(os.path.join(rl.FIXTURES, "coco_640x480.jpg"), "RGB")
+        lab = image_io.read_image(os.path.join(rl.FIXTURES, "coco_640x480.png"))
+        resize_ms = {"bilinear_640x480_rgb_to_518": _median_ms(
+            lambda: image_io.resize(img, rl.SIZE, rl.SIZE, image_io.BILINEAR)),
+            "nearest_640x480_mask_to_518": _median_ms(
+            lambda: image_io.resize(lab, rl.SIZE, rl.SIZE, image_io.NEAREST))}
+        rng = np.random.RandomState(0)
+        segms = [rl.polygon(rng, 640, 480, outside=i % 2 == 1) for i in range(10)]
+        polygon_ms = {"ten_polygons_640x480": _median_ms(
+            lambda: lvis.polygons_to_mask(segms, 480, 640))}
+        emit({"phase": "real_files", "run": "host times (median of "
+              f"{REAL_TIMING_REPEATS})", "card": card, "decode_ms": decode_ms,
+              "resize_ms": resize_ms, "polygon_ms": polygon_ms,
+              "host_prep_ms_per_episode": prep_ms})
+
+        # b. float32 ranking on COCO-20i
+        args = ["--benchmark", "coco", "--datapath", root, "--fold", "0", "--episodes",
+                str(rl.EPISODES), "--gt-class-names", "--proposal-bucket", "128",
+                "--input-size", "518", "--seed", "0"]
+        start()
+        res = cli.main(args + ["--log-path", os.path.join(tmp, "coco")], keep_masks=True)
+        by_path["real_coco_f32"] = launches()
+        emit({"phase": "real_files", "run": "cli.main --benchmark coco (float32)", "card": card,
+              "ranking_ms": res["episode_ms"], "live_proposals": res["live_proposals"],
+              "episode_launches": res["episode_launches"], "launches_expected": tap_only,
+              "masks_binary": res["masks_binary"], "miou": res["miou"],
+              "mask_fg_pixels": [int(m.sum()) for m in res["masks"]]})
+        if (len(res["episode_launches"]) != rl.EPISODES
+                or any(got != tap_only for got in res["episode_launches"])
+                or not res["masks_binary"] or not math.isfinite(res["miou"])):
+            failures.append(("coco ranking", res["episode_launches"], res["masks_binary"]))
+
+        # c. the shipped bf16 evaluation on PASCAL-5i, both switches on
+        props = os.path.join(tmp, "pascal_props")
+        pargs = ["--benchmark", "pascal5i", "--datapath", root, "--fold", "0", "--episodes",
+                 str(REAL_PASCAL_EPISODES), "--seed", "0"]
+        with kernel_switches():
+            start()
+            pres = cli_proposals.main(["--bf16", "--out", props] + pargs)
+            by_path["real_pascal5i_cli_proposals"] = launches()
+            start()
+            res = cli.main(["--bf16", "--gt-class-names", "--proposal-bucket", "128",
+                            "--input-size", "518", "--mask-proposals-path", props,
+                            "--log-path", os.path.join(tmp, "pascal")] + pargs,
+                           keep_masks=True)
+            by_path["real_pascal5i_ranking"] = launches()
+        live = res["live_proposals"]
+        want_rank = [_ranking_launches([n]) for n in live]
+        emit({"phase": "real_files", "run": "cli_proposals --bf16 then cli --bf16 "
+              "--mask-proposals-path (pascal5i, switches on)", "card": card,
+              "proposal_ms": pres["proposal_ms"], "ranking_ms": res["episode_ms"],
+              "live_proposals": live, "proposal_launches": pres["episode_launches"],
+              "ranking_launches": res["episode_launches"],
+              "ranking_launches_expected": want_rank, "masks_binary": res["masks_binary"],
+              "miou": res["miou"]})
+        if (len(pres["episode_launches"]) != REAL_PASCAL_EPISODES
+                or any(got != _matcher_launches(1) for got in pres["episode_launches"])
+                or res["episode_launches"] != want_rank or not res["masks_binary"]):
+            failures.append(("pascal5i two-program", pres["episode_launches"],
+                             res["episode_launches"], want_rank))
+
+        # d. one MarsServer request with a 640x480 record
+        dev = torch.device("cuda")
+        model = cli.build_model(cli.parse_args(args), dev)
+        ds = build_dataset("coco", root, 0, "test", 1, rl.SEED)
+        recs = [ds[i] for i in range(rl.EPISODES)]  # each call draws from the loader's rng
+        rec = next(r for r in recs if r.query_img.shape == (480, 640, 3))
+        prop = cli.synthetic_proposal_masks(rec, 518, np.random.RandomState(0)).numpy()
+        server = serving.MarsServer(model, input_size=518, proposal_bucket=128)
+        warm_s = server.warmup(rec, prop)
+        start()
+        t0 = time.perf_counter()
+        out = server.predict(serving.PredictRequest(rec, prop, class_name=rec.class_name))
+        request_ms = (time.perf_counter() - t0) * 1e3
+        by_path["real_server"] = launches()
+        ep = cli.to_device_episode(rec, 518, 1, dev)
+        want = model.predict(ep, cli.pad_proposals(torch.from_numpy(prop).to(dev), 128),
+                             class_name=rec.class_name).cpu().numpy()
+        equal = bool(out.error is None and np.array_equal(out.mask, want))
+        emit({"phase": "real_files", "run": "MarsServer, one 640x480 request", "card": card,
+              "record_shape": list(rec.query_img.shape), "warmup_s": warm_s,
+              "request_ms": request_ms, "launches": by_path["real_server"],
+              "mask_equal_predict": equal})
+        if not equal or by_path["real_server"] != tap_only:
+            failures.append(("server", equal, by_path["real_server"]))
+        del model, server
+    state["real_files_launches"] = by_path
+    if failures:
+        raise AssertionError(f"real files failed: {failures}")
+
+
 # the Matcher's other configurations (phase_matcher_configs): ε-phases of
 # each auction a call launches, in order: the positives' forward and reverse
 # matching (one phase each), then the cost negatives' forward (5 phases);
@@ -3903,6 +4097,7 @@ def kernels_line(state):
              **state.get("bf16_launches", {}), **state.get("five_shot_launches", {}),
              "models_path": state.get("models_path_launches", {}),
              **state.get("backbone_launches", {}), **state.get("fold_run_launches", {}),
+             **state.get("real_files_launches", {}),
              **state.get("matcher_configs_launches", {}), **state.get("int8_launches", {}),
              **state.get("semantic_sam_launches", {}),
              **state.get("parallel_launches", {}), **state.get("train_launches", {})}
@@ -4037,7 +4232,7 @@ def main():
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli, phase_text_files,
-                  phase_fold_run,
+                  phase_fold_run, phase_real_files,
                   phase_matcher_configs, phase_int8_towers, phase_semantic_sam,
                   phase_parallel, phase_train):
         t0 = time.perf_counter()

@@ -2,8 +2,9 @@
 ``mars_tpu/data/base.py``).
 
 Datasets yield numpy ``EpisodeRecord``s; ``to_device_episode`` resizes on
-the host with PIL (the reference's torchvision path), pads the shot
-dimension and makes one transfer per field.
+the host (``image_io.resize``: PIL's bilinear and nearest bit for bit, the
+reference's torchvision path, without PIL), pads the shot dimension and
+makes one transfer per field.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from mars_tpu_torch.core import imaging
+from mars_tpu_torch.data import image_io
 from mars_tpu_torch.device import to_device
 from mars_tpu_torch.core.episode import Episode
 
@@ -34,22 +36,17 @@ class EpisodeRecord:
 
 def read_image(path: str, mode: Optional[str] = None) -> np.ndarray:
     """An image file as a numpy array, as the reference reads it with PIL
-    (``Image.open(path)``, converted to ``mode`` when given)."""
-    from PIL import Image
-
-    im = Image.open(path)
-    return np.array(im.convert(mode) if mode else im)
+    (``Image.open(path)``, converted to ``mode`` when given):
+    ``image_io.read_image``."""
+    return image_io.read_image(path, mode)
 
 
 def _pil_resize(a: np.ndarray, size: int, nearest: bool) -> np.ndarray:
+    """PIL's ``resize((size, size), NEAREST | BILINEAR)`` of a uint8 image."""
     a = np.ascontiguousarray(np.asarray(a, np.uint8))
     if a.shape[:2] == (size, size):
         return a  # PIL returns an unchanged copy at the same size
-    from PIL import Image
-
-    im = Image.fromarray(a)
-    return np.array(im.resize((size, size), Image.NEAREST if nearest else Image.BILINEAR),
-                    np.uint8)
+    return image_io.resize(a, size, size, image_io.NEAREST if nearest else image_io.BILINEAR)
 
 
 def episode_host_u8(rec: EpisodeRecord, size: int, max_shots: int):

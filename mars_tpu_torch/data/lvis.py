@@ -4,8 +4,9 @@ the same seed gives the same records).
 Functional parity with the reference (reference: matcher/data/lvis.py):
 10 folds over the val categories with > shot samples, 2300 val episodes,
 class round-robin via ``idx % len(class_ids)``, per-annotation masks decoded
-from polygons or COCO RLE.  RLE/polygon decoding is implemented in
-numpy/PIL (the reference leans on pycocotools + detectron2).
+from polygons or COCO RLE.  RLE is decoded in numpy and polygons are drawn
+as PIL 12.1.0 draws them (``image_io.polygon_mask``); the reference leans
+on pycocotools + detectron2.
 """
 from __future__ import annotations
 
@@ -15,20 +16,13 @@ from typing import List
 
 import numpy as np
 
+from mars_tpu_torch.data import image_io
 from mars_tpu_torch.data.base import EpisodeRecord, read_image
 
 
 def polygons_to_mask(polygons, h: int, w: int) -> np.ndarray:
-    """Rasterize COCO-style polygon lists → (H, W) {0,1}."""
-    from PIL import Image, ImageDraw
-
-    img = Image.new("L", (w, h), 0)
-    draw = ImageDraw.Draw(img)
-    for poly in polygons:
-        pts = [(poly[i], poly[i + 1]) for i in range(0, len(poly) - 1, 2)]
-        if len(pts) >= 3:
-            draw.polygon(pts, outline=1, fill=1)
-    return np.array(img, np.float32)
+    """Rasterize COCO-style polygon lists → (H, W) {0,1} float32."""
+    return image_io.polygon_mask(polygons, h, w).astype(np.float32)
 
 
 def rle_to_mask(rle: dict) -> np.ndarray:

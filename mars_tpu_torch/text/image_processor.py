@@ -13,7 +13,8 @@ transformers resizes through PIL, so ``resize_bicubic`` rebuilds PIL's
 convolution with the cubic kernel (a = -0.5) stretched by the scale when
 shrinking (antialiased), the taps normalised in float64 and rounded to
 22 fractional bits, the horizontal pass first, each pass rounded and
-clipped to 8 bits.  It is neither ``F.interpolate`` nor
+clipped to 8 bits (``data.image_io.resize``, which also gives PIL's
+bilinear and nearest).  It is neither ``F.interpolate`` nor
 ``core.imaging``'s rebuild of ``jax.image.resize``.
 """
 from __future__ import annotations
@@ -24,76 +25,19 @@ import os
 
 import numpy as np
 
+from mars_tpu_torch.data import image_io
+
 PREPROCESSOR_FILE = "preprocessor_config.json"
-BICUBIC = 3  # PIL.Image.Resampling.BICUBIC, the ``resample`` the processor takes
-_PRECISION_BITS = 32 - 8 - 2  # Resample.c: 8 bits of result, 2 of headroom
+BICUBIC = image_io.BICUBIC  # the ``resample`` the processor takes
 # the flags this processor implements, each with the one value it takes
 _FIXED = {"do_convert_rgb": True, "do_resize": True, "do_center_crop": True,
           "do_rescale": True, "do_normalize": True, "resample": BICUBIC}
 
 
-def _bicubic(x: np.ndarray) -> np.ndarray:
-    """Resample.c's ``bicubic_filter`` (a = -0.5), in its order of operations."""
-    a = -0.5
-    x = np.abs(x)
-    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
-    far = (((x - 5) * x + 8) * x - 4) * a
-    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
-
-
-def _coefficients(in_size: int, out_size: int):
-    """Resample.c's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` →
-    (first tap (out,), fixed-point coefficients (out, ksize), zero past
-    each output's last tap)."""
-    scale = float(np.float32(in_size)) / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    # C's (int) cast truncates toward zero
-    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
-    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
-    taps = np.arange(ksize)
-    w = _bicubic(((xmin[:, None] + taps[None]) - center[:, None] + 0.5) * (1.0 / filterscale))
-    live = taps[None] < xmax[:, None]
-    w = np.where(live, w, 0.0)
-    ww = np.zeros(out_size)
-    for j in range(ksize):  # summed tap by tap, as the C loop sums
-        ww = ww + w[:, j]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
-    scaled = w * (1 << _PRECISION_BITS)
-    k = np.trunc(np.where(scaled < 0, scaled - 0.5, scaled + 0.5)).astype(np.int64)
-    return xmin, np.where(live, k, 0)
-
-
-def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    """One 8-bit pass of Resample.c along ``axis`` (1: horizontal, 0: vertical)."""
-    xmin, k = _coefficients(img.shape[axis], out_size)
-    src = img.astype(np.int64)
-    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
-                  1 << (_PRECISION_BITS - 1), np.int64)
-    for j in range(k.shape[1]):
-        idx = np.minimum(xmin + j, img.shape[axis] - 1)  # taps past xmax weigh 0
-        tap = np.take(src, idx, axis=axis)
-        kj = k[:, j].reshape((-1,) + (1,) * (img.ndim - axis - 1))
-        acc += tap * kj
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
 def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """(H, W, C) uint8 → (height, width, C) uint8, bit-equal to
     ``PIL.Image.fromarray(img).resize((width, height), Image.BICUBIC)``."""
-    if img.dtype != np.uint8:
-        raise TypeError(f"resize_bicubic takes uint8, got {img.dtype}")
-    h, w = img.shape[:2]
-    if (h, w) == (height, width):
-        return img.copy()
-    out = img
-    if width != w:
-        out = _pass(out, 1, width)
-    if height != h:
-        out = _pass(out, 0, height)
-    return out
+    return image_io.resize(img, width, height, BICUBIC)
 
 
 def to_rgb(image) -> np.ndarray:

@@ -9,9 +9,15 @@ clip/clip.py:195-245 ``tokenize``; alpha_clip ships the identical pair).
 
 Vocabulary layout: 256 byte-units, 256 byte-units+'</w>', 48894 merges,
 then '<|startoftext|>' and '<|endoftext|>' → 49408 entries.
+
+The reference splits text with the ``regex`` package; the port splits it by
+hand (``pretokenize``) with ``regex``'s classes of every code point, read
+from ``clip_char_classes.py`` (``tools/make_clip_char_classes.py``), so it
+needs no ``regex`` and gives its ``findall`` on any text.
 """
 from __future__ import annotations
 
+import bisect
 import gzip
 import html
 import os
@@ -20,10 +26,7 @@ from typing import List
 
 import numpy as np
 
-try:
-    import regex as _re
-except ImportError:  # pragma: no cover
-    import re as _re
+from mars_tpu_torch.text import clip_char_classes as _classes
 
 # the merge table is data shared with the JAX package, read by path
 VOCAB_PATH = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir, "mars_tpu",
@@ -78,12 +81,6 @@ class ClipTokenizer:
             "<|startoftext|>": "<|startoftext|>",
             "<|endoftext|>": "<|endoftext|>",
         }
-        self.pat = _re.compile(
-            r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
-            if _re.__name__ == "regex"
-            else r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[a-zA-Z]+|[0-9]|[^\sa-zA-Z0-9]+""",
-            _re.IGNORECASE,
-        )
 
     def bpe(self, token: str) -> str:
         if token in self.cache:
@@ -123,12 +120,77 @@ class ClipTokenizer:
 
     def encode(self, text: str) -> List[int]:
         text = html.unescape(html.unescape(text))
-        text = _re.sub(r"\s+", " ", text).strip().lower()
+        text = " ".join(_split_spaces(text)).strip().lower()
         ids: List[int] = []
-        for token in _re.findall(self.pat, text):
+        for token in pretokenize(text):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids
+
+
+def _class(ch: str) -> str:
+    """``regex``'s class of a character in CLIP's pattern: L, N, S, O or X."""
+    return _classes.CLASSES[bisect.bisect_right(_classes.STARTS, ord(ch)) - 1]
+
+
+def _split_spaces(text: str) -> List[str]:
+    """``text`` cut at runs of ``regex``'s ``\\s`` (empty ends kept): with
+    ``" ".join`` it is ``regex.sub(r"\\s+", " ", text)``."""
+    parts, start, i, n = [], 0, 0, len(text)
+    while i < n:
+        if _class(text[i]) == "S":
+            j = i
+            while j < n and _class(text[j]) == "S":
+                j += 1
+            parts.append(text[start:i])
+            start = i = j
+        else:
+            i += 1
+    parts.append(text[start:])
+    return parts
+
+
+# the pattern's literal alternatives, in its order
+_LITERALS = ("<|startoftext|>", "<|endoftext|>", "'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _literal_at(text: str, i: int, lit: str) -> bool:
+    """IGNORECASE's match of ``lit`` at ``text[i]``: a letter also matches
+    the characters ``regex`` folds to it (``ſ`` for ``s``)."""
+    if i + len(lit) > len(text):
+        return False
+    for a, b in zip(text[i:i + len(lit)], lit):
+        if a != b and a not in _classes.FOLDS.get(b, ""):
+            return False
+    return True
+
+
+def pretokenize(text: str) -> List[str]:
+    """``regex.findall`` of CLIP's pattern (IGNORECASE) on ``text``: at
+    each position the first alternative that matches: a special token, a
+    contraction, a run of letters, one number, a run of other characters
+    that are not ``\\s``; a position none matches is skipped."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        lit = next((lit for lit in _LITERALS if _literal_at(text, i, lit)), None)
+        if lit is not None:
+            out.append(text[i:i + len(lit)])
+            i += len(lit)
+            continue
+        k = _class(text[i])
+        if k == "N":
+            out.append(text[i])
+            i += 1
+        elif k in ("L", "O"):
+            j = i + 1
+            while j < n and _class(text[j]) == k:
+                j += 1
+            out.append(text[i:j])
+            i = j
+        else:
+            i += 1
+    return out
 
 
 _default = None

@@ -5,7 +5,8 @@ draws itself (JPEG images, PNG masks, split lists and pickles, LVIS
 polygons and COCO RLE, PACO/PASCAL-Part annotation bundles), in the
 layouts of ``mars_tpu/data/*.py``.  The port's ``build_dataset`` and the
 JAX package's, given the same seed, must yield bitwise-equal records at 1
-and 5 shots over several indices.
+and 5 shots over several indices: the port reads the files with its own
+decoders (``data/image_io.py``), the JAX package with PIL.
 """
 import os
 import pickle

@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import pkgutil, sys
 BLOCKED = ("jax", "mars_tpu", "triton", "transformers", "PIL", "cv2", "nltk", "matplotlib",
-           "tensorboard", "tokenizers", "safetensors", "sentencepiece")
+           "tensorboard", "tokenizers", "safetensors", "sentencepiece", "regex")
 for b in BLOCKED:
     sys.modules[b] = None  # importing any of them now raises
 import mars_tpu_torch
@@ -73,6 +73,47 @@ def test_imports_without_jax_or_mars_tpu():
             src = f.read()
         assert "import mars_tpu." not in src and "from mars_tpu." not in src, path
         assert "import mars_tpu\n" not in src and "import jax" not in src, path
+
+
+_CARD_INSTALL = _IMPORT_ALL.split("import mars_tpu_torch")[0] + """
+import json, os, sys, tempfile
+sys.path.insert(0, "tests")
+import real_layouts as rl
+from mars_tpu_torch.data.base import episode_host_u8
+from mars_tpu_torch.data.registry import build_dataset
+from mars_tpu_torch.text.tokenizer import tokenize
+with tempfile.TemporaryDirectory() as tmp:
+    ds = build_dataset("coco", rl.lay_out("coco", tmp), 0, "test", 1, rl.SEED)
+    rec = ds[0]
+    host = rl.arrays_digest(episode_host_u8(rec, rl.SIZE, 1))
+ids = tokenize([f"a photo of a {rec.class_name}.", "a photo of a jalapeño"]).tolist()
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in BLOCKED + ("jaxlib",))
+print(json.dumps({"record": rl.record_digest(rec), "host": host, "ids": ids, "bad": bad,
+                  "class_name": rec.class_name}))
+"""
+
+
+def test_real_files_on_the_cards_installation():
+    """With every module the card's machine lacks set to None (PIL and
+    regex among them): COCO-20i laid out from the committed fixtures, one
+    episode's record and ``episode_host_u8`` arrays equal to the JAX
+    loader's (``expected.json``), and CLIP's token ids equal to the JAX
+    tokenizer's with ``regex``."""
+    import json
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import real_layouts as rl
+
+    r = subprocess.run([sys.executable, "-c", _CARD_INSTALL], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.splitlines()[-1])
+    want = rl.expected()["layouts"]["coco"]["episodes"][0]
+    assert got["bad"] == []
+    assert got["record"] == want["record"] and got["host"] == want["host_u8"]
+    texts = [f"a photo of a {got['class_name']}.", "a photo of a jalapeño"]
+    assert got["ids"] == jtok.tokenize(texts).tolist()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
