@@ -59,18 +59,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
  11. ``matmul_int4`` and ``matmul_nf4`` against their plain versions at the
      7B's shapes (decode rows 1, 4 and 8, prefill rows ~2330, and on a
      LLaMA layer's three shapes a speculative verify's rows 9, 18, 36 and
-     72) and a
+     72, the skinny GEMM's, and one past its boundary) and a
      ragged one, in bfloat16, rerun for bitwise equality, beside their bound and
-     cuBLAS on the dense weight; decode rows also timed with the device
-     held while the calls are enqueued, warm and cold (the calls rotate
-     through >= 100 MB of weight copies, twice the L2), kernel and cuBLAS;
+     cuBLAS on the dense weight; decode, verify and boundary rows also timed
+     with the device held while the calls are enqueued, warm and cold (the
+     calls rotate through >= 100 MB of weight copies, twice the L2), kernel
+     and cuBLAS;
  12. the text path at full width: ViP-LLaVA-7B (seeded random weights,
      hybrid int4, then NF4) answering one BlockTextStage-shaped block
      through ``TorchVipLlava.generate_batch`` (4 name rows, then 4
      definition rows on the same images), the 4-bit kernels' launches
      checked against the count the decode's token trace implies; the
      first forward's logits, kernel path against plain path;
- 13. one int4 text block under torch.profiler;
+ 13. one int4 text block under torch.profiler, speculating as the CLI
+     does: device time by kernel, and the 4-bit kernels' by kernel and by
+     what launched them (decode, verify forward, other) with each launch's M;
  14. ``attention_notap`` against its plain version at the untapped blocks'
      shapes (AlphaCLIP-L chunk, DINOv2-L, CLIP-B, five DINOv2-L supports)
      and at head dim 128, float32 and bfloat16, rerun for bitwise equality,
@@ -106,7 +109,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      the stand-in processor, prompt-lookup speculation at JAX's defaults;
      WordNet on tests/nltk_minicorpus.py's tree through --nltk-path): one
      block of four episodes in int4, then in NF4, then two episodes with
-     --pipelined-text; the 4-bit launches (GEMV and GEMM) equal 146 per
+     --pipelined-text; the 4-bit launches (GEMV, skinny GEMM and GEMM; the
+     M of each, verify forwards apart) equal 146 per
      vision call + 224 per LLaMA forward as the decode loop counts them, the
      tap 31 per episode; each block's speculative streams against the same
      requests decoded plainly, a split allowed only where the plain step's
@@ -210,6 +214,7 @@ The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 the repository, it exits non-zero and prints no result.  Imports nothing
 of JAX or of the JAX package.
 """
+import collections
 import contextlib
 import json
 import os
@@ -484,7 +489,8 @@ def _tensor_core_sass(path):
 # head dim and bias mode (0, 2), the float32 windowed kernel one per padded
 # head dim through the key tables (0) and, up to head dim 80, one in tiles
 # of 4 key rows of SAM's 14-wide window (2); the 4-bit library's bf16
-# prefill GEMM and decode GEMV, int4 (0) and NF4 (1)
+# prefill GEMM and decode GEMV, int4 (0) and NF4 (1), and its skinny GEMM
+# (wgmma with the weights in registers) at each N of 16..72 (2..9 n8 tiles)
 TENSOR_CORE_KERNELS = {
     "attention_tap": ("tap_out_bf16", "tap_mean_bf16")
     + tuple(f"tap_{part}_f32ILi{dp}E" for part in ("out", "mean") for dp in (32, 64)),
@@ -498,7 +504,8 @@ TENSOR_CORE_KERNELS = {
                                 for mode in (0, 1, 2))
     + tuple(f"grid_f32ILi{dp}ELi{mode}EE" for dp in (32, 64, 80, 128) for mode in (0, 2)),
     "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1", "gemv_bf16ILi0",
-                    "gemv_bf16ILi1")}
+                    "gemv_bf16ILi1")
+    + tuple(f"gemm_skinny_bf16ILi{fmt}ELi{nt}EE" for fmt in (0, 1) for nt in range(2, 10))}
 
 
 def phase_build(state):
@@ -1603,7 +1610,8 @@ def phase_backbones(state):
 
 
 HAND_KERNEL = re.compile(r"\(anonymous namespace\)::(tap_out|tap_mean|notap|grid_f32|"
-                         r"grid_bf16|windowed|auction_kernel|gemv_kernel|gemm_kernel|gemm_bf16)")
+                         r"grid_bf16|windowed|auction_kernel|gemv_kernel|gemm_kernel|gemm_bf16|"
+                         r"gemm_skinny)")
 
 
 def _profile_summary(prof, span_prefixes):
@@ -1737,11 +1745,13 @@ def phase_4bit_kernels(state):
     bfloat16 activations, timed with CUDA events beside the bound and the
     dense GEMM they replace (cuBLAS on the pre-dequantized bf16 weight):
     warm (``ms``: 20 calls on one weight, which the L2 may hold) and, for
-    the decode rows, device-held (``held_ms``, ``library_held_ms``: the same
-    calls, which the host no longer paces) and cold (``cold_ms``,
-    ``library_cold_ms``: held, the calls rotating through copies of the
-    weight totalling >= 100 MB, as a decode step finds its 32 layers'
-    weights)."""
+    the decode rows, the verify rows and the skinny GEMM's boundary
+    (``SKINNY_MAX_ROWS`` and one past it), device-held (``held_ms``,
+    ``library_held_ms``: the same calls, which the host no longer paces) and
+    cold (``cold_ms``, ``library_cold_ms``: held, the calls rotating through
+    copies of the weight totalling >= 100 MB, as a decode step or a verify
+    forward finds its 32 layers' weights).  Each row names the kernel its
+    rows take (``route``: gemv, skinny or gemm)."""
     import torch
 
     from mars_tpu_torch.models import quantization as Q
@@ -1765,7 +1775,10 @@ def phase_4bit_kernels(state):
                 packed, scale = leaf["nf4"], leaf["bscale"]
             dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
             weights, denses = cold_copies((packed, scale)), cold_copies((dense,))
-            for m in QUANT_ROWS + (VERIFY_ROWS if name in VERIFY_SHAPES else ()):
+            edge = (im.SKINNY_MAX_ROWS, im.SKINNY_MAX_ROWS + 1)
+            verify = (tuple(dict.fromkeys(VERIFY_ROWS + edge)) if name in VERIFY_SHAPES
+                      else ())
+            for m in QUANT_ROWS + verify:
                 x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
                 got, want = fn(x, packed, scale), plain(x, packed, scale)
                 rerun_equal = bool(torch.equal(got, fn(x, packed, scale)))
@@ -1775,7 +1788,8 @@ def phase_4bit_kernels(state):
                 nbytes = (x.numel() * 2 + packed.numel() + scale.numel() * 4 + m * dout * 2)
                 bound, by = _bound_ms(nbytes, 2.0 * m * din * dout)
                 row = {"phase": "kernel", "kernel": f"matmul_{fmt}", "geometry": name,
-                       "shape": [m, din, dout], "dtype": "bfloat16", "max_abs_err": err,
+                       "shape": [m, din, dout], "dtype": "bfloat16",
+                       "route": im.route(m, torch.bfloat16), "max_abs_err": err,
                        "tol": tol, "finite": bool(torch.isfinite(got.float()).all()),
                        "rerun_equal": rerun_equal,
                        "ms": cuda_ms(lambda: fn(x, packed, scale)),
@@ -1784,17 +1798,24 @@ def phase_4bit_kernels(state):
                        "library_call": "cuBLAS x @ W, W the pre-dequantized bf16 weight (the "
                                        "dense GEMM the kernel replaces)",
                        "bound_ms": bound, "bound_by": by}
-                if m <= 8:
+                if m <= 8 or m in verify:
                     row["held_ms"] = held_ms(lambda: fn(x, packed, scale))
                     row["cold_ms"] = cold_ms(lambda p, s: fn(x, p, s), weights)
                     row["library_held_ms"] = held_ms(lambda: x @ dense)
                     row["library_cold_ms"] = cold_ms(lambda w: x @ w, denses)
                     row["cold_copies_mb"] = len(weights) * (packed.numel()
                                                             + scale.numel() * 4) / 1e6
+                if m in verify:  # reported, not a failure: PERF.md says why a row misses
+                    row["faster_than_library"] = {
+                        k: row[k] <= row[lib] for k, lib in (
+                            ("ms", "library_ms"), ("held_ms", "library_held_ms"),
+                            ("cold_ms", "library_cold_ms"))}
                 emit(row)
                 rows.append(row)
                 if err > tol or not row["finite"] or not rerun_equal:
                     raise AssertionError(f"matmul_{fmt} disagrees with its plain version: {row}")
+                if m in VERIFY_ROWS and row["route"] != "skinny":
+                    raise AssertionError(f"verify rows off the skinny GEMM: {row}")
             del dense, weights, denses
     state["quant_rows"] = rows
 
@@ -1980,9 +2001,83 @@ def phase_text_path(state):
 
 
 
+FOUR_BIT_KERNEL = re.compile(r"gemv_bf16|gemm_skinny_bf16|gemm_bf16_kernel")
+
+
+@contextlib.contextmanager
+def _logged_4bit_launches():
+    """Each 4-bit launch's (M, made by a verify forward), in launch order: the
+    script wraps ``int4_matmul._launch`` and ``vip_llava._spec_argmax`` (a
+    verify forward is its call of K + 1 positions)."""
+    from mars_tpu_torch.models import vip_llava as vl
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    log, launch, spec, verifying = [], im._launch, vl._spec_argmax, [False]
+
+    def logged(fmt, x, *a):
+        log.append((x.shape[0], verifying[0]))
+        return launch(fmt, x, *a)
+
+    def spec_argmax(lang, cfg, ids, *a, **k):
+        verifying[0] = ids.shape[1] > 1
+        try:
+            return spec(lang, cfg, ids, *a, **k)
+        finally:
+            verifying[0] = False
+
+    im._launch, vl._spec_argmax = logged, spec_argmax
+    try:
+        yield log
+    finally:
+        im._launch, vl._spec_argmax = launch, spec
+
+
+def _route_of(im, m):
+    """The kernel a bfloat16 call of ``m`` rows launches, in this checkout's
+    wrapper or an older one (without the skinny GEMM every M > 8 is the
+    GEMM's)."""
+    if m <= im.GEMV_MAX_ROWS:
+        return "gemv"
+    return "skinny" if m <= getattr(im, "SKINNY_MAX_ROWS", 0) else "gemm"
+
+
+def _m_histogram(log):
+    """{"verify": {M: launches}, "other": {M: launches}} of a logged run."""
+    out = {"verify": {}, "other": {}}
+    for m, verify in log:
+        h = out["verify" if verify else "other"]
+        h[m] = h.get(m, 0) + 1
+    return {k: dict(sorted(v.items())) for k, v in out.items()}
+
+
+def _four_bit_device_ms(prof, log):
+    """The bf16 4-bit kernels' device ms in a profiled run by kernel and by
+    what launched them (decode: M <= 8; verify forward; other M > 8), each
+    with its launches and their M: the trace's kernels in start order
+    matched one to one with the logged launches (one stream)."""
+    from torch.autograd import DeviceType
+
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and FOUR_BIT_KERNEL.search(e.name)), key=lambda e: e.time_range.start)
+    split = {}
+    for (m, verify), e in zip(log, evs):
+        kind = "decode" if m <= im.GEMV_MAX_ROWS else ("verify" if verify else "other")
+        d = split.setdefault(f"{FOUR_BIT_KERNEL.search(e.name).group(0)}/{kind}",
+                             {"launches": 0, "device_ms": 0.0, "rows": {}})
+        d["launches"] += 1
+        d["device_ms"] += e.time_range.elapsed_us() / 1e3
+        d["rows"][m] = d["rows"].get(m, 0) + 1
+    return {"matched": len(evs) == len(log), "launches_logged": len(log),
+            "kernels_traced": len(evs), "by_kernel_and_kind": split}
+
+
 def phase_profile_text(state):
     """One int4 text block (fresh images, so the prefix is prefilled) under
-    torch.profiler: device time by kernel and the idle share."""
+    torch.profiler, speculating as the CLI does (8 draft tokens): device
+    time by kernel, the idle share, and the 4-bit kernels' device ms by
+    kernel and by what launched them (``_four_bit_device_ms``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1991,22 +2086,28 @@ def phase_profile_text(state):
     from mars_tpu_torch.text.retriever import TorchVipLlava
 
     params, cfg = zoo.build_vip_llava(0, 4, "affine")
-    vlm = TorchVipLlava(params=params, cfg=cfg, processor=StandInProcessor(cfg), draft_tokens=0)
+    vlm = TorchVipLlava(params=params, cfg=cfg, processor=StandInProcessor(cfg))
     rs = np.random.RandomState(1)
     images = [(rs.rand(cfg.image_size, cfg.image_size, 3) * 255).astype(np.uint8)
               for _ in range(TEXT_ROWS)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _text_block(vlm, images)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with _logged_4bit_launches() as log:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _text_block(vlm, images)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, launches, _, top = _profile_summary(prof, ())
-    emit({"phase": "profile_text", "format": "affine", "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "kernel_launches": launches, "top_kernels": top})
+    four_bit = _four_bit_device_ms(prof, log)
+    emit({"phase": "profile_text", "format": "affine", "draft_tokens": vlm.draft_tokens,
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+          "four_bit": four_bit, "m_histogram": _m_histogram(log), "top_kernels": top})
     del vlm, params
     torch.cuda.empty_cache()
+    if not four_bit["matched"]:
+        raise AssertionError(f"4-bit kernels traced {four_bit['kernels_traced']} != launches "
+                             f"{four_bit['launches_logged']}")
 
 
 def _seeded_retriever(args):
@@ -2124,13 +2225,6 @@ def phase_text_cli(state):
             return r
 
         cli.build_retriever = build
-        m_rows, launch = [], im._launch
-
-        def logged(fmt, x, *a):  # the rows of each 4-bit launch: GEMV or GEMM
-            m_rows.append(x.shape[0])
-            return launch(fmt, x, *a)
-
-        im._launch = logged
         for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
             fn.launches = 0
         for k in vl.STATS:
@@ -2138,12 +2232,15 @@ def phase_text_cli(state):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         try:
-            res = cli.main(TEXT_CLI_ARGS + ["--episodes", str(episodes), "--nltk-path", nltk_root]
-                           + flags)
+            with _logged_4bit_launches() as log:  # each 4-bit launch's M
+                res = cli.main(TEXT_CLI_ARGS + ["--episodes", str(episodes), "--nltk-path",
+                                                nltk_root] + flags)
         finally:
-            cli.build_retriever, im._launch = real_build, launch
+            cli.build_retriever = real_build
+        m_rows = [m for m, _ in log]
+        routes = dict(collections.Counter(_route_of(im, m) for m in m_rows))
         counts = res["text_counts"]
-        gemv = sum(m <= im.GEMV_MAX_ROWS for m in m_rows)
+        gemv = routes.get("gemv", 0)
         kernel = "matmul_nf4" if label == "nf4" else "matmul_int4"
         want = VISION_DENSES * counts["vision"] + LLAMA_DENSES * counts["forwards"]
         tap_want = TAPPED_BLOCKS * episodes
@@ -2156,6 +2253,7 @@ def phase_text_cli(state):
                "llama_forwards": counts["forwards"], "spec_rounds": counts["rounds"],
                "verify_rounds": counts["verify_rounds"], "accepted_drafts": counts["accepted"],
                "gemv_launches": gemv, "gemm_launches": len(m_rows) - gemv,
+               "launches_by_route": routes, "m_histogram": _m_histogram(log),
                "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
                "launches_expected": {kernel: want},
                "tap_launches": res["launches"]["attention_with_tap"], "tap_expected": tap_want,
@@ -4195,12 +4293,13 @@ def _quant_entry(state, fmt, line):
              **{path: n for path, n in state.get("text_cli_launches", {}).items()
                 if (path == "cli_nf4") == (fmt == "nf4")},
              **state.get("text_files_launches", {}).get(f"matmul_{fmt}", {})}
-    verify = [r for r in rows if r["shape"][0] in VERIFY_ROWS]
+    verify = [r for r in rows if "faster_than_library" in r]  # the verify and boundary rows
     return {"name": f"matmul_{fmt}", "route": "cuda",
             "source": "mars_tpu_torch/csrc/int4_matmul.cu",
             "replaces": f"mars_tpu/ops/int4_matmul.py:{line}",
             "launches": sum(paths.values()), "launches_by_path": paths,
-            "verify_gemm": [{k: r.get(k) for k in ("geometry", "shape") + keys} for r in verify],
+            "verify_rows": [{k: r.get(k) for k in ("geometry", "shape", "route", "max_abs_err")
+                             + keys + cold} for r in verify],
             "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
             **{k: first.get(k) for k in keys + cold}, "shape": first.get("shape"),
             "dtype": "bfloat16",

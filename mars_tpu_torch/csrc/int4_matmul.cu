@@ -26,7 +26,12 @@
 // prefill (M ~ 2330) the same kernel is 210 GFLOP against ~45 MB of inputs
 // and outputs: the operations bound it.
 //
-// Design.  Four kernels behind one entry point, picked by M and x's type.
+// A speculative verify forward (M = B x 9 = 9-72 rows at 8 draft tokens)
+// sits between: at M = 72 a 11008 -> 4096 projection is 6.5 GFLOP (6.6 us at
+// 989 TFLOP/s) against 22.7 MB (6.8 us), at M = 9 bytes bound it 8 to 1.
+//
+// Design.  Five kernels behind one entry point, picked by M, x's type and
+// the row groups G the wrapper passes (G > 0: the skinny GEMM).
 //   gemv_bf16 (M <= 8, bfloat16 x): the decode GEMV.
 //     Split-K over the whole card: a CTA owns 128 output columns (each
 //     packed row it reads is one 128-byte line) and one K slice of whole
@@ -62,11 +67,41 @@
 //     With S = 1 the CTA stores directly.  Products of bf16 are exact in
 //     float32, so it differs from the plain version in summation order and
 //     the one output rounding only; reruns are bitwise equal.
+//   gemm_skinny_bf16 (8 < M <= SKINNY_MAX_ROWS of ops/int4_matmul.py,
+//     bfloat16 x): the verify rows.  The 128-row GEMM below ran 32 CTAs on
+//     132 SMs at OUT = 4096, each sweeping all of K with 56-119 of its 128
+//     rows zero, ~25x its bound.  This one is the GEMV widened to N = 16-72
+//     x rows on wgmma: A and B swapped, out^T (128 columns x N) = W^T x^T,
+//     each warp's 16 columns the A rows of its slice of the warpgroup's
+//     m64nNk16 (two warpgroups a CTA), N = the group's rows rounded up to 8.
+//     Split-K as the GEMV's: a CTA owns 128 columns and one K slice of whole
+//     64-row blocks, S from skinny_split so that tiles x S fill one wave at
+//     two CTAs an SM (S = 8 at OUT = 4096, 3 at 11008), the GEMV's workspace
+//     and counters, the S partials summed in slice order 0..S-1 by the last
+//     CTA of a tile, int4's scale after it, one rounding; reruns are bitwise
+//     equal.  That last CTA's sum is a latency chain (S x M x 128 floats
+//     from L2 by one SM): it loads SK_FIXUP_BATCH float4 outputs' slices at
+//     once (tools/skinny_probe.py: one at a time cost ~9 us of a 22 us call
+//     at M = 72; a cluster of the S slices reducing over distributed shared
+//     memory was slower, the clusters' co-scheduling costing more than the
+//     sum).  The weights never pass through shared memory as bf16: a ring
+//     of up to 8 stages (cp.async; the x tile in wgmma's 128-byte swizzle,
+//     the codes as the GEMV's) and one ldmatrix.x4.trans a block whose
+//     lanes address the packed rows in the order 0, 4, 1, 5, 2, 6, 3, 7 of
+//     each k16 step, so a lane's word holds rows t and t + 4 of columns 2g
+//     and 2g + 1: each byte's two nibbles are one register of wgmma's A
+//     fragment (the per-warp layout of mma.sync m16n8k16's A) in natural K
+//     order, dequantized in registers as the GEMV does (int4 exact; NF4 as
+//     the plain version rounds it); B, the x tile, is K-major in shared
+//     memory (x is (M, IN) row-major: no transpose).  Past 72 rows (the
+//     pipelined text stage's 128-row suffix forwards) the wrapper passes G
+//     row groups of <= 72 (grid tiles x G, S; a tile's G CTAs adjacent, so
+//     its codes come from L2 after the first read).
 //   gemv_kernel (M <= 8, float32 x, not on any path): a CTA owns 32 output
 //     columns; its 8 column threads each read one 32-bit word (4 columns) of
 //     a packed row, 32 groups of them split the packed rows; 8 x 4 float32
 //     sums a thread, added in a fixed order through shared memory.
-//   gemm_bf16_kernel (M > 8, bfloat16 x): the tensor cores.  A 128 x 128
+//   gemm_bf16_kernel (M > SKINNY_MAX_ROWS, bfloat16 x): prefill.  A 128 x 128
 //     output tile per CTA, K in steps of 64, two warpgroups of 64 rows.  The
 //     x tile (bf16) arrives by cp.async, double-buffered; each thread loads
 //     four 32-bit words of packed bytes (4 columns x 8 input rows) a step
@@ -419,6 +454,285 @@ gemv_bf16(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packe
   if (tid == 0) counters[tile] = 0;
 }
 
+// ------------------------------------------- bf16 skinny GEMM (wgmma, A in registers)
+constexpr int SK_COLS = 128;                        // output columns a CTA: 2 warpgroups x 64
+constexpr int SK_THREADS = 256;                     // 8 warps x 16 columns
+constexpr int SK_MAX_NT = 9;                        // n8 tiles of a row group: up to 72 x rows
+constexpr int SK_MAX_SPLIT = 8;                     // slices the last CTA's batch holds in registers
+constexpr int SK_FIXUP_BATCH = 3;                   // its float4 outputs in flight at once
+constexpr int SK_SMEM_BUDGET = 110 * 1024;          // a CTA's ring: two CTAs an SM
+
+// One ring stage at NT n8 tiles: the x tile (8 NT rows x 64 bf16, SW128; first,
+// so that it starts on a 1024-byte boundary), the block's codes (32 packed
+// rows x 128 bytes, chunk c of row r at c ^ (r % 8)), NF4's scale row.
+template <int NT> struct Skinny {
+  static constexpr int X_BYTES = NT * 1024;
+  static constexpr int STAGE = (X_BYTES + GB_CODE_BYTES + SK_COLS * 4 + 1023) / 1024 * 1024;
+  static constexpr int STAGES = (SK_SMEM_BUDGET - 1024) / STAGE < 8
+                                    ? (SK_SMEM_BUDGET - 1024) / STAGE : 8;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+};
+
+// The A fragment of one k16 step in natural K order from the lane's
+// ldmatrix word a: bytes (packed row t, column 2g), (t, 2g + 1), (t + 4, 2g),
+// (t + 4, 2g + 1) of the step's 8 packed rows.  Register e is one byte's two
+// nibbles, low (the even input) in the low half: inputs 2t and 2t + 1 (row
+// t; e = 0, 1) or 2t + 8 and 2t + 9 (row t + 4; e = 2, 3) of column 2g (e =
+// 0, 2) or 2g + 1 (e = 1, 3).  The low nibbles of bytes 0 and 2 (1 and 3)
+// sit at bits 0-3 and 16-19 after one mask, the high ones after a shift
+// more; a byte permute pairs each byte's two.  int4 as in int4_pair: the low
+// nibble under the exponent of 128, the high one with its sign bit flipped,
+// 136 off both halves; NF4 as nf4_pair.
+template <int FMT>
+__device__ __forceinline__ void dequant_step_k(uint32_t a, float s0, float s1, const float* code,
+                                               uint32_t (&frag)[4]) {
+  uint32_t lo02 = a & 0x000F000Fu, hi02 = (a >> 4) & 0x000F000Fu;
+  uint32_t lo13 = (a >> 8) & 0x000F000Fu, hi13 = (a >> 12) & 0x000F000Fu;
+  if (FMT == FMT_INT4) {
+    lo02 ^= 0x43004300u, lo13 ^= 0x43004300u, hi02 ^= 0x43084308u, hi13 ^= 0x43084308u;
+    const uint32_t bias = 0x43084308u;
+    const uint32_t w[4] = {__byte_perm(lo02, hi02, 0x5410), __byte_perm(lo13, hi13, 0x5410),
+                           __byte_perm(lo02, hi02, 0x7632), __byte_perm(lo13, hi13, 0x7632)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]),
+                                       *reinterpret_cast<const __nv_bfloat162*>(&bias));
+      frag[e] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+  } else {
+    frag[0] = nf4_pair(__byte_perm(lo02, hi02, 0x5410), s0, code);
+    frag[1] = nf4_pair(__byte_perm(lo13, hi13, 0x5410), s1, code);
+    frag[2] = nf4_pair(__byte_perm(lo02, hi02, 0x7632), s0, code);
+    frag[3] = nf4_pair(__byte_perm(lo13, hi13, 0x7632), s1, code);
+  }
+}
+
+// out^T (128 columns x R rows) = W^T x^T for one column tile, one K slice and
+// one row group: grid (tiles x G, S), blockIdx.x = tile G + group, so the G
+// CTAs that share a tile's codes run side by side and read them from L2.
+template <int FMT, int NT>
+__global__ void __launch_bounds__(SK_THREADS, 2)
+gemm_skinny_bf16(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                 const float* __restrict__ scale, const float* __restrict__ code_g,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                 int M, int IN, int OUT, int S, int G, int xvec, int wvec) {
+  using K = Skinny<NT>;
+  constexpr int N = 8 * NT;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float code[16];
+  __shared__ int last;
+  const uint32_t base = sm90::aligned_base(smem_raw);
+  uint8_t* const ring = smem_raw + (base - sm90::smem_addr(smem_raw));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x / G, group = blockIdx.x % G, slice = blockIdx.y;
+  const int col0 = tile * SK_COLS;
+  // this group's x rows [row0, row0 + R), R <= N; R = ceil(M / G) as the wrapper sizes N
+  const int R0 = (M + G - 1) / G, row0 = group * R0, R = min(R0, M - row0);
+  const int rows = IN / 2, blocks = (IN + 63) / 64;
+  const int kb0 = slice * blocks / S, nb = (slice + 1) * blocks / S - kb0;
+  if (tid < 16) code[tid] = FMT == FMT_NF4 ? code_g[tid] : 0.f;
+  // x rows R..N-1 of every stage stay zero (the loads below write rows < R)
+  for (int idx = tid; idx < K::STAGES * (N - R) * 8; idx += SK_THREADS) {
+    const int s = idx / ((N - R) * 8), r = R + (idx / 8) % (N - R), c = idx % 8;
+    sm90::st_shared16(base + s * K::STAGE + sm90::sw128(r, c), 0u, 0u, 0u, 0u);
+  }
+
+  // block kb -> stage buffer: x rows [row0, row0 + R) of its 64 inputs, the
+  // codes, NF4's scale row; zeros past IN, OUT (int4's zero byte is -8 in the
+  // low nibble: harmless only because x is zero there)
+  auto load = [&](int kb, int buf) {
+    const uint32_t st = base + buf * K::STAGE;
+    for (int idx = tid; idx < 8 * R; idx += SK_THREADS) {
+      const int m = idx >> 3, c = idx & 7, k = kb * 64 + 8 * c;
+      const uint32_t dst = st + sm90::sw128(m, c);
+      const __nv_bfloat16* src = x + (size_t)(row0 + m) * IN + k;
+      if (xvec) {
+        sm90::cp_async16(dst, k < IN ? src : x, k < IN ? 16 : 0);
+      } else {
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = (k + 2 * e < IN ? h[2 * e] : 0u) | (k + 2 * e + 1 < IN ? (uint32_t)h[2 * e + 1] << 16 : 0u);
+        sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
+      }
+    }
+    {
+      const int r = tid >> 3, c = tid & 7, pr = kb * GB_ROWS + r, col = col0 + 16 * c;
+      const uint32_t dst = st + K::X_BYTES + r * SK_COLS + ((c ^ (r & 7)) << 4);
+      if (wvec) {
+        const bool live = pr < rows && col < OUT;
+        sm90::cp_async16(dst, live ? packed + (size_t)pr * OUT + col : packed, live ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (pr < rows) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (col + e < OUT) w[e / 4] |= (uint32_t)packed[(size_t)pr * OUT + col + e] << (8 * (e % 4));
+        }
+        sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
+      }
+    }
+    if (FMT == FMT_NF4 && tid < 32) {
+      const int col = col0 + 4 * tid;
+      const uint32_t dst = st + K::X_BYTES + GB_CODE_BYTES + 16 * tid;
+      const float* src = scale + (size_t)kb * OUT + col;
+      if (wvec) {
+        sm90::cp_async16(dst, col < OUT ? src : scale, col < OUT ? 16 : 0);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = col + e < OUT ? src[e] : 0.f;
+        sm90::st_shared16(dst, __float_as_uint(v[0]), __float_as_uint(v[1]),
+                          __float_as_uint(v[2]), __float_as_uint(v[3]));
+      }
+    }
+  };
+
+  // ldmatrix: lane 8j + r gives packed row 8j + r / 2 + 4 (r % 2) of the stage
+  // at the warp's chunk, so matrix j is k16 step j with its rows in the order
+  // 0, 4, 1, 5, 2, 6, 3, 7: a lane's word holds rows t and t + 4
+  const int prow = (lane & ~7) + ((lane & 7) >> 1) + 4 * (lane & 1);
+  const uint32_t a_off = K::X_BYTES + prow * SK_COLS + ((warp ^ (prow & 7)) << 4);
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  // blocks 0..STAGES-3 in flight; block i + STAGES - 2 refills block i - 2's buffer
+#pragma unroll
+  for (int i = 0; i < K::STAGES - 2; ++i) {
+    if (i < nb) load(kb0 + i, i);
+    sm90::cp_async_commit();
+  }
+  // Block i: dequantize it into one of two fragment sets while block i - 1's
+  // wgmma (the other set) runs; wait for that one only after issuing block i.
+  auto step = [&](int i, uint32_t (&frag)[4][4]) {
+    sm90::cp_async_wait<K::STAGES - 3>();
+    sm90::fence_async_smem();  // this thread's copies and zeros, visible to wgmma
+    __syncthreads();  // block i landed everywhere; block i - 2's wgmma done in both warpgroups
+    if (i + K::STAGES - 2 < nb)
+      load(kb0 + i + K::STAGES - 2, (i + K::STAGES - 2) % K::STAGES);
+    sm90::cp_async_commit();
+    const int buf = i % K::STAGES;
+    const uint32_t st = base + buf * K::STAGE;
+    uint32_t a[4];
+    ldmatrix_x4_trans(a, st + a_off);
+    float2 s = make_float2(0.f, 0.f);
+    if (FMT == FMT_NF4)
+      s = *reinterpret_cast<const float2*>(ring + buf * K::STAGE + K::X_BYTES + GB_CODE_BYTES +
+                                           4 * (16 * warp + 2 * g));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dequant_step_k<FMT>(a[j], s.x, s.y, code, frag[j]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sm90::wgmma_bf16_rs<N>(acc, frag[j], sm90::desc_sw128(st + 32 * j), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // block i - 1's group: its fragment set and buffer are free
+  };
+  uint32_t frag_a[4][4], frag_b[4][4];
+  int i = 0;
+  for (; i + 1 < nb; i += 2) {
+    step(i, frag_a);
+    step(i + 1, frag_b);
+  }
+  if (i < nb) step(i, frag_a);
+  sm90::wgmma_wait_all();
+  sm90::fence_regs(acc);
+
+  // acc[4q + h], acc[4q + 2 + h]: group row 8q + 2t + h, columns 2g and 2g + 1
+  // of the warp's 16
+  const int col = col0 + 16 * warp + 2 * g;
+  if (S == 1) {
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * q + 2 * t + h;
+        if (m >= R) continue;
+        float v0 = acc[4 * q + h], v1 = acc[4 * q + 2 + h];
+        if (FMT == FMT_INT4) {
+          v0 = col < OUT ? __fmul_rn(v0, scale[col]) : 0.f;
+          v1 = col + 1 < OUT ? __fmul_rn(v1, scale[col + 1]) : 0.f;
+        }
+        __nv_bfloat16* o = out + (size_t)(row0 + m) * OUT + col;
+        if (OUT % 2 == 0) {
+          if (col < OUT) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < OUT) o[0] = __float2bfloat16(v0);
+          if (col + 1 < OUT) o[1] = __float2bfloat16(v1);
+        }
+      }
+    return;
+  }
+  const size_t ld = (size_t)(gridDim.x / G) * SK_COLS;  // workspace (S, M, tiles x 128)
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 8 * q + 2 * t + h;
+      if (m < R)
+        *reinterpret_cast<float2*>(ws + ((size_t)slice * M + row0 + m) * ld + col) =
+            make_float2(acc[4 * q + h], acc[4 * q + 2 + h]);
+    }
+  __threadfence();  // the partials, before the count
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + tile, 1) == S * G - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the count, before the other CTAs' partials
+  // Four columns a thread, SK_FIXUP_BATCH of them at once with every slice's
+  // float4 of each in flight together: the sum is latency-bound, one round
+  // trip to L2 a batch (9 batches of one at M = 72 took ~9 us).
+  const size_t sl_step = (size_t)M * ld / 4;  // float4s from one slice's partials to the next
+  const int items = M * (SK_COLS / 4);
+  for (int first = tid; first < items; first += SK_FIXUP_BATCH * SK_THREADS) {
+    float4 pv[SK_FIXUP_BATCH][SK_MAX_SPLIT];
+#pragma unroll
+    for (int b = 0; b < SK_FIXUP_BATCH; ++b) {
+      const int idx = first + b * SK_THREADS, m = idx / (SK_COLS / 4);
+      const int c = col0 + 4 * (idx % (SK_COLS / 4));
+      const float4* p = reinterpret_cast<const float4*>(ws + (size_t)m * ld + c);
+#pragma unroll
+      for (int sl = 0; sl < SK_MAX_SPLIT; ++sl)
+        pv[b][sl] = idx < items && c < OUT && sl < S ? __ldcg(p + sl * sl_step)
+                                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int b = 0; b < SK_FIXUP_BATCH; ++b) {
+      const int idx = first + b * SK_THREADS, m = idx / (SK_COLS / 4);
+      const int c = col0 + 4 * (idx % (SK_COLS / 4));
+      if (idx >= items || c >= OUT) continue;
+      float v[4] = {pv[b][0].x, pv[b][0].y, pv[b][0].z, pv[b][0].w};
+#pragma unroll
+      for (int sl = 1; sl < SK_MAX_SPLIT; ++sl)
+        if (sl < S)
+          v[0] += pv[b][sl].x, v[1] += pv[b][sl].y, v[2] += pv[b][sl].z, v[3] += pv[b][sl].w;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c + e >= OUT) break;
+        if (FMT == FMT_INT4) v[e] = __fmul_rn(v[e], scale[c + e]);
+        out[(size_t)m * OUT + c + e] = __float2bfloat16(v[e]);
+      }
+    }
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <int FMT, int NT>
+cudaError_t launch_skinny(const void* x, const void* packed, const void* scale, const void* code,
+                          void* out, int M, int IN, int OUT, int S, int G, void* ws,
+                          void* counters, int xvec, int wvec, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_skinny_bf16<FMT, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Skinny<NT>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((OUT + SK_COLS - 1) / SK_COLS * G, S);
+  gemm_skinny_bf16<FMT, NT><<<grid, SK_THREADS, Skinny<NT>::SMEM, st>>>(
+      (const __nv_bfloat16*)x, (const uint8_t*)packed, (const float*)scale, (const float*)code,
+      (__nv_bfloat16*)out, (float*)ws, (int*)counters, M, IN, OUT, S, G, xvec, wvec);
+  return cudaSuccess;
+}
+
 // ------------------------------------------------------- float32 GEMM
 constexpr int BM = 64, BN = 128, BK = 32;
 constexpr int TM = 4, TN = 8;  // per thread: rows 4ty.., columns 4tx.. and 64 + 4tx..
@@ -648,7 +962,7 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
 
 template <int FMT, typename T>
 int launch(const void* x, const void* packed, const void* scale, const void* code, void* out,
-           int M, int IN, int OUT, int S, void* ws, void* counters, void* stream) {
+           int M, int IN, int OUT, int S, int G, void* ws, void* counters, void* stream) {
   if (M < 1 || IN < 2 || IN % 2 || OUT < 1 || (FMT == FMT_NF4 && (IN % 64 || !code)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -669,6 +983,28 @@ int launch(const void* x, const void* packed, const void* scale, const void* cod
           (const float*)x, (const uint8_t*)packed, (const float*)scale, (const float*)code,
           (float*)out, M, IN, OUT);
     }
+  } else if (bf16 && G > 0) {
+    // the skinny GEMM: G row groups of R = ceil(M / G) <= 72 rows, N = R rounded up to 8
+    const int R = (M + G - 1) / G, nt = (R + 7) / 8;
+    const long long ctas = (long long)(OUT + SK_COLS - 1) / SK_COLS * G;
+    if (G > M || nt > SK_MAX_NT || S < 1 || S > (IN + 63) / 64 || S > SK_MAX_SPLIT ||
+        ctas > 0x7FFFFFFF || (S > 1 && (!ws || !counters)))
+      return (int)cudaErrorInvalidValue;
+    const int xvec = IN % 8 == 0 && ((uintptr_t)x & 15) == 0;
+    const int wvec = OUT % 16 == 0 && ((uintptr_t)packed & 15) == 0 &&
+                     (FMT == FMT_INT4 || ((uintptr_t)scale & 15) == 0);
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (nt < 2 ? 2 : nt) {
+#define SKINNY_CASE(NT)                                                                     \
+  case NT:                                                                                  \
+    err = launch_skinny<FMT, NT>(x, packed, scale, code, out, M, IN, OUT, S, G, ws, counters, \
+                                 xvec, wvec, st);                                            \
+    break;
+      SKINNY_CASE(2) SKINNY_CASE(3) SKINNY_CASE(4) SKINNY_CASE(5) SKINNY_CASE(6)
+      SKINNY_CASE(7) SKINNY_CASE(8) SKINNY_CASE(9)
+#undef SKINNY_CASE
+    }
+    if (err != cudaSuccess) return (int)err;
   } else if constexpr (bf16) {
     const dim3 grid((OUT + WN - 1) / WN, (M + WM - 1) / WM);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
@@ -693,22 +1029,24 @@ int launch(const void* x, const void* packed, const void* scale, const void* cod
 }  // namespace
 
 // fmt: 0 = int4 (scale (OUT,)), 1 = nf4 (scale = bscale (IN/64, OUT), code = 16 floats);
-// bf16: 0 = float32 x and out, 1 = bfloat16.  The bf16 GEMV (M <= 8) takes S K
-// slices; with S > 1, ws holds at least S x 8 x (128 ceil(OUT / 128)) floats and
-// counters ceil(OUT / 128) int32 zeros (the last CTA of a tile resets its own).
-// Returns a cudaError_t.
+// bf16: 0 = float32 x and out, 1 = bfloat16.  Routes: M <= 8 the GEMV (bf16: S K
+// slices); bf16 with G > 0 row groups the skinny GEMM (S <= 8 K slices, G
+// groups of ceil(M / G) <= 72 rows); else the GEMM (bf16 or float32).  With
+// S > 1, ws holds at least S x 8 (GEMV) or S x M (skinny) rows of 128
+// ceil(OUT / 128) floats and counters ceil(OUT / 128) int32 zeros (the last
+// CTA of a tile resets its own).  Returns a cudaError_t.
 extern "C" int mars_matmul_4bit(int fmt, int bf16, const void* x, const void* packed,
                                 const void* scale, const void* code, void* out, int M, int IN,
-                                int OUT, int S, void* ws, void* counters, void* stream) {
+                                int OUT, int S, int G, void* ws, void* counters, void* stream) {
   if (fmt == FMT_INT4)
-    return bf16 ? launch<FMT_INT4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, S, ws,
-                                                  counters, stream)
-                : launch<FMT_INT4, float>(x, packed, scale, code, out, M, IN, OUT, S, ws,
+    return bf16 ? launch<FMT_INT4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, S, G,
+                                                  ws, counters, stream)
+                : launch<FMT_INT4, float>(x, packed, scale, code, out, M, IN, OUT, S, G, ws,
                                           counters, stream);
   if (fmt == FMT_NF4)
-    return bf16 ? launch<FMT_NF4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, S, ws,
-                                                 counters, stream)
-                : launch<FMT_NF4, float>(x, packed, scale, code, out, M, IN, OUT, S, ws,
+    return bf16 ? launch<FMT_NF4, __nv_bfloat16>(x, packed, scale, code, out, M, IN, OUT, S, G,
+                                                 ws, counters, stream)
+                : launch<FMT_NF4, float>(x, packed, scale, code, out, M, IN, OUT, S, G, ws,
                                          counters, stream);
   return (int)cudaErrorInvalidValue;
 }

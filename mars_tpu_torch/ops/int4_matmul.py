@@ -13,14 +13,19 @@ Two formats, both two nibbles per byte along the INPUT dimension of an
     block, folded in BEFORE the product, the weight rounded to x's type.
 
 On a CUDA tensor ``matmul_int4`` / ``matmul_nf4`` launch the hand-written
-Hopper kernels of ``csrc/int4_matmul.cu`` or raise, one launch per call:
-for M ≤ 8 rows (decode) with bfloat16 x a split-K GEMV on the tensor cores
-(``gemv_split`` picks the K slices; the last CTA of a column tile sums the
-slices' float32 partials in slice order from a workspace this module keeps
-per device and stream); with float32 x a GEMV on the CUDA cores; for M > 8
-(prefill) with bfloat16 x a tensor-core GEMM (the weights dequantized once
-per CTA and K step into a bf16 tile in shared memory, wgmma); for M > 8
-with float32 x the SIMT GEMM on the CUDA cores.  On a CPU tensor they
+Hopper kernels of ``csrc/int4_matmul.cu`` or raise, one launch per call
+(``route`` names the kernel): for M ≤ 8 rows (decode) with bfloat16 x a
+split-K GEMV on the tensor cores (``gemv_split`` picks the K slices; the
+last CTA of a column tile sums the slices' float32 partials in slice order
+from a workspace this module keeps per device and stream); with float32 x a
+GEMV on the CUDA cores; for 8 < M ≤ ``SKINNY_MAX_ROWS`` (a speculative
+verify forward's rows) with bfloat16 x the skinny GEMM, the GEMV widened to
+wgmma m64nNk16 with the weights dequantized into its register operand and
+x as its shared-memory operand (``skinny_split`` picks the K slices and row
+groups; the same workspace and in-order reduction); above it (prefill) with
+bfloat16 x a tensor-core GEMM (the weights dequantized once per CTA and K
+step into a bf16 tile in shared memory, wgmma); for M > 8 with float32 x
+the SIMT GEMM on the CUDA cores.  On a CPU tensor they
 take ``matmul_int4_plain`` / ``matmul_nf4_plain``, which follow the JAX
 package's non-TPU branch of ``quantized_dense``: the weight unpacked to x's
 type, products and sums in float32, the result cast to x's type.
@@ -36,7 +41,7 @@ import torch
 from mars_tpu_torch.ops import build
 
 _FMT_INT4, _FMT_NF4 = 0, 1
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 3)
 _CODE: Dict[torch.device, torch.Tensor] = {}
 # (device, stream) -> (float32 partials, int32 arrival counters of the column tiles)
@@ -47,6 +52,16 @@ GEMV_COLS = 128       # output columns a CTA of the GEMV owns
 GEMV_BLOCK = 64       # input rows of a K block (one NF4 scale row)
 GEMV_MAX_SPLIT = 16
 GEMV_MIN_CTAS = 2 * 132  # two CTAs on each SM of an H100 SXM
+# The skinny GEMM takes 8 < M <= SKINNY_MAX_ROWS bfloat16 rows: every row of a
+# speculative verify forward (B x 9 at 8 draft tokens: 9, 18, 36, 72) and the
+# pipelined text stage's 128-row suffix forwards.  On an H100 it beat the
+# 128-row GEMM over a LLaMA-7B layer's seven projections at every measured M
+# up to 256, in both formats (PERF.md, the skinny GEMM's findings); the 512-row
+# suffix forwards and prefill stay on the GEMM.
+SKINNY_MAX_ROWS = 256
+SKINNY_GROUP_ROWS = 72   # x rows of one row group (one CTA's N), at most 72
+SKINNY_COLS = 128        # output columns a CTA of the skinny GEMM owns
+SKINNY_MAX_SPLIT = 8     # K slices: the last CTA holds each slice's partial of a batch
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -106,9 +121,35 @@ def gemv_split(d_in: int, d_out: int) -> int:
     return s
 
 
+@functools.lru_cache(maxsize=None)
+def skinny_split(d_in: int, d_out: int, m: int) -> Tuple[int, int]:
+    """(S, G) of the skinny GEMM at (IN, OUT) and M rows: G row groups of at
+    most ``SKINNY_GROUP_ROWS`` rows, then the most K slices S for which the
+    128-column tiles × G × S fit one wave of ``GEMV_MIN_CTAS`` CTAs (two an
+    SM), at most 8 and at most the 64-row blocks of IN.  One wave: 9 slices
+    of 32 tiles made 288 CTAs, a second wave of 24 behind 264.  A constant of
+    the shape (not of the card): the summation order, and the result, is one
+    on every card.  At the 7B's shapes up to 72 rows: 4096→4096 and
+    11008→4096 take S = 8 (32 tiles, 256 CTAs), 4096→11008 S = 3 (86 tiles,
+    258 CTAs)."""
+    groups = -(-m // SKINNY_GROUP_ROWS)
+    ctas = -(-d_out // SKINNY_COLS) * groups
+    blocks = -(-d_in // GEMV_BLOCK)
+    return max(1, min(GEMV_MIN_CTAS // ctas, SKINNY_MAX_SPLIT, blocks)), groups
+
+
+def route(m: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of M rows in ``dtype`` launches: ``gemv``
+    (M ≤ 8), ``skinny`` (bfloat16, 8 < M ≤ ``SKINNY_MAX_ROWS``) or ``gemm``."""
+    if m <= GEMV_MAX_ROWS:
+        return "gemv"
+    return "skinny" if dtype == torch.bfloat16 and m <= SKINNY_MAX_ROWS else "gemm"
+
+
 def _workspace(device: torch.device, stream: int, floats: int,
                tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The GEMV's split-K workspace on (device, stream), grown to hold
+    """The GEMV's and the skinny GEMM's split-K workspace on (device, stream)
+    (one launch at a time a stream), grown to hold
     ``floats`` partials and ``tiles`` counters; zeroed once when allocated
     (the last CTA of each tile resets its counter), nothing allocated per
     call once warm."""
@@ -120,6 +161,13 @@ def _workspace(device: torch.device, stream: int, floats: int,
         counters = torch.zeros(tiles, dtype=torch.int32, device=device)
     _WORKSPACE[key] = ws, counters
     return ws, counters
+
+
+def _current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
+    building a Stream object each call (a few host µs of every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _library() -> ctypes.CDLL:
@@ -149,26 +197,29 @@ def _launch(fmt: int, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     if packed.dtype not in (torch.int8, torch.uint8) or scale.dtype != torch.float32:
         raise TypeError(f"packed must be int8/uint8 and scale float32: {packed.dtype} "
                         f"{scale.dtype}")
-    if packed.device != x.device or scale.device != x.device:
+    dev = x.device
+    if packed.device != dev or scale.device != dev:
         raise ValueError("inputs must lie on one device")
     if not (x.is_contiguous() and packed.is_contiguous() and scale.is_contiguous()):
         raise ValueError("inputs must be contiguous")
-    out = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, d_out), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    code = _code_on(x.device) if fmt == _FMT_NF4 else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _code_on(dev) if fmt == _FMT_NF4 else None
+    stream = _current_stream(dev)
     bf16 = x.dtype == torch.bfloat16
-    split, ws, counters = 1, None, None
-    if bf16 and m <= GEMV_MAX_ROWS:
-        split = gemv_split(d_in, d_out)
+    split, groups, ws, counters = 1, 0, None, None
+    kernel = route(m, x.dtype)
+    if bf16 and kernel != "gemm":
+        # partial rows a slice: the GEMV's 8, the skinny GEMM's M
+        split, groups, rows = ((gemv_split(d_in, d_out), 0, GEMV_MAX_ROWS) if kernel == "gemv"
+                               else skinny_split(d_in, d_out, m) + (m,))
         if split > 1:
             tiles = -(-d_out // GEMV_COLS)
-            ws, counters = _workspace(x.device, stream, split * GEMV_MAX_ROWS * tiles * GEMV_COLS,
-                                      tiles)
+            ws, counters = _workspace(dev, stream, split * rows * tiles * GEMV_COLS, tiles)
     err = _library().mars_matmul_4bit(
         fmt, int(bf16), x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-        None if code is None else code.data_ptr(), out.data_ptr(), m, d_in, d_out, split,
+        None if code is None else code.data_ptr(), out.data_ptr(), m, d_in, d_out, split, groups,
         None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
         stream)
     if err != 0:

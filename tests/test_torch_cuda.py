@@ -370,11 +370,14 @@ def test_4bit_gemm_bf16_is_deterministic(dev, fmt):
 
 # a speculative verify forward's rows, B x (K + 1) at K = 8 and B = 1, 2, 4,
 # 8, on every dense shape of the 7B's LLaMA layer (q, k, v, o; gate, up;
-# down): the GEMM's route (M > 8), one launch a call
+# down): the skinny GEMM's route (8 < M <= SKINNY_MAX_ROWS), one launch a call
 @pytest.mark.parametrize("fmt", ["int4", "nf4"])
 @pytest.mark.parametrize("din,dout", [(4096, 4096), (4096, 11008), (11008, 4096)])
 @pytest.mark.parametrize("m", [9, 18, 36, 72])
 def test_4bit_gemm_bf16_verify_rows_match_plain(dev, fmt, din, dout, m):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    assert im.route(m, torch.bfloat16) == "skinny"
     rng, packed, scale = _gemv_inputs(fmt, din, dout, dev, seed=m)
     _check_gemv(fmt, rng, packed, scale, m, dev)
 
@@ -474,6 +477,79 @@ def test_4bit_gemv_bf16_workspace_resets(dev):
     rng_b, packed_b, scale_b = _gemv_inputs("int4", 4096, 11008, dev, seed=2)
     x_a, first = _check_gemv("int4", rng_a, packed_a, scale_a, 4, dev)
     _check_gemv("int4", rng_b, packed_b, scale_b, 8, dev)
+    again = im.matmul_int4(x_a, packed_a, scale_a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _, counters = im._WORKSPACE[(x_a.device, stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+# the skinny GEMM (bf16, 8 < M <= SKINNY_MAX_ROWS): ragged OUT (199, 999: the
+# byte-load path), int4's ragged IN (300: 150 packed rows, no 16-byte x
+# chunks), unequal slices (1984: 31 blocks in 16), NF4 at IN 320 and 1024; M
+# at the route's edges (9, SKINNY_MAX_ROWS; one past it, the GEMM) and
+# between them
+@pytest.mark.parametrize("fmt,din,dout", [("int4", 512, 199), ("int4", 300, 999),
+                                          ("int4", 1984, 384), ("nf4", 320, 199),
+                                          ("nf4", 1024, 999)])
+def test_4bit_skinny_bf16_matches_plain(dev, fmt, din, dout):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    rng, packed, scale = _gemv_inputs(fmt, din, dout, dev)
+    for m in (9, 17, 33, im.SKINNY_MAX_ROWS, im.SKINNY_MAX_ROWS + 1):
+        assert im.route(m, torch.bfloat16) == ("skinny" if m <= im.SKINNY_MAX_ROWS else "gemm")
+        _check_gemv(fmt, rng, packed, scale, m, dev)
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_skinny_bf16_unaligned_packed(dev, fmt):
+    """Packed codes one byte into a larger buffer: no cp.async of them."""
+    rng, packed, scale = _gemv_inputs(fmt, 1024, 384, dev, offset=1)
+    for m in (9, 40, 72):
+        _check_gemv(fmt, rng, packed, scale, m, dev)
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_skinny_bf16_is_deterministic(dev, fmt):
+    """Split-K (8 slices at 4096 -> 4096 and 11008 -> 4096) summed in slice
+    order: reruns are bitwise equal."""
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
+    for din, m in ((4096, 36), (11008, 72)):
+        rng, packed, scale = _gemv_inputs(fmt, din, 4096, dev)
+        x, got = _check_gemv(fmt, rng, packed, scale, m, dev)
+        for _ in range(3):
+            assert torch.equal(got, fn(x, packed, scale))
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_skinny_bf16_row_groups(dev, fmt, monkeypatch):
+    """Past 72 rows the skinny GEMM splits M into row groups (G = 2, 3, 5
+    here, SKINNY_MAX_ROWS raised for the test): each group's CTAs count in
+    the tile's arrivals, the last sums every row."""
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    monkeypatch.setattr(im, "SKINNY_MAX_ROWS", 1 << 20)
+    rng, packed, scale = _gemv_inputs(fmt, 1024, 999, dev)
+    for m in (73, 145, 300):
+        assert im.skinny_split(1024, 999, m)[1] == -(-m // im.SKINNY_GROUP_ROWS)
+        _check_gemv(fmt, rng, packed, scale, m, dev)
+
+
+def test_4bit_skinny_bf16_workspace_resets(dev):
+    """The skinny GEMM at 4096 -> 4096 (8 slices over 32 tiles), the GEMV and
+    the skinny GEMM at 4096 -> 11008 (4 and 3 slices over 86) in the same
+    workspace, the first call again: bitwise equal, every tile's counter
+    back to 0, so no partial leaked from one call into another."""
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    rng_a, packed_a, scale_a = _gemv_inputs("int4", 4096, 4096, dev, seed=1)
+    rng_b, packed_b, scale_b = _gemv_inputs("int4", 4096, 11008, dev, seed=2)
+    x_a, first = _check_gemv("int4", rng_a, packed_a, scale_a, 72, dev)
+    _check_gemv("int4", rng_b, packed_b, scale_b, 8, dev)
+    _check_gemv("int4", rng_b, packed_b, scale_b, 18, dev)
     again = im.matmul_int4(x_a, packed_a, scale_a)
     torch.cuda.synchronize()
     assert torch.equal(first, again)

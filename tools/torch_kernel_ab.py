@@ -8,6 +8,8 @@
     python3 tools/torch_kernel_ab.py --tap PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --windowed PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --profile PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --verify PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --text-cli PARENT_ROOT CHANGE_ROOT
 
 Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
 run one after another, in the order given (repeat them to alternate), each
@@ -58,7 +60,18 @@ difference from ``windowed_attention_plain`` and a digest of its output
 sweep) and the SASS digests of both libraries' kernels.  With
 ``--profile`` each root runs
 ``chip_smoke.py``'s ``phase_profile``: one float32 ranking episode under
-torch.profiler with the notap switch off, then on.
+torch.profiler with the notap switch off, then on.  With ``--verify`` each
+root builds only its 4-bit library and times ``matmul_int4`` /
+``matmul_nf4`` at a LLaMA-7B layer's three shapes at a verify forward's
+rows (9, 18, 36, 72) and past them (``CROSSOVER_ROWS``), warm, device-held
+and cold beside cuBLAS on the dense bf16 weight, with the host's enqueue
+time, the largest difference from the plain version and a digest; a root
+with the skinny GEMM sends every M > 8 through it (``SKINNY_MAX_ROWS``
+raised in that process), so the rows past 72 find the crossover with
+another root's 128-row GEMM.  With ``--text-cli`` each root runs
+``chip_smoke.py``'s ``phase_text_cli`` and ``phase_profile_text`` (the
+M of every 4-bit launch; the 4-bit kernels' device ms by kernel and by what
+launched them).
 The timers are this checkout's ``chip_smoke.py``'s, for every root:
 ``ms`` is CUDA events around 20 warm calls (``cuda_ms``; the auction's
 instances 5, every phase a call); the decode rows
@@ -86,6 +99,10 @@ DECODE_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 DECODE_ROWS = (1, 4)
 PREFILL_SHAPES = DECODE_SHAPES + ((5120, 4096), (1024, 4096), (1984, 999))
 PREFILL_ROWS = 2330
+# a verify forward's rows (B x 9 at 8 draft tokens), then rows past them: the
+# pipelined text stage's suffix forwards take 128
+VERIFY_ROWS = (9, 18, 36, 72)
+CROSSOVER_ROWS = (73, 96, 128, 168, 256)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, B, H, L, D): one full wave of the float32 notap kernel's 128-row CTAs
 NOTAP_WAVE = (("one_wave_132_ctas", 1, 12, 1374, 64),)
@@ -345,6 +362,73 @@ def profile_worker(root):
     chip_smoke.phase_profile({})
 
 
+def text_cli_worker(root):
+    """chip_smoke.phase_text_cli, then phase_profile_text, on ``root``'s
+    package: their rows tagged with the root."""
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch import device as device_lib
+
+    device_lib.resolve("cuda")
+    chip_smoke.emit = lambda obj: print(json.dumps({"root": root, **obj}), flush=True)
+    chip_smoke.phase_text_cli({})
+    chip_smoke.phase_profile_text({})
+
+
+def verify_worker(root):
+    import torch
+
+    smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch.models import quantization as Q
+    from mars_tpu_torch.ops import build, int4_matmul as im
+
+    build.build_all(["int4_matmul"])
+    skinny = hasattr(im, "SKINNY_MAX_ROWS")
+    if skinny:
+        im.SKINNY_MAX_ROWS = 1 << 30
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for fmt in ("int4", "nf4"):
+        fn, plain = ((im.matmul_int4, im.matmul_int4_plain) if fmt == "int4"
+                     else (im.matmul_nf4, im.matmul_nf4_plain))
+        for din, dout in DECODE_SHAPES:
+            if fmt == "int4":
+                q = torch.randint(-7, 8, (din, dout), generator=gen, device="cuda",
+                                  dtype=torch.int8)
+                leaf = {"q4": im.pack_int4(q), "scale": torch.rand(
+                    (dout,), generator=gen, device="cuda") * 0.1 + 0.01}
+                packed, scale = leaf["q4"], leaf["scale"]
+            else:
+                leaf = Q.quantize_kernel_nf4(torch.randn((din, dout), generator=gen,
+                                                         device="cuda"))
+                packed, scale = leaf["nf4"], leaf["bscale"]
+            dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
+            weights, denses = smoke.cold_copies((packed, scale)), smoke.cold_copies((dense,))
+            for m in VERIFY_ROWS + CROSSOVER_ROWS:
+                x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+                got, want = fn(x, packed, scale), plain(x, packed, scale)
+                rerun_equal = bool(torch.equal(got, fn(x, packed, scale)))
+                nbytes = x.numel() * 2 + packed.numel() + scale.numel() * 4 + m * dout * 2
+                bound, by = smoke._bound_ms(nbytes, 2.0 * m * din * dout)
+                print(json.dumps({
+                    "root": root, "kernel": f"matmul_{fmt}", "shape": [m, din, dout],
+                    "route": "skinny" if skinny else "gemm",
+                    "split": list(im.skinny_split(din, dout, m)) if skinny else None,
+                    "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                    "tol": 2 ** -7 * want.float().abs().max().item(),
+                    "rerun_equal": rerun_equal, "digest": digest(got),
+                    "ms": smoke.cuda_ms(lambda: fn(x, packed, scale)),
+                    "held_ms": smoke.held_ms(lambda: fn(x, packed, scale)),
+                    "cold_ms": smoke.cold_ms(lambda p, s: fn(x, p, s), weights),
+                    "library_ms": smoke.cuda_ms(lambda: x @ dense),
+                    "library_held_ms": smoke.held_ms(lambda: x @ dense),
+                    "library_cold_ms": smoke.cold_ms(lambda w: x @ w, denses),
+                    "host_us": host_us(lambda: fn(x, packed, scale)),
+                    "library_host_us": host_us(lambda: x @ dense),
+                    "bound_ms": bound, "bound_by": by}), flush=True)
+            del dense, weights, denses
+
+
 def worker(root):
     import torch
 
@@ -425,7 +509,8 @@ def main(argv):
     workers = {"--worker": worker, "--text-worker": text_worker, "--grid-worker": grid_worker,
                "--notap-worker": notap_worker, "--windowed-worker": windowed_worker,
                "--tap-worker": tap_worker,
-               "--profile-worker": profile_worker}
+               "--profile-worker": profile_worker, "--verify-worker": verify_worker,
+               "--text-cli-worker": text_cli_worker}
     if len(argv) >= 2 and argv[0] in workers:
         workers[argv[0]](os.path.abspath(argv[1]))
         return 0
@@ -433,7 +518,8 @@ def main(argv):
     modes = {"--text-path": "--text-worker", "--grid": "--grid-worker",
              "--notap": "--notap-worker", "--windowed": "--windowed-worker",
              "--tap": "--tap-worker",
-             "--profile": "--profile-worker"}
+             "--profile": "--profile-worker", "--verify": "--verify-worker",
+             "--text-cli": "--text-cli-worker"}
     if argv and argv[0] in modes:
         mode, argv = modes[argv[0]], argv[1:]
     if not argv:
