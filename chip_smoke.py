@@ -311,11 +311,12 @@ FIVE_SHOT_EPISODES = 2
 MAIN_PATH_ARGS = ["--benchmark", "synthetic", "--episodes", str(EPISODES), "--gt-class-names",
                   "--proposal-bucket", "128", "--input-size", "518", "--seed", "0"]
 # ViP-LLaVA-7B's dense shapes (IN, OUT) and a ragged one; rows: decode at
-# batch 1, 4 and 8 (the GEMV's widest), prefill of 4 rows x ~582 positions
+# batch 1, 4 and 8 (the GEMV's widest), a text block's 512-row suffix
+# forwards, prefill of 4 rows x ~582 positions
 QUANT_SHAPES = (("llama_qkvo", 4096, 4096), ("llama_gate_up", 4096, 11008),
                 ("llama_down", 11008, 4096), ("projector_1", 5120, 4096),
                 ("clip_fc1", 1024, 4096), ("ragged", 1984, 999))
-QUANT_ROWS = (1, 4, 8, 2330)
+QUANT_ROWS = (1, 4, 8, 512, 2330)
 # a speculative verify forward's rows: B x (K + 1) at K = 8 draft tokens,
 # B = 1, 2, 4 and 8, on every dense shape of a LLaMA layer
 VERIFY_ROWS = (9, 18, 36, 72)
@@ -489,8 +490,9 @@ def _tensor_core_sass(path):
 # head dim and bias mode (0, 2), the float32 windowed kernel one per padded
 # head dim through the key tables (0) and, up to head dim 80, one in tiles
 # of 4 key rows of SAM's 14-wide window (2); the 4-bit library's bf16
-# prefill GEMM and decode GEMV, int4 (0) and NF4 (1), and its skinny GEMM
-# (wgmma with the weights in registers) at each N of 16..72 (2..9 n8 tiles)
+# prefill GEMM at each tile of 128, 192 and 256 x rows on TMA (1), 128 and 192
+# on cp.async (0), and decode GEMV, int4 (0) and NF4 (1), and its skinny GEMM (wgmma with
+# the weights in registers) at each N of 16..72 (2..9 n8 tiles)
 TENSOR_CORE_KERNELS = {
     "attention_tap": ("tap_out_bf16", "tap_mean_bf16")
     + tuple(f"tap_{part}_f32ILi{dp}E" for part in ("out", "mean") for dp in (32, 64)),
@@ -503,8 +505,9 @@ TENSOR_CORE_KERNELS = {
     "sam_grid_attention": tuple(f"grid_bf16ILi{r}ELi{mode}EE" for r in (0, 16, 64)
                                 for mode in (0, 1, 2))
     + tuple(f"grid_f32ILi{dp}ELi{mode}EE" for dp in (32, 64, 80, 128) for mode in (0, 2)),
-    "int4_matmul": ("gemm_bf16_kernelILi0", "gemm_bf16_kernelILi1", "gemv_bf16ILi0",
-                    "gemv_bf16ILi1")
+    "int4_matmul": ("gemv_bf16ILi0", "gemv_bf16ILi1")
+    + tuple(f"gemm_prefill_bf16ILi{fmt}ELi{n}ELb{tma}EE" for fmt in (0, 1)
+            for n in (128, 192, 256) for tma in (0, 1) if tma or n < 256)
     + tuple(f"gemm_skinny_bf16ILi{fmt}ELi{nt}EE" for fmt in (0, 1) for nt in range(2, 10))}
 
 
@@ -1745,13 +1748,16 @@ def phase_4bit_kernels(state):
     bfloat16 activations, timed with CUDA events beside the bound and the
     dense GEMM they replace (cuBLAS on the pre-dequantized bf16 weight):
     warm (``ms``: 20 calls on one weight, which the L2 may hold) and, for
-    the decode rows, the verify rows and the skinny GEMM's boundary
-    (``SKINNY_MAX_ROWS`` and one past it), device-held (``held_ms``,
-    ``library_held_ms``: the same calls, which the host no longer paces) and
-    cold (``cold_ms``, ``library_cold_ms``: held, the calls rotating through
-    copies of the weight totalling >= 100 MB, as a decode step or a verify
-    forward finds its 32 layers' weights).  Each row names the kernel its
-    rows take (``route``: gemv, skinny or gemm)."""
+    the decode rows, the verify rows, the skinny GEMM's boundary
+    (``SKINNY_MAX_ROWS`` and one past it) and the prefill GEMM's rows,
+    device-held (``held_ms``, ``library_held_ms``: the same calls, which the
+    host no longer paces) and cold (``cold_ms``, ``library_cold_ms``: held,
+    the calls rotating through copies of the weight totalling >= 100 MB, as
+    a decode step or a verify forward finds its 32 layers' weights).  Each
+    row names the kernel its rows take (``route``: gemv, skinny or gemm);
+    a prefill GEMM row also its tile's x rows and variant (TMA or cp.async:
+    ``int4_matmul.prefill_plan``, the decision the launch takes): every
+    shape but ``ragged`` takes TMA.  Every call is one launch."""
     import torch
 
     from mars_tpu_torch.models import quantization as Q
@@ -1780,7 +1786,9 @@ def phase_4bit_kernels(state):
                       else ())
             for m in QUANT_ROWS + verify:
                 x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+                before = fn.launches
                 got, want = fn(x, packed, scale), plain(x, packed, scale)
+                one_launch = fn.launches == before + 1
                 rerun_equal = bool(torch.equal(got, fn(x, packed, scale)))
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
@@ -1791,14 +1799,16 @@ def phase_4bit_kernels(state):
                        "shape": [m, din, dout], "dtype": "bfloat16",
                        "route": im.route(m, torch.bfloat16), "max_abs_err": err,
                        "tol": tol, "finite": bool(torch.isfinite(got.float()).all()),
-                       "rerun_equal": rerun_equal,
+                       "rerun_equal": rerun_equal, "one_launch": one_launch,
                        "ms": cuda_ms(lambda: fn(x, packed, scale)),
                        "plain_ms": cuda_ms(lambda: plain(x, packed, scale), iters=5),
                        "library_ms": cuda_ms(lambda: x @ dense),
                        "library_call": "cuBLAS x @ W, W the pre-dequantized bf16 weight (the "
                                        "dense GEMM the kernel replaces)",
                        "bound_ms": bound, "bound_by": by}
-                if m <= 8 or m in verify:
+                if row["route"] == "gemm":
+                    row["tile_rows"], row["variant"] = im.prefill_plan(x, packed, scale)
+                if m <= 8 or m in verify or row["route"] == "gemm":
                     row["held_ms"] = held_ms(lambda: fn(x, packed, scale))
                     row["cold_ms"] = cold_ms(lambda p, s: fn(x, p, s), weights)
                     row["library_held_ms"] = held_ms(lambda: x @ dense)
@@ -1812,8 +1822,11 @@ def phase_4bit_kernels(state):
                             ("cold_ms", "library_cold_ms"))}
                 emit(row)
                 rows.append(row)
-                if err > tol or not row["finite"] or not rerun_equal:
+                if err > tol or not row["finite"] or not rerun_equal or not one_launch:
                     raise AssertionError(f"matmul_{fmt} disagrees with its plain version: {row}")
+                if m > im.SKINNY_MAX_ROWS and name != "ragged" and (
+                        row["route"], row.get("variant")) != ("gemm", "tma"):
+                    raise AssertionError(f"prefill rows off the TMA prefill GEMM: {row}")
                 if m in VERIFY_ROWS and row["route"] != "skinny":
                     raise AssertionError(f"verify rows off the skinny GEMM: {row}")
             del dense, weights, denses
@@ -2001,7 +2014,9 @@ def phase_text_path(state):
 
 
 
-FOUR_BIT_KERNEL = re.compile(r"gemv_bf16|gemm_skinny_bf16|gemm_bf16_kernel")
+# the 4-bit kernels by name; gemm_bf16_kernel is the prefill GEMM of older
+# checkouts, which tools/torch_kernel_ab.py profiles with this script
+FOUR_BIT_KERNEL = re.compile(r"gemv_bf16|gemm_skinny_bf16|gemm_prefill_bf16|gemm_bf16_kernel")
 
 
 @contextlib.contextmanager
@@ -4303,8 +4318,9 @@ def _quant_entry(state, fmt, line):
             "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
             **{k: first.get(k) for k in keys + cold}, "shape": first.get("shape"),
             "dtype": "bfloat16",
-            "geometries": [{k: r.get(k) for k in ("geometry", "shape", "max_abs_err", "tol")
-                            + keys + cold} for r in rows]}
+            "geometries": [{k: r.get(k) for k in ("geometry", "shape", "route", "tile_rows",
+                                                  "variant", "max_abs_err", "tol")
+                            + keys + cold if k in r} for r in rows]}
 
 
 def main():

@@ -93,28 +93,52 @@
 //     fragment (the per-warp layout of mma.sync m16n8k16's A) in natural K
 //     order, dequantized in registers as the GEMV does (int4 exact; NF4 as
 //     the plain version rounds it); B, the x tile, is K-major in shared
-//     memory (x is (M, IN) row-major: no transpose).  Past 72 rows (the
-//     pipelined text stage's 128-row suffix forwards) the wrapper passes G
-//     row groups of <= 72 (grid tiles x G, S; a tile's G CTAs adjacent, so
-//     its codes come from L2 after the first read).
+//     memory (x is (M, IN) row-major: no transpose).  Past 72 rows (up to
+//     SKINNY_MAX_ROWS = 96, where the prefill GEMM takes over) the wrapper
+//     passes G row groups of <= 72 (grid tiles x G, S; a tile's G CTAs
+//     adjacent, so its codes come from L2 after the first read).
 //   gemv_kernel (M <= 8, float32 x, not on any path): a CTA owns 32 output
 //     columns; its 8 column threads each read one 32-bit word (4 columns) of
 //     a packed row, 32 groups of them split the packed rows; 8 x 4 float32
 //     sums a thread, added in a fixed order through shared memory.
-//   gemm_bf16_kernel (M > SKINNY_MAX_ROWS, bfloat16 x): prefill.  A 128 x 128
-//     output tile per CTA, K in steps of 64, two warpgroups of 64 rows.  The
-//     x tile (bf16) arrives by cp.async, double-buffered; each thread loads
-//     four 32-bit words of packed bytes (4 columns x 8 input rows) a step
-//     ahead, and the CTA dequantizes the step's 64 x 128 weights ONCE into a
-//     bf16 B tile in shared memory (K-major: a column's 8 input rows are one
-//     16-byte store, swizzled for wgmma), so both warpgroups' 128 rows use
-//     each dequantized tile.  NF4 reads the codebook from shared memory and
-//     one block-scale row per step (64 input rows = one NF4 block); int4's
-//     -8..7 are exact in bf16.  Each warpgroup issues wgmma m64n128k16 from
-//     shared memory with float32 accumulators, and dequantizes the next step
-//     while the tensor cores run.  int4's scale multiplies after the sum
-//     (__fmul_rn), then one rounding to bf16.  No split-K: reruns are
-//     bitwise equal.
+//   gemm_prefill_bf16 (M > SKINNY_MAX_ROWS, bfloat16 x; csrc/int4_prefill.cu,
+//     one translation unit a format): prefill and the 128- and 512-row
+//     suffix forwards.  The skinny GEMM's operands on a
+//     large tile: out^T (128 columns x N x rows) = W^T x^T, N = 128, 192 or
+//     256, each consumer warpgroup 64 columns by wgmma m64nNk16 with the
+//     weights dequantized into its register A operand (the skinny GEMM's
+//     ldmatrix.trans fragments, one ldmatrix.x4 a warp and 64-row block) and
+//     the x tile its shared-memory B operand, so each weight is dequantized
+//     once per N x rows and never stored as bf16 (a bf16 tile in shared
+//     memory, rebuilt for every 128 rows between two __syncthreads a step,
+//     ran 2.4-2.6x cuBLAS).
+//     Warp specialised: warpgroup 2 produces a ring of up to 8 stages (x
+//     tile, codes, NF4's scale row) on full/empty mbarriers and keeps 40
+//     registers (setmaxnreg); warpgroups 0 and 1 take 232, hold one block's
+//     products in flight (wgmma_wait<1>) while they dequantize the next, and
+//     free a stage to the producer when its products are done; no
+//     __syncthreads in the mainloop.  Where x's and the codes' rows are
+//     whole 16-byte chunks from 16-byte-aligned pointers (a tensor map's
+//     strides) the copies are TMA, one producer thread, tensor maps built on
+//     the host through cudaGetDriverEntryPoint (no libcuda is linked), and
+//     CTAs run in clusters of two on adjacent column tiles that
+//     each load half of the x tile and multicast it to both: x, most of a
+//     stage's bytes, comes from L2 once per 256 columns.  Without the
+//     multicast the ring's copies alone took as long as the whole kernel
+//     (tools/prefill_probe.py: the L2 -> SM traffic bound it).  Elsewhere
+//     (ragged IN or OUT, offset views) the producer's 128 threads copy by
+//     cp.async with zero fill or by element loads, the next stage's element
+//     loads issued before this stage's stores (120 registers: two stages'
+//     loads in flight; one at a time, their round trips took over half of
+//     the ragged shapes' time), mark a stage full once its copies land
+//     (PF_LAG stages later), and tiles stop at 192 rows.
+//     Persistent: one CTA an SM walks the tiles round-robin, column tile
+//     outer, row tile inner; N from prefill_rows, a wave reckoning with a
+//     per-format cost a tile (NF4's codebook dequantization favours wide
+//     tiles; a 512-row call at OUT = 4096 takes 128 tiles of 128 rows, not
+//     64 of 256).  int4's scale multiplies after the float32 sum
+//     (__fmul_rn), one rounding to bf16; no split-K, so N changes no bit and
+//     reruns are bitwise equal.
 //   gemm_kernel (M > 8, float32 x): a 64 x 128 output tile per CTA, K in
 //     steps of 32; the x tile and the unpacked weight tile are staged in
 //     shared memory as float32 and each of 256 threads accumulates a 4 x 8
@@ -125,12 +149,23 @@
 
 #include <type_traits>
 
+#include "int4_dequant.cuh"
 #include "sm90.cuh"
+
+// csrc/int4_prefill.cu, once a format
+int prefill_plan_int4(const void* x, const void* packed, const void* scale, int M, int IN,
+                      int OUT);
+int prefill_plan_nf4(const void* x, const void* packed, const void* scale, int M, int IN,
+                     int OUT);
+cudaError_t launch_prefill_int4(const void* x, const void* packed, const void* scale,
+                                const void* code, void* out, int M, int IN, int OUT,
+                                cudaStream_t st);
+cudaError_t launch_prefill_nf4(const void* x, const void* packed, const void* scale,
+                               const void* code, void* out, int M, int IN, int OUT,
+                               cudaStream_t st);
 
 namespace {
 
-constexpr int FMT_INT4 = 0;
-constexpr int FMT_NF4 = 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
@@ -232,21 +267,11 @@ gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
 }
 
 // ------------------------------------------------------- bf16 GEMV (mma.sync)
-constexpr int GB_COLS = 128;                        // output columns a CTA
 constexpr int GB_THREADS = 256;                     // 8 warps x 16 columns
-constexpr int GB_ROWS = 32;                         // packed rows a stage: one 64-row block
 constexpr int GB_STAGES = 8;
 constexpr int GB_MAX_SPLIT = 16;
-constexpr int GB_CODE_BYTES = GB_ROWS * GB_COLS;    // 4096
 constexpr int GB_X_BYTES = GV_MAX_M * 64 * 2;       // x rows 0..7 of the block's 64 inputs
 constexpr int GB_STAGE_BYTES = GB_CODE_BYTES + GB_X_BYTES + GB_COLS * 4;  // + NF4 scale row
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
 
 // d += a b, m16n8k16, bf16 in, float32 sums.
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -269,11 +294,6 @@ __device__ __forceinline__ uint32_t int4_pair(uint32_t v) {
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
                                    *reinterpret_cast<const __nv_bfloat162*>(&bias));
   return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// NF4: the nibbles at bits 0-3 and 16-19 of v, as bf16(code[c] x s) each.
-__device__ __forceinline__ uint32_t nf4_pair(uint32_t v, float s, const float* code) {
-  return sm90::pack_bf16(__fmul_rn(code[v & 0xF], s), __fmul_rn(code[(v >> 16) & 0xF], s));
 }
 
 // The A fragment of one k16 step from the lane's ldmatrix word a: bytes
@@ -472,40 +492,6 @@ template <int NT> struct Skinny {
                                     ? (SK_SMEM_BUDGET - 1024) / STAGE : 8;
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
 };
-
-// The A fragment of one k16 step in natural K order from the lane's
-// ldmatrix word a: bytes (packed row t, column 2g), (t, 2g + 1), (t + 4, 2g),
-// (t + 4, 2g + 1) of the step's 8 packed rows.  Register e is one byte's two
-// nibbles, low (the even input) in the low half: inputs 2t and 2t + 1 (row
-// t; e = 0, 1) or 2t + 8 and 2t + 9 (row t + 4; e = 2, 3) of column 2g (e =
-// 0, 2) or 2g + 1 (e = 1, 3).  The low nibbles of bytes 0 and 2 (1 and 3)
-// sit at bits 0-3 and 16-19 after one mask, the high ones after a shift
-// more; a byte permute pairs each byte's two.  int4 as in int4_pair: the low
-// nibble under the exponent of 128, the high one with its sign bit flipped,
-// 136 off both halves; NF4 as nf4_pair.
-template <int FMT>
-__device__ __forceinline__ void dequant_step_k(uint32_t a, float s0, float s1, const float* code,
-                                               uint32_t (&frag)[4]) {
-  uint32_t lo02 = a & 0x000F000Fu, hi02 = (a >> 4) & 0x000F000Fu;
-  uint32_t lo13 = (a >> 8) & 0x000F000Fu, hi13 = (a >> 12) & 0x000F000Fu;
-  if (FMT == FMT_INT4) {
-    lo02 ^= 0x43004300u, lo13 ^= 0x43004300u, hi02 ^= 0x43084308u, hi13 ^= 0x43084308u;
-    const uint32_t bias = 0x43084308u;
-    const uint32_t w[4] = {__byte_perm(lo02, hi02, 0x5410), __byte_perm(lo13, hi13, 0x5410),
-                           __byte_perm(lo02, hi02, 0x7632), __byte_perm(lo13, hi13, 0x7632)};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]),
-                                       *reinterpret_cast<const __nv_bfloat162*>(&bias));
-      frag[e] = *reinterpret_cast<const uint32_t*>(&r);
-    }
-  } else {
-    frag[0] = nf4_pair(__byte_perm(lo02, hi02, 0x5410), s0, code);
-    frag[1] = nf4_pair(__byte_perm(lo13, hi13, 0x5410), s1, code);
-    frag[2] = nf4_pair(__byte_perm(lo02, hi02, 0x7632), s0, code);
-    frag[3] = nf4_pair(__byte_perm(lo13, hi13, 0x7632), s1, code);
-  }
-}
 
 // out^T (128 columns x R rows) = W^T x^T for one column tile, one K slice and
 // one row group: grid (tiles x G, S), blockIdx.x = tile G + group, so the G
@@ -808,158 +794,6 @@ gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
   }
 }
 
-// ------------------------------------------------------- bf16 GEMM (wgmma)
-constexpr int WM = 128, WN = 128, WK = 64;  // CTA tile and K step
-constexpr int W_THREADS = 256;              // two warpgroups, 64 rows each
-constexpr uint32_t W_TILE = 128 * 128;      // bytes of one 128 x 64 bf16 SW128 tile
-constexpr size_t W_SMEM = 4 * W_TILE + 1024;  // 2 x (x tile, B tile), alignment slack
-
-template <int FMT>
-__global__ void __launch_bounds__(W_THREADS, 2)  // two CTAs an SM: one dequantizes, one multiplies
-gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ scale, const float* __restrict__ code_g,
-                 __nv_bfloat16* __restrict__ out, int M, int IN, int OUT, int xvec, int wvec) {
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ float code[16];
-  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
-  // x tile buffers 0 and 1, then B tile buffers 0 and 1
-  auto at = [&](int i) { return base + W_TILE * (i & 1); };
-  auto bt = [&](int i) { return base + W_TILE * (2 + (i & 1)); };
-  const int tid = threadIdx.x;
-  if (tid < 16) code[tid] = FMT == FMT_NF4 ? code_g[tid] : 0.f;
-  const int m0 = blockIdx.y * WM, n0 = blockIdx.x * WN;
-  const int rows = IN / 2, steps = (IN + WK - 1) / WK;
-  // dequantizing role: packed rows 4rg..4rg+3 of a step (its input rows
-  // 8rg..8rg+7, chunk rg of a B-tile row), columns 4cg..4cg+3 of the tile
-  const int rg = tid & 7, cg = tid >> 3, col0 = n0 + 4 * cg;
-  uint32_t word[4];
-  float bs[4];
-
-  // x rows [m0, m0 + 128), inputs [64 step, + 64) -> SW128 tile (zeros past M, IN)
-  auto load_x = [&](int step, uint32_t tile) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + W_THREADS * i, r = idx >> 3, c = idx & 7;
-      const int m = m0 + r, kx = step * WK + 8 * c;
-      const uint32_t dst = tile + sm90::sw128(r, c);
-      if (xvec) {
-        const bool live = m < M && kx < IN;
-        sm90::cp_async16(dst, live ? x + (size_t)m * IN + kx : x, live ? 16 : 0);
-      } else {
-        uint32_t w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = kx + 2 * e;
-          const float a = m < M && k < IN ? __bfloat162float(x[(size_t)m * IN + k]) : 0.f;
-          const float b = m < M && k + 1 < IN ? __bfloat162float(x[(size_t)m * IN + k + 1]) : 0.f;
-          w[e] = sm90::pack_bf16(a, b);
-        }
-        sm90::st_shared16(dst, w[0], w[1], w[2], w[3]);
-      }
-    }
-  };
-  // this thread's packed words of a step (and its NF4 block-scale row)
-  auto load_w = [&](int step) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pr = step * (WK / 2) + 4 * rg + i;
-      uint32_t w = 0;
-      if (pr < rows) {
-        const uint8_t* p = packed + (size_t)pr * OUT + col0;
-        if (wvec) {
-          if (col0 < OUT) w = __ldg(reinterpret_cast<const uint32_t*>(p));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col0 + e < OUT) w |= (uint32_t)__ldg(p + e) << (8 * e);
-        }
-      }
-      word[i] = w;
-    }
-    if (FMT == FMT_NF4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bs[j] = col0 + j < OUT ? __ldg(scale + (size_t)step * OUT + col0 + j) : 0.f;
-    }
-  };
-  // the words -> bf16 weights of 4 B-tile rows (columns), one 16-byte chunk each
-  auto dequant = [&](uint32_t tile) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t b = (word[i] >> (8 * j)) & 0xFF;
-        if (FMT == FMT_INT4) {
-          v[i] = sm90::pack_bf16((float)((int)(b & 0xF) - 8), (float)((int)(signed char)b >> 4));
-        } else {
-          v[i] = sm90::pack_bf16(__fmul_rn(code[b & 0xF], bs[j]), __fmul_rn(code[b >> 4], bs[j]));
-        }
-      }
-      sm90::st_shared16(tile + sm90::sw128(4 * cg + j, rg), v[0], v[1], v[2], v[3]);
-    }
-  };
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  const uint32_t a_off = (tid >> 7) * 64 * 128;  // this warpgroup's 64 rows of the x tile
-  load_x(0, at(0));
-  sm90::cp_async_commit();
-  load_w(0);
-  __syncthreads();  // the codebook
-  dequant(bt(0));
-  if (steps > 1) {
-    load_x(1, at(1));
-    sm90::cp_async_commit();
-    load_w(1);
-  }
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) sm90::cp_async_wait<1>();
-    else sm90::cp_async_wait<0>();
-    sm90::fence_async_smem();
-    __syncthreads();  // x tile s landed, B tile s written
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk)
-      sm90::wgmma_m64n128_ss(acc, sm90::desc_sw128(at(buf) + a_off + 32 * kk),
-                             sm90::desc_sw128(bt(buf) + 32 * kk), 1);
-    sm90::wgmma_commit();
-    if (s + 1 < steps) {  // while the tensor cores run: B tile s + 1, words of s + 2
-      dequant(bt(buf ^ 1));
-      if (s + 2 < steps) load_w(s + 2);
-    }
-    sm90::wgmma_wait_all();
-    sm90::fence_regs(acc);
-    __syncthreads();  // both warpgroups are done with x and B buffers buf
-    if (s + 2 < steps) {
-      load_x(s + 2, at(buf));
-      sm90::cp_async_commit();
-    }
-  }
-
-  const int lane = tid & 31;
-  const int row0 = m0 + 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + lane / 4;
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int row = row0 + 8 * ((i / 2) & 1), col = n0 + 8 * (i / 4) + 2 * (lane & 3);
-    if (row >= M) continue;
-    float v0 = acc[i], v1 = acc[i + 1];
-    if (FMT == FMT_INT4) {
-      v0 = col < OUT ? __fmul_rn(v0, scale[col]) : 0.f;
-      v1 = col + 1 < OUT ? __fmul_rn(v1, scale[col + 1]) : 0.f;
-    }
-    __nv_bfloat16* o = out + (size_t)row * OUT + col;
-    if (OUT % 2 == 0) {
-      if (col < OUT) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
-    } else {
-      if (col < OUT) o[0] = __float2bfloat16(v0);
-      if (col + 1 < OUT) o[1] = __float2bfloat16(v1);
-    }
-  }
-}
-
 template <int FMT, typename T>
 int launch(const void* x, const void* packed, const void* scale, const void* code, void* out,
            int M, int IN, int OUT, int S, int G, void* ws, void* counters, void* stream) {
@@ -1006,16 +840,10 @@ int launch(const void* x, const void* packed, const void* scale, const void* cod
     }
     if (err != cudaSuccess) return (int)err;
   } else if constexpr (bf16) {
-    const dim3 grid((OUT + WN - 1) / WN, (M + WM - 1) / WM);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_bf16_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W_SMEM);
+    const cudaError_t err =
+        FMT == FMT_INT4 ? launch_prefill_int4(x, packed, scale, code, out, M, IN, OUT, st)
+                        : launch_prefill_nf4(x, packed, scale, code, out, M, IN, OUT, st);
     if (err != cudaSuccess) return (int)err;
-    const int xvec = IN % 8 == 0 && ((uintptr_t)x & 15) == 0;
-    const int wvec = OUT % 4 == 0 && ((uintptr_t)packed & 3) == 0;
-    gemm_bf16_kernel<FMT><<<grid, W_THREADS, W_SMEM, st>>>(
-        (const __nv_bfloat16*)x, (const uint8_t*)packed, (const float*)scale,
-        (const float*)code, (__nv_bfloat16*)out, M, IN, OUT, xvec, wvec);
   } else {
     const dim3 grid((OUT + BN - 1) / BN, (M + BM - 1) / BM);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
@@ -1049,4 +877,12 @@ extern "C" int mars_matmul_4bit(int fmt, int bf16, const void* x, const void* pa
                 : launch<FMT_NF4, float>(x, packed, scale, code, out, M, IN, OUT, S, G, ws,
                                          counters, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The prefill GEMM's plan for bfloat16 operands (fmt as above): 2 x its
+// tile's x rows, plus 1 for the TMA variant; -1 without a device.
+extern "C" int mars_prefill_plan(int fmt, const void* x, const void* packed, const void* scale,
+                                 int M, int IN, int OUT) {
+  return fmt == FMT_NF4 ? prefill_plan_nf4(x, packed, scale, M, IN, OUT)
+                        : prefill_plan_int4(x, packed, scale, M, IN, OUT);
 }

@@ -22,9 +22,12 @@ GEMV on the CUDA cores; for 8 < M ≤ ``SKINNY_MAX_ROWS`` (a speculative
 verify forward's rows) with bfloat16 x the skinny GEMM, the GEMV widened to
 wgmma m64nNk16 with the weights dequantized into its register operand and
 x as its shared-memory operand (``skinny_split`` picks the K slices and row
-groups; the same workspace and in-order reduction); above it (prefill) with
-bfloat16 x a tensor-core GEMM (the weights dequantized once per CTA and K
-step into a bf16 tile in shared memory, wgmma); for M > 8 with float32 x
+groups; the same workspace and in-order reduction); above it (prefill,
+the 512-row suffix forwards) with bfloat16 x the prefill GEMM, the same
+operands on tiles of 128 columns x 128-256 rows (the weights dequantized
+into registers once per tile and 64-row block; a producer warpgroup feeds
+a ring by TMA, or by cp.async where a tensor map cannot describe x or the
+codes; persistent CTAs; no K split, no workspace); for M > 8 with float32 x
 the SIMT GEMM on the CUDA cores.  On a CPU tensor they
 take ``matmul_int4_plain`` / ``matmul_nf4_plain``, which follow the JAX
 package's non-TPU branch of ``quantized_dense``: the weight unpacked to x's
@@ -43,6 +46,7 @@ from mars_tpu_torch.ops import build
 _FMT_INT4, _FMT_NF4 = 0, 1
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 3)
+_PLAN_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 _CODE: Dict[torch.device, torch.Tensor] = {}
 # (device, stream) -> (float32 partials, int32 arrival counters of the column tiles)
 _WORKSPACE: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -53,12 +57,13 @@ GEMV_BLOCK = 64       # input rows of a K block (one NF4 scale row)
 GEMV_MAX_SPLIT = 16
 GEMV_MIN_CTAS = 2 * 132  # two CTAs on each SM of an H100 SXM
 # The skinny GEMM takes 8 < M <= SKINNY_MAX_ROWS bfloat16 rows: every row of a
-# speculative verify forward (B x 9 at 8 draft tokens: 9, 18, 36, 72) and the
-# pipelined text stage's 128-row suffix forwards.  On an H100 it beat the
-# 128-row GEMM over a LLaMA-7B layer's seven projections at every measured M
-# up to 256, in both formats (PERF.md, the skinny GEMM's findings); the 512-row
-# suffix forwards and prefill stay on the GEMM.
-SKINNY_MAX_ROWS = 256
+# speculative verify forward (B x 9 at 8 draft tokens: 9, 18, 36, 72).  On an
+# H100 it beat the prefill GEMM over a LLaMA-7B layer's seven projections at
+# 73 and 96 rows and lost from 112 on, in both formats
+# (tools/prefill_probe.py; PERF.md, the prefill GEMM's findings); the
+# pipelined text stage's 128-row suffix forwards, the block's 512-row ones and
+# prefill take the prefill GEMM.
+SKINNY_MAX_ROWS = 96
 SKINNY_GROUP_ROWS = 72   # x rows of one row group (one CTA's N), at most 72
 SKINNY_COLS = 128        # output columns a CTA of the skinny GEMM owns
 SKINNY_MAX_SPLIT = 8     # K slices: the last CTA holds each slice's partial of a batch
@@ -171,7 +176,8 @@ def _current_stream(device: torch.device) -> int:
 
 
 def _library() -> ctypes.CDLL:
-    return build.load("int4_matmul", {"mars_matmul_4bit": _ARGTYPES})
+    return build.load("int4_matmul", {"mars_matmul_4bit": _ARGTYPES,
+                                      "mars_prefill_plan": _PLAN_ARGTYPES})
 
 
 def _code_on(device: torch.device) -> torch.Tensor:
@@ -226,6 +232,18 @@ def _launch(fmt: int, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
         raise RuntimeError(f"int4_matmul kernel launch failed with CUDA error {err} "
                            f"(x {tuple(x.shape)}, packed {tuple(packed.shape)})")
     return out
+
+
+def prefill_plan(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> Tuple[int, str]:
+    """(x rows a tile, ``"tma"`` or ``"cp.async"``): the prefill GEMM the
+    library launches for these bfloat16 CUDA operands (NF4 when ``scale`` is
+    the (IN/64, OUT) block scale), from the same decision its launch takes."""
+    fmt = _FMT_NF4 if scale.dim() == 2 else _FMT_INT4
+    code = _library().mars_prefill_plan(fmt, x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                                        x.shape[0], x.shape[1], packed.shape[1])
+    if code < 0:
+        raise RuntimeError("no CUDA device for the prefill GEMM's plan")
+    return code // 2, "tma" if code % 2 else "cp.async"
 
 
 def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -348,24 +348,93 @@ def _check_4bit(dev, fmt, din, dout, m, dtype):
     return x, packed, scale, got
 
 
-# the tensor-core GEMM (bf16, M > 8): ragged OUT (199, 999), ragged int4 IN
+# the tensor-core GEMMs (bf16, M > 8): ragged OUT (199, 999), ragged int4 IN
 # (300: no 16-byte x chunks; 1984), an NF4 IN of 320 (five 64-row blocks);
-# chip_smoke.py holds the text path's shapes
+# M of the skinny GEMM (9, 80) and of the prefill GEMM (257, 300, 512, 2330:
+# its cp.async variant, except 1984 -> 384, TMA); chip_smoke.py holds the
+# text path's shapes
 @pytest.mark.parametrize("fmt,din,dout", [("int4", 512, 199), ("int4", 300, 999),
                                           ("int4", 1984, 384), ("nf4", 320, 199),
                                           ("nf4", 512, 999)])
-@pytest.mark.parametrize("m", [9, 80, 300, 2330])
+@pytest.mark.parametrize("m", [9, 80, 257, 300, 512, 2330])
 def test_4bit_gemm_bf16_matches_plain(dev, fmt, din, dout, m):
     _check_4bit(dev, fmt, din, dout, m, torch.bfloat16)
+
+
+def _prefill_variant(fn):
+    """The variant ("tma" or "cp.async") and tile x rows of the one prefill
+    GEMM launch ``fn`` makes, from its kernel's name in a profiler trace."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pattern = re.compile(r"gemm_prefill_bf16(?:<(\d), (\d+), (true|false)>|"
+                         r"ILi(\d)ELi(\d+)ELb([01])E)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    (name,) = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and pattern.search(e.name)]
+    m = pattern.search(name)
+    tma = (m.group(3) or m.group(6)) in ("true", "1")
+    return "tma" if tma else "cp.async", int(m.group(2) or m.group(5))
+
+
+# the prefill GEMM (bf16, M > SKINNY_MAX_ROWS) at the 7B's shapes and the
+# text path's rows (257: one past the skinny GEMM; 512: the suffix forwards;
+# 2330: prefill), on TMA; then x and the packed codes as offset views (x one
+# element, the codes one byte into a larger buffer: no tensor map can start
+# there), on cp.async; one launch a call, reruns bitwise equal
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+@pytest.mark.parametrize("din,dout", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_4bit_prefill_bf16_matches_plain(dev, fmt, din, dout):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
+    rng, packed, scale = _gemv_inputs(fmt, din, dout, dev, seed=din + dout)
+    for m in (im.SKINNY_MAX_ROWS + 1, 512, 2330):
+        assert im.route(m, torch.bfloat16) == "gemm"
+        x, got = _check_gemv(fmt, rng, packed, scale, m, dev)
+        variant, rows = _prefill_variant(lambda: fn(x, packed, scale))
+        assert variant == "tma" and rows in (128, 192, 256)
+        assert im.prefill_plan(x, packed, scale) == (rows, variant)
+        assert torch.equal(got, fn(x, packed, scale))
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_4bit_prefill_bf16_offset_views(dev, fmt):
+    from mars_tpu_torch.ops import int4_matmul as im
+
+    fn, plain = ((im.matmul_int4, im.matmul_int4_plain) if fmt == "int4"
+                 else (im.matmul_nf4, im.matmul_nf4_plain))
+    rng, packed, scale = _gemv_inputs(fmt, 1024, 384, dev, offset=1)
+    for m, x_offset in ((300, 0), (300, 1), (512, 3)):
+        buf = torch.from_numpy(rng.randn(m * 1024 + x_offset).astype(np.float32))
+        x = buf.to(dev, torch.bfloat16)[x_offset:].view(m, 1024)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 2 * x_offset % 16
+        before = fn.launches
+        got = fn(x, packed, scale)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want = plain(x, packed, scale).float()
+        top = want.abs().max().item()
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -7, atol=2 ** -7 * top)
+        variant, rows = _prefill_variant(lambda: fn(x, packed, scale))
+        assert variant == "cp.async" and im.prefill_plan(x, packed, scale) == (rows, variant)
+        assert torch.equal(got, fn(x, packed, scale))
 
 
 @pytest.mark.parametrize("fmt", ["int4", "nf4"])
 def test_4bit_gemm_bf16_is_deterministic(dev, fmt):
     from mars_tpu_torch.ops import int4_matmul as im
 
-    x, packed, scale, got = _check_4bit(dev, fmt, 1024, 999, 300, torch.bfloat16)
     fn = im.matmul_int4 if fmt == "int4" else im.matmul_nf4
-    assert torch.equal(got, fn(x, packed, scale))
+    for din, dout in ((1024, 999), (1024, 1024)):  # the cp.async variant, then TMA
+        x, packed, scale, got = _check_4bit(dev, fmt, din, dout, 300, torch.bfloat16)
+        for _ in range(3):
+            assert torch.equal(got, fn(x, packed, scale))
 
 
 # a speculative verify forward's rows, B x (K + 1) at K = 8 and B = 1, 2, 4,

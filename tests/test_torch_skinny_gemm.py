@@ -155,15 +155,23 @@ class _Recorder:
         return 0
 
 
+# the boundary tools/prefill_probe.py measured on an H100: the
+# skinny GEMM through 96 rows, the prefill GEMM from 97 (the pipelined
+# stage's 128-row and the block's 512-row suffix forwards, prefill)
+PREFILL_FROM = 97
+
+
 @pytest.mark.parametrize("m", [1, 8, 9, 18, 36, 72, 73, tim.SKINNY_MAX_ROWS,
-                               tim.SKINNY_MAX_ROWS + 1, 2330])
+                               tim.SKINNY_MAX_ROWS + 1, 128, 512, 2330])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_route_by_rows(monkeypatch, m, dtype):
     """The kernel a call takes by M: the GEMV up to 8 rows (bfloat16: a
     split-K workspace of S x 8 rows), the skinny GEMM (bfloat16) up to
-    SKINNY_MAX_ROWS with skinny_split's S and G and a workspace of S x M
-    rows, the GEMM above it (G = 0); one launch a call.  The library is
-    replaced by a recorder, so this runs on the CPU."""
+    SKINNY_MAX_ROWS = 96 with skinny_split's S and G and a workspace of S x
+    M rows, the prefill GEMM above it (S = 1, G = 0, no workspace); one
+    launch a call.  The library is replaced by a recorder, so this runs on
+    the CPU."""
+    assert tim.SKINNY_MAX_ROWS == PREFILL_FROM - 1
     rec = _Recorder()
     monkeypatch.setattr(tim, "_library", lambda: rec)
     monkeypatch.setattr(tim, "_current_stream", lambda device: 7)

@@ -9,6 +9,7 @@
     python3 tools/torch_kernel_ab.py --windowed PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --profile PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --verify PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 tools/torch_kernel_ab.py --prefill PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 tools/torch_kernel_ab.py --text-cli PARENT_ROOT CHANGE_ROOT
 
 Each ROOT is the top of a checkout holding ``mars_tpu_torch/``.  The roots
@@ -29,7 +30,7 @@ decode shapes at 1 and 4 rows, warm (20 calls on one weight, which the L2
 may hold), device-held, and cold (the calls rotate through copies of the weight totalling
 >= 100 MB, twice the L2), beside cuBLAS on the dense bf16 weight timed both
 ways; the float32 GEMV at 4 x 4096 -> 11008; the bf16 prefill GEMM at
-``chip_smoke.py``'s shapes (2330 rows).
+``chip_smoke.py``'s shapes (512 and 2330 rows).
 With ``--text-path`` each root runs ``chip_smoke.py``'s text-path phase
 instead (one ViP-LLaVA-7B text block per format, int4 then NF4, through that
 root's package): block ms, prefill ms and decode ms per step.  With
@@ -68,7 +69,13 @@ and cold beside cuBLAS on the dense bf16 weight, with the host's enqueue
 time, the largest difference from the plain version and a digest; a root
 with the skinny GEMM sends every M > 8 through it (``SKINNY_MAX_ROWS``
 raised in that process), so the rows past 72 find the crossover with
-another root's 128-row GEMM.  With ``--text-cli`` each root runs
+another root's 128-row GEMM.  With ``--prefill`` each root builds only its
+4-bit library and times ``matmul_int4`` / ``matmul_nf4`` at
+``chip_smoke.py``'s prefill shapes and rows (512, 2330), warm, device-held
+and cold beside cuBLAS on the dense bf16 weight, each row with its largest
+difference from the plain version, whether a rerun is bitwise equal, and a
+digest (the prefill GEMM has no K split: every root's digest is the same
+where their sums run in the same order).  With ``--text-cli`` each root runs
 ``chip_smoke.py``'s ``phase_text_cli`` and ``phase_profile_text`` (the
 M of every 4-bit launch; the 4-bit kernels' device ms by kernel and by what
 launched them).
@@ -98,7 +105,7 @@ GRID_SHAPES = ((16, 64, 64, 80, ("float32", "bfloat16")),
 DECODE_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 DECODE_ROWS = (1, 4)
 PREFILL_SHAPES = DECODE_SHAPES + ((5120, 4096), (1024, 4096), (1984, 999))
-PREFILL_ROWS = 2330
+PREFILL_ROWS = (512, 2330)
 # a verify forward's rows (B x 9 at 8 draft tokens), then rows past them: the
 # pipelined text stage's suffix forwards take 128
 VERIFY_ROWS = (9, 18, 36, 72)
@@ -429,6 +436,53 @@ def verify_worker(root):
             del dense, weights, denses
 
 
+def prefill_worker(root):
+    import torch
+
+    smoke = _chip_smoke()
+    sys.path.insert(0, root)
+    from mars_tpu_torch.models import quantization as Q
+    from mars_tpu_torch.ops import build, int4_matmul as im
+
+    build.build_all(["int4_matmul"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for fmt in ("int4", "nf4"):
+        fn, plain = ((im.matmul_int4, im.matmul_int4_plain) if fmt == "int4"
+                     else (im.matmul_nf4, im.matmul_nf4_plain))
+        for din, dout in PREFILL_SHAPES:
+            if fmt == "int4":
+                q = torch.randint(-7, 8, (din, dout), generator=gen, device="cuda",
+                                  dtype=torch.int8)
+                leaf = {"q4": im.pack_int4(q), "scale": torch.rand(
+                    (dout,), generator=gen, device="cuda") * 0.1 + 0.01}
+                packed, scale = leaf["q4"], leaf["scale"]
+            else:
+                leaf = Q.quantize_kernel_nf4(torch.randn((din, dout), generator=gen,
+                                                         device="cuda"))
+                packed, scale = leaf["nf4"], leaf["bscale"]
+            dense = Q.dequantize_kernel(leaf).to(torch.bfloat16)
+            weights, denses = smoke.cold_copies((packed, scale)), smoke.cold_copies((dense,))
+            for m in PREFILL_ROWS:
+                x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+                got, want = fn(x, packed, scale), plain(x, packed, scale)
+                nbytes = x.numel() * 2 + packed.numel() + scale.numel() * 4 + m * dout * 2
+                bound, by = smoke._bound_ms(nbytes, 2.0 * m * din * dout)
+                print(json.dumps({
+                    "root": root, "kernel": f"matmul_{fmt}", "shape": [m, din, dout],
+                    "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                    "tol": 2 ** -7 * want.float().abs().max().item(),
+                    "rerun_equal": bool(torch.equal(got, fn(x, packed, scale))),
+                    "digest": digest(got),
+                    "ms": smoke.cuda_ms(lambda: fn(x, packed, scale)),
+                    "held_ms": smoke.held_ms(lambda: fn(x, packed, scale)),
+                    "cold_ms": smoke.cold_ms(lambda p, s: fn(x, p, s), weights),
+                    "library_ms": smoke.cuda_ms(lambda: x @ dense),
+                    "library_held_ms": smoke.held_ms(lambda: x @ dense),
+                    "library_cold_ms": smoke.cold_ms(lambda w: x @ w, denses),
+                    "bound_ms": bound, "bound_by": by}), flush=True)
+            del dense, weights, denses
+
+
 def worker(root):
     import torch
 
@@ -500,9 +554,10 @@ def worker(root):
                     emit(kernel=f"matmul_{fmt}", shape=[4, din, dout], dtype="float32",
                          ms=smoke.cuda_ms(lambda: fn(x, packed, scale)))
                 del dense, weights, denses
-            x = torch.randn((PREFILL_ROWS, din), generator=gen, device="cuda").to(torch.bfloat16)
-            emit(kernel=f"matmul_{fmt}", shape=[PREFILL_ROWS, din, dout], dtype="bfloat16",
-                 ms=smoke.cuda_ms(lambda: fn(x, packed, scale)))
+            for m in PREFILL_ROWS:
+                x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+                emit(kernel=f"matmul_{fmt}", shape=[m, din, dout], dtype="bfloat16",
+                     ms=smoke.cuda_ms(lambda: fn(x, packed, scale)))
 
 
 def main(argv):
@@ -510,7 +565,7 @@ def main(argv):
                "--notap-worker": notap_worker, "--windowed-worker": windowed_worker,
                "--tap-worker": tap_worker,
                "--profile-worker": profile_worker, "--verify-worker": verify_worker,
-               "--text-cli-worker": text_cli_worker}
+               "--prefill-worker": prefill_worker, "--text-cli-worker": text_cli_worker}
     if len(argv) >= 2 and argv[0] in workers:
         workers[argv[0]](os.path.abspath(argv[1]))
         return 0
@@ -519,7 +574,7 @@ def main(argv):
              "--notap": "--notap-worker", "--windowed": "--windowed-worker",
              "--tap": "--tap-worker",
              "--profile": "--profile-worker", "--verify": "--verify-worker",
-             "--text-cli": "--text-cli-worker"}
+             "--prefill": "--prefill-worker", "--text-cli": "--text-cli-worker"}
     if argv and argv[0] in modes:
         mode, argv = modes[argv[0]], argv[1:]
     if not argv:
