@@ -129,7 +129,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
      first forward's logits through the kernel and the plain version; one
      episode of ``cli.main --vlm-path dir --vlm4bit``; load seconds, peak
      memory, tokens a second;
- 23. the fold run as scripts/_eval_common.sh drives it (``phase_fold_run``):
+ 23. the text path's default (``phase_text_int8``): the files directory of
+     phase 22 through ``TorchVipLlava(dir)`` at 8 bits (tree and tokens
+     equal to the ``params=`` route, load seconds and peak memory while
+     loading); the 8-bit product on bf16 x at a LLaMA layer's three shapes
+     and 1, 4, 36 and 2 330 rows against a float64 product of the same
+     codes, rounded to bf16 (the limit: the output's roundings plus float32
+     summation's worst case); one speculating text block at full width
+     each with 8-bit weights, 8-bit weights and the int8 KV cache, and
+     int4 weights and the int8 KV cache (4-bit launches 0, 0 and exactly
+     146 per vision call + 224 per forward; block, prefill and decode ms,
+     peak memory; streams against a plain rerun; every int8 KV code and
+     scale within half a step of its key or value, the cache's bytes
+     against bf16's, one layer's attention over each cache); ``cli.main``
+     without --gt-class-names or a bit flag (8-bit weights), then with
+     --vlm-kv8, four episodes each, with phase 21's checks;
+ 24. the fold run as scripts/_eval_common.sh drives it (``phase_fold_run``):
      ``cli_proposals --bf16 --use-centers --coco-rle --visualize 2`` over two
      episodes with both switches on (the Matcher's launches exact; the
      zero-threshold Matcher call's masks through the port's RLE and back,
@@ -144,7 +159,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      event files' CRCs, the known-bad line, 31 tap launches an episode;
      ranking ms an episode at overlap 0 and 2 (wall over the fold); then
      ``--visualize 2``: two PNGs that decode;
- 24. the benchmarks' own files (``phase_real_files``): tests/real_layouts.py
+ 25. the benchmarks' own files (``phase_real_files``): tests/real_layouts.py
      lays the committed JPEG and PNG fixtures out as COCO-20i, PASCAL-5i,
      FSS-1000, LVIS-92i and PACO-Part; the port's decodes, resizes,
      polygon rasters, records and ``episode_host_u8`` arrays against the
@@ -155,7 +170,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      --mask-proposals-path`` with both switches on (launches exact), one
      ``MarsServer`` request with a 640x480 record (its mask equal to
      ``Mars.predict``'s);
- 25. the Matcher's other configurations (``phase_matcher_configs``), float32
+ 26. the Matcher's other configurations (``phase_matcher_configs``), float32
      at full width with the selection thresholds at 0: both negative
      sources with ``merge_prompt_types`` at one shot and at five (the
      auction's launches exact per ε-phase, every phase the kernel ran
@@ -166,14 +181,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      a side with MARS_SAM_WINDOWED_IMPL=pallas (grid 4 and windowed 28
      launches a crop), then ``postprocess_small_regions(min_area=100)``:
      live masks before and after, ms, peak memory;
- 26. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
+ 27. the tower flags (``phase_int8_towers``): ``cli.main --bf16`` over three
      synthetic episodes, then with ``--int8-towers``, then also
      ``--w8a8-alphaclip`` (merged masks' IoU with the ``--bf16`` run's,
      the towers' weight bytes, peak memory, ranking ms an episode, 31 tap
      launches an episode), then ``--generate-proposals`` over two;
      ``torch._int_mm`` at AlphaCLIP-L's MLP against the weight-only int8
      route and a bf16 product;
- 27. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
+ 28. the Semantic-SAM proposal path (``phase_semantic_sam``): ``cli.main
      --generate-proposals --proposal-model semantic-sam`` at full width
      (SwinL @640, the MaskDINO pixel and point decoders, 6 granularities;
      DINOv2-L matching) over three episodes in float32, again with the notap
@@ -183,7 +198,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      run's buckets and merged masks against the plain route's, bf16's
      merged masks' IoU with float32's; one call split by stage under
      torch.profiler (float32, bf16); one ``SamPointBackend`` call at ViT-H;
- 28. the multi-device drivers and the serving runtime (``phase_parallel``):
+ 29. the multi-device drivers and the serving runtime (``phase_parallel``):
      ``cli_parallel.main`` at one NCCL rank, local batch 4, over eight
      synthetic episodes in float32 and bf16 (merged masks against the
      serial ``cli.main``'s, 31 tap launches an episode, ranking ms an
@@ -195,7 +210,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      request's latency); two ranks sharing the card over gloo
      (``evaluate_parallel`` at mesh 2 x 1 and 1 x 2, the proposal-sharded
      ranker on one 128-row bucket), masks against the float32 run's;
- 29. the SAM decoder's train step and the exact host solvers
+ 30. the SAM decoder's train step and the exact host solvers
      (``phase_train``): ViT-H's frozen encode of eight synthetic 1024²
      images (32 grid launches), eight steps of ``parallel.train`` at batch 8
      (the loss falls), accumulation, remat and both against the full
@@ -205,7 +220,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      Matcher's forward instance against ``native.assignment_exact``, and the
      Sinkhorn EMD on the card against ``native.emd_exact`` (the seeded 60 x
      40 instance and a full-width ranking episode's cost matrix);
- 30. the kernels line.
+ 31. the kernels line.
 Phase 4 also runs the five-shot matching instances of synthetic episode 0
 (1369 x 6845 and 6845 x 1369) and instances past the kernel's shared memory
 (``ops/assignment.auction_variant``: its state partly or wholly in global
@@ -2127,21 +2142,37 @@ def phase_profile_text(state):
 
 def _seeded_retriever(args):
     """``cli.build_retriever``'s place in the script: ViP-LLaVA-7B on seeded
-    random weights in the format of ``--vlm4bit`` / ``--vlm4bit-nf4`` on
-    ``--device``, the stand-in processor, speculation and prompts as the
-    flags say."""
+    random weights quantized as the flags say (``bits or 8``: 4-bit with
+    ``--vlm4bit``, NF4 with ``--vlm4bit-nf4``, else 8-bit) on ``--device``,
+    the int8 KV cache with ``--vlm-kv8``, the stand-in processor, speculation
+    and prompts as the flags say."""
     from mars_tpu_torch import cli
     from mars_tpu_torch import device as device_lib
     from mars_tpu_torch.models import zoo
     from mars_tpu_torch.text import retriever as R
 
-    params, cfg = zoo.build_vip_llava(0, 4, "nf4" if args.vlm4bit_nf4 else "affine",
+    params, cfg = zoo.build_vip_llava(0, 4 if args.vlm4bit else 8,
+                                      "nf4" if args.vlm4bit_nf4 else "affine",
                                       device=device_lib.resolve(args.device))
     vlm = R.TorchVipLlava(args.vlm_path, params=params, cfg=cfg, processor=StandInProcessor(cfg),
                           draft_tokens=args.vlm_draft_tokens,
                           kv_bits=8 if args.vlm_kv8 else None)
     gen_cfg, ensemble = cli.retriever_configs(args)
     return R.TextRetriever(vlm, gen_cfg=gen_cfg, ensemble=ensemble)
+
+
+def _recorded_batches(vlm):
+    """Record each ``generate_batch`` call of ``vlm`` with the rows its
+    stand-in tokenizer decoded → the list, for ``_plain_splits``."""
+    calls, batch = [], vlm.generate_batch
+
+    def recorded(images, prompts, **kw):
+        out = batch(images, prompts, **kw)
+        calls.append((images, prompts, kw, vlm.processor.tokenizer.rows[-len(images):]))
+        return out
+
+    vlm.generate_batch = recorded
+    return calls
 
 
 def _plain_splits(vlm, calls):
@@ -2185,7 +2216,8 @@ def _plain_splits(vlm, calls):
                 splits += 1
                 t = next(j for j in range(min(len(want), len(got)) + 1)
                          if j >= min(len(want), len(got)) or want[j] != got[j])
-                chunk = vlm.MAX_PREFIX_BATCH if kw.get("shared_prefix") else vlm.MAX_DECODE_BATCH
+                chunk = (vlm.MAX_PREFIX_BATCH if kw.get("shared_prefix") and vlm.kv_bits != 8
+                         else vlm.MAX_DECODE_BATCH)  # as ``generate_batch`` chunks
                 step = tops[starts[r // chunk] + t][r % chunk]
                 worst = max(worst, float(step[0] - step[1]) / max(abs(float(step[0])), 1e-30))
     finally:
@@ -2194,20 +2226,18 @@ def _plain_splits(vlm, calls):
     return rows, splits, worst
 
 
-def phase_text_cli(state):
-    """``cli.main`` without --gt-class-names at full width: the ranking
-    towers as in the main path, ViP-LLaVA-7B (seeded random weights, bf16,
-    through ``cli.build_retriever``'s place) naming the class with
-    prompt-lookup speculation at JAX's defaults, WordNet on the mini tree of
-    tests/nltk_minicorpus.py through --nltk-path.  One block at the default
-    depth in int4, then in NF4, then two episodes with --pipelined-text;
-    every count set to 0 just before each run and read just after: the
-    4-bit launches (GEMV and GEMM) equal 146 per vision call + 224 per LLaMA
-    forward as the decode loop counts them; each block's speculative
-    streams against the same requests decoded plainly."""
+def _text_cli_run(label, flags, episodes, nltk_root, kernel):
+    """One ``cli.main`` run without --gt-class-names over ``episodes``
+    (``cli.build_retriever`` replaced by ``_seeded_retriever``), every count
+    set to 0 just before and read just after → (row, ok, 4-bit launches).
+    ``kernel``: the 4-bit wrapper the flags select, whose launches must equal
+    146 per vision call + 224 per LLaMA forward as the decode loop counts
+    them, or None (8-bit weights: no 4-bit launch).  The tap's 31 launches
+    an episode, names, binary masks, a finite mIoU, and (past 2 episodes)
+    each block's speculative streams against the same requests decoded
+    plainly."""
     import gc
     import math
-    import tempfile
 
     import torch
 
@@ -2215,80 +2245,89 @@ def phase_text_cli(state):
     from mars_tpu_torch.models import vip_llava as vl
     from mars_tpu_torch.ops import int4_matmul as im
 
+    made = {}
+
+    def build(args):
+        r = _seeded_retriever(args)
+        made["vlm"] = r.vlm
+        made["calls"] = _recorded_batches(r.vlm)
+        return r
+
+    real_build, cli.build_retriever = cli.build_retriever, build
+    for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
+        fn.launches = 0
+    for k in vl.STATS:
+        vl.STATS[k] = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _logged_4bit_launches() as log:  # each 4-bit launch's M
+            res = cli.main(TEXT_CLI_ARGS + ["--episodes", str(episodes), "--nltk-path",
+                                            nltk_root] + flags)
+    finally:
+        cli.build_retriever = real_build
+    m_rows = [m for m, _ in log]
+    routes = dict(collections.Counter(_route_of(im, m) for m in m_rows))
+    counts = res["text_counts"]
+    gemv = routes.get("gemv", 0)
+    want = (VISION_DENSES * counts["vision"] + LLAMA_DENSES * counts["forwards"]
+            if kernel else 0)
+    tap_want = TAPPED_BLOCKS * episodes
+    calls = made["calls"]
+    rows, splits, worst = (_plain_splits(made["vlm"], calls) if episodes > 2
+                           else (None, None, None))
+    row = {"phase": "text_cli", "run": label, "flags": flags, "episodes": episodes,
+           "text_ms": res["text_ms"], "ranking_ms": res["episode_ms"],
+           "names": [n[:40] for n in res["names"]], "definitions": res["descriptions"],
+           "vlm_calls": len(calls), "vision_calls": counts["vision"],
+           "llama_forwards": counts["forwards"], "spec_rounds": counts["rounds"],
+           "verify_rounds": counts["verify_rounds"], "accepted_drafts": counts["accepted"],
+           "gemv_launches": gemv, "gemm_launches": len(m_rows) - gemv,
+           "launches_by_route": routes, "m_histogram": _m_histogram(log),
+           "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
+           "launches_expected": {kernel or "4-bit": want},
+           "tap_launches": res["launches"]["attention_with_tap"], "tap_expected": tap_want,
+           "rows_compared": rows, "rows_split": splits, "max_split_rel_gap": worst,
+           "split_limit": SPLIT_REL_GAP,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "miou": res["miou"], "masks_binary": res["masks_binary"]}
+    ok = ((kernel is None or counts[kernel] == want) and len(m_rows) == want
+          and sum(counts[k] for k in cli.TEXT_KERNELS) == want
+          and res["launches"]["attention_with_tap"] == tap_want
+          and len(res["names"]) == episodes and res["masks_binary"]
+          and math.isfinite(res["miou"]) and (worst is None or worst < SPLIT_REL_GAP))
+    del made, calls
+    gc.collect()  # the recorded wrapper and the model hold each other
+    torch.cuda.empty_cache()
+    return row, ok, {k: counts[k] for k in cli.TEXT_KERNELS}
+
+
+def phase_text_cli(state):
+    """``cli.main`` without --gt-class-names at full width: the ranking
+    towers as in the main path, ViP-LLaVA-7B (seeded random weights, bf16,
+    through ``cli.build_retriever``'s place) naming the class with
+    prompt-lookup speculation at JAX's defaults, WordNet on the mini tree of
+    tests/nltk_minicorpus.py through --nltk-path.  One block at the default
+    depth in int4, then in NF4, then two episodes with --pipelined-text
+    (``_text_cli_run``'s checks)."""
+    import tempfile
+
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from nltk_minicorpus import ensure_minicorpus
 
     nltk_root = ensure_minicorpus(tempfile.mkdtemp(prefix="nltk_mini_"))
-    runs = (("int4", ["--vlm4bit"], TEXT_CLI_EPISODES),
-            ("nf4", ["--vlm4bit", "--vlm4bit-nf4"], TEXT_CLI_EPISODES),
-            ("int4_pipelined", ["--vlm4bit", "--pipelined-text"], PIPELINED_EPISODES))
-    real_build, launches_by_fmt, failures = cli.build_retriever, {}, []
-    for label, flags, episodes in runs:
-        made, calls = {}, []
-
-        def build(args):
-            r = _seeded_retriever(args)
-            made["vlm"] = vlm = r.vlm
-            batch = vlm.generate_batch
-
-            def recorded(images, prompts, **kw):
-                out = batch(images, prompts, **kw)
-                calls.append((images, prompts, kw, vlm.processor.tokenizer.rows[-len(images):]))
-                return out
-
-            vlm.generate_batch = recorded
-            return r
-
-        cli.build_retriever = build
-        for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
-            fn.launches = 0
-        for k in vl.STATS:
-            vl.STATS[k] = 0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            with _logged_4bit_launches() as log:  # each 4-bit launch's M
-                res = cli.main(TEXT_CLI_ARGS + ["--episodes", str(episodes), "--nltk-path",
-                                                nltk_root] + flags)
-        finally:
-            cli.build_retriever = real_build
-        m_rows = [m for m, _ in log]
-        routes = dict(collections.Counter(_route_of(im, m) for m in m_rows))
-        counts = res["text_counts"]
-        gemv = routes.get("gemv", 0)
-        kernel = "matmul_nf4" if label == "nf4" else "matmul_int4"
-        want = VISION_DENSES * counts["vision"] + LLAMA_DENSES * counts["forwards"]
-        tap_want = TAPPED_BLOCKS * episodes
-        rows, splits, worst = (_plain_splits(made["vlm"], calls) if episodes > 2
-                               else (None, None, None))
-        row = {"phase": "text_cli", "run": label, "episodes": episodes,
-               "text_ms": res["text_ms"], "ranking_ms": res["episode_ms"],
-               "names": [n[:40] for n in res["names"]], "definitions": res["descriptions"],
-               "vlm_calls": len(calls), "vision_calls": counts["vision"],
-               "llama_forwards": counts["forwards"], "spec_rounds": counts["rounds"],
-               "verify_rounds": counts["verify_rounds"], "accepted_drafts": counts["accepted"],
-               "gemv_launches": gemv, "gemm_launches": len(m_rows) - gemv,
-               "launches_by_route": routes, "m_histogram": _m_histogram(log),
-               "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
-               "launches_expected": {kernel: want},
-               "tap_launches": res["launches"]["attention_with_tap"], "tap_expected": tap_want,
-               "rows_compared": rows, "rows_split": splits, "max_split_rel_gap": worst,
-               "split_limit": SPLIT_REL_GAP,
-               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "miou": res["miou"], "masks_binary": res["masks_binary"]}
+    runs = (("int4", ["--vlm4bit"], TEXT_CLI_EPISODES, "matmul_int4"),
+            ("nf4", ["--vlm4bit", "--vlm4bit-nf4"], TEXT_CLI_EPISODES, "matmul_nf4"),
+            ("int4_pipelined", ["--vlm4bit", "--pipelined-text"], PIPELINED_EPISODES,
+             "matmul_int4"))
+    launches_by_fmt, failures = {}, []
+    for label, flags, episodes, kernel in runs:
+        row, ok, counts = _text_cli_run(label, flags, episodes, nltk_root, kernel)
         emit(row)
         launches_by_fmt[f"cli_{label}"] = counts[kernel]
-        ok = (counts[kernel] == want and len(m_rows) == want
-              and sum(counts[k] for k in cli.TEXT_KERNELS) == want
-              and res["launches"]["attention_with_tap"] == tap_want
-              and len(res["names"]) == episodes and res["masks_binary"]
-              and math.isfinite(res["miou"]) and (worst is None or worst < SPLIT_REL_GAP))
         if not ok:
             failures.append(label)
-        del made, calls
-        gc.collect()  # the recorded wrapper and the model hold each other
     state["text_cli_launches"] = launches_by_fmt
-    torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"text CLI runs failed: {failures}")
 
@@ -2315,165 +2354,686 @@ def _recording_decode(tokenizer):
     return rows
 
 
-def phase_text_files(state):
-    """ViP-LLaVA-7B from its files: a directory in the release's layout
-    written by tests/vip_llava_files.py at full width (CLIP-L/14@336 with
-    its 24 layers, LLaMA at hidden 4096, MLP 11008, 32 heads, vocabulary
-    32 064), the LLaMA cut to TEXT_FILES_LAYERS of its 32 layers: seeded
-    bf16 weights under the release's names in 1 GB shards with their index,
-    a seeded legacy tokenizer.json (the byte pieces, then pieces and merges
-    up to id 31 999; <image> 32000, <pad> 32001), CLIP's preprocessor at 336
-    and processor_config.json.  ``TorchVipLlava(dir)`` in int4, then NF4,
-    answers one BlockTextStage-shaped block of TEXT_ROWS 518² images, the
-    counts set to 0 just before and read just after: the 4-bit launches
-    equal 146 per vision call + 7 per LLaMA layer per forward as the token
-    trace implies; the loaded tree, the greedy tokens and the answers equal
-    those of the same arrays passed as ``params=`` through ``convert_hf``
-    with the same quantization and the loaded processor; the first
-    forward's logits through the kernel and the plain version.  Then one
-    episode of ``cli.main --vlm-path dir --vlm4bit`` without
-    --gt-class-names.  Load seconds, peak device memory, tokens a second."""
+def _text_files_dir(state):
+    """ViP-LLaVA-7B's directory in the release's layout, written by
+    tests/vip_llava_files.py at full width (CLIP-L/14@336 with its 24
+    layers, LLaMA at hidden 4096, MLP 11008, 32 heads, vocabulary 32 064),
+    the LLaMA cut to TEXT_FILES_LAYERS of its 32 layers: seeded bf16 weights
+    under the release's names in 1 GB shards with their index, a seeded
+    legacy tokenizer.json (the byte pieces, then pieces and merges up to id
+    31 999; <image> 32000, <pad> 32001), CLIP's preprocessor at 336 and
+    processor_config.json; with the same arrays through ``convert_hf``
+    (float32 on the card: the ``params=`` route's tree).  Written once and
+    kept in ``state`` for the phases that read it; ``_release_text_files``
+    removes it."""
     import dataclasses
-    import math
-    import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
-    from mars_tpu_torch import cli
     from mars_tpu_torch.data.coco import COCO_CLASS_NAMES
     from mars_tpu_torch.models import vip_llava as vl, zoo
-    from mars_tpu_torch.ops import int4_matmul as im
     from mars_tpu_torch.text.prompts import VISUAL_PROMPTS, VISUAL_PROMPTS_DESCRIPTIONS
-    from mars_tpu_torch.text.retriever import TorchVipLlava
 
+    if "text_files" in state:
+        return state["text_files"]
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from nltk_minicorpus import ensure_minicorpus
     from vip_llava_files import random_state_dict, tokenizer_spec, write_vip_llava_dir
 
     cfg = dataclasses.replace(vl.VipLlavaConfig(), layers=TEXT_FILES_LAYERS)
-    llama_denses = 7 * TEXT_FILES_LAYERS
     corpus = list(VISUAL_PROMPTS.values()) + list(VISUAL_PROMPTS_DESCRIPTIONS.values()) + list(
         COCO_CLASS_NAMES)
     tmp = tempfile.mkdtemp(prefix="vip_llava_files_")
-    failures, launches_by_fmt = [], {}
-    try:
-        path = os.path.join(tmp, "vip-llava-7b-hf")
-        t0 = time.perf_counter()
-        tensors = random_state_dict(cfg, seed=11, dtype=torch.bfloat16, device="cuda")
-        spec = tokenizer_spec(32000, seed=0, form="legacy", corpus=corpus)
-        spec_s = time.perf_counter() - t0
-        write_vip_llava_dir(path, cfg, tensors, spec, TEXT_FILES_SHARD_BYTES)
-        write_s = time.perf_counter() - t0 - spec_s
-        # the params= route: the same arrays through convert_hf, float32 on the card
-        t0 = time.perf_counter()
-        ref_tree = vl.convert_hf({zoo.vip_llava_key(k): v.float().cpu().numpy()
-                                  for k, v in tensors.items()}, cfg, "cuda")
-        convert_s = time.perf_counter() - t0
-        file_bytes = sum(t.numel() * t.element_size() for t in tensors.values())
-        del tensors
-        rs = np.random.RandomState(2)
-        images = [rs.randint(0, 256, (TEXT_FILES_IMAGE, TEXT_FILES_IMAGE, 3)).astype(np.uint8)
-                  for _ in range(TEXT_ROWS)]
-        for fmt in ("affine", "nf4"):
-            kernel = "matmul_int4" if fmt == "affine" else "matmul_nf4"
-            kw = dict(dtype=torch.bfloat16, quantize_bits=4, int4_format=fmt, draft_tokens=0)
-            torch.cuda.empty_cache()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()  # the params= route's tree
-            t0 = time.perf_counter()
-            vlm = TorchVipLlava(path, **kw)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            load_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-            model_gib = (torch.cuda.memory_allocated() - held) / 2 ** 30
-            rows = _recording_decode(vlm.processor.tokenizer)
-            im.matmul_int4.launches = im.matmul_nf4.launches = 0
-            for k in vl.STATS:
-                vl.STATS[k] = 0
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
-            names, defs = _text_block(vlm, images)
-            torch.cuda.synchronize()
-            block_ms = (time.perf_counter() - t0) * 1e3
-            launches = {"matmul_int4": im.matmul_int4.launches,
-                        "matmul_nf4": im.matmul_nf4.launches}
-            stats = dict(vl.STATS)
-            name_rows, def_rows = rows[:TEXT_ROWS], rows[TEXT_ROWS:]
-            forwards = 1 + _decode_forwards(name_rows, 20) + _decode_forwards(def_rows, 50)
-            want = VISION_DENSES + llama_denses * forwards
-            tokens = sum(len(r) for r in rows)
-            row = {"phase": "text_files", "format": fmt, "rows": TEXT_ROWS,
-                   "llama_layers": TEXT_FILES_LAYERS, "checkpoint_gb": file_bytes / 1e9,
-                   "spec_s": spec_s, "write_s": write_s, "convert_hf_s": convert_s,
-                   "load_s": load_s, "load_peak_memory_gib": load_peak,
-                   "model_memory_gib": model_gib, "block_ms": block_ms, "tokens": tokens,
-                   "tokens_per_s": tokens / block_ms * 1e3,
-                   "block_peak_memory_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
-                   "vision_calls": stats["vision"], "llama_forwards": stats["forwards"],
-                   "forwards_from_tokens": forwards, "launches": launches,
-                   "launches_expected": {kernel: want},
-                   "name_lengths": [len(r) for r in name_rows],
-                   "definition_lengths": [len(r) for r in def_rows],
-                   "first_name": names[0][:60]}
-            row.update(_first_logits(vlm.params, vlm.cfg, vlm.processor, images[0]))
-            launches_by_fmt[kernel] = {"text_files": launches[kernel]}
+    files = state["text_files"] = {"tmp": tmp, "path": os.path.join(tmp, "vip-llava-7b-hf"),
+                                   "cfg": cfg}
+    t0 = time.perf_counter()
+    tensors = random_state_dict(cfg, seed=11, dtype=torch.bfloat16, device="cuda")
+    spec = tokenizer_spec(32000, seed=0, form="legacy", corpus=corpus)
+    files["spec_s"] = time.perf_counter() - t0
+    write_vip_llava_dir(files["path"], cfg, tensors, spec, TEXT_FILES_SHARD_BYTES)
+    files["write_s"] = time.perf_counter() - t0 - files["spec_s"]
+    t0 = time.perf_counter()
+    files["ref_tree"] = vl.convert_hf({zoo.vip_llava_key(k): v.float().cpu().numpy()
+                                       for k, v in tensors.items()}, cfg, "cuda")
+    files["convert_hf_s"] = time.perf_counter() - t0
+    files["checkpoint_gb"] = sum(t.numel() * t.element_size() for t in tensors.values()) / 1e9
+    return files
 
-            ref = TorchVipLlava(params=ref_tree, cfg=cfg, processor=vlm.processor, **kw)
-            same_tree = _trees_equal(vlm.params, ref.params)
-            decoded = len(rows)
-            ref_names, ref_defs = _text_block(ref, images)
-            row.update({"tree_equal_params_route": same_tree,
-                        "tokens_equal_params_route": rows[decoded:] == rows[:decoded],
-                        "answers_equal_params_route": (ref_names, ref_defs) == (names, defs)})
-            emit(row)
-            ok = (launches[kernel] == want and sum(launches.values()) == want
-                  and stats["vision"] == 1 and stats["forwards"] == forwards
-                  and row["first_logits_ok"] and same_tree and row["tokens_equal_params_route"]
-                  and row["answers_equal_params_route"] and len(names) == len(defs) == TEXT_ROWS)
-            if not ok:
-                failures.append(fmt)
-            del vlm, ref
-            torch.cuda.empty_cache()
-        del ref_tree
 
-        nltk_root = ensure_minicorpus(os.path.join(tmp, "nltk"))
-        for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
-            fn.launches = 0
-        for k in vl.STATS:
-            vl.STATS[k] = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = cli.main(TEXT_CLI_ARGS + ["--episodes", "1", "--nltk-path", nltk_root,
-                                        "--vlm-path", path, "--vlm4bit"])
-        cli_s = time.perf_counter() - t0
-        counts = res["text_counts"]
-        want = VISION_DENSES * counts["vision"] + llama_denses * counts["forwards"]
-        row = {"phase": "text_files_cli", "episodes": 1, "wall_s": cli_s,
-               "text_ms": res["text_ms"], "names": [n[:40] for n in res["names"]],
-               "definitions": res["descriptions"], "vision_calls": counts["vision"],
-               "llama_forwards": counts["forwards"],
-               "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
-               "launches_expected": {"matmul_int4": want},
-               "tap_launches": res["launches"]["attention_with_tap"],
-               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "miou": res["miou"], "masks_binary": res["masks_binary"]}
-        emit(row)
-        launches_by_fmt.setdefault("matmul_int4", {})["cli_files"] = counts["matmul_int4"]
-        if not (counts["matmul_int4"] == want and counts["matmul_nf4"] == 0 and want > 0
-                and res["launches"]["attention_with_tap"] == TAPPED_BLOCKS
-                and len(res["names"]) == 1 and res["masks_binary"]
-                and math.isfinite(res["miou"])):
-            failures.append("cli")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def _release_text_files(state):
+    import shutil
+
+    import torch
+
+    files = state.pop("text_files", None)
+    if files:
+        shutil.rmtree(files["tmp"], ignore_errors=True)
+        del files
         torch.cuda.empty_cache()
+
+
+def _files_block(files, images, bits, fmt):
+    """``TorchVipLlava(dir)`` with ``bits``-bit weights (4: ``fmt`` "affine"
+    or "nf4") answers one BlockTextStage-shaped block of TEXT_ROWS images,
+    the counts set to 0 just before and read just after: the 4-bit launches
+    equal 146 per vision call + 7 per LLaMA layer per forward as the token
+    trace implies (none at 8 bits); the loaded tree, the greedy tokens and
+    the answers equal those of the same arrays passed as ``params=`` with
+    the same quantization and the loaded processor; at 4 bits the first
+    forward's logits through the kernel and the plain version.  Load
+    seconds, peak device memory while loading, tokens a second → (row, ok,
+    4-bit launches)."""
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl
+    from mars_tpu_torch.ops import int4_matmul as im
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    kernel = None if bits == 8 else ("matmul_int4" if fmt == "affine" else "matmul_nf4")
+    kw = dict(dtype=torch.bfloat16, quantize_bits=bits, int4_format=fmt, draft_tokens=0)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the params= route's tree
+    t0 = time.perf_counter()
+    vlm = TorchVipLlava(files["path"], **kw)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    model_gib = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    rows = _recording_decode(vlm.processor.tokenizer)
+    im.matmul_int4.launches = im.matmul_nf4.launches = 0
+    for k in vl.STATS:
+        vl.STATS[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    names, defs = _text_block(vlm, images)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"matmul_int4": im.matmul_int4.launches, "matmul_nf4": im.matmul_nf4.launches}
+    stats = dict(vl.STATS)
+    name_rows, def_rows = rows[:TEXT_ROWS], rows[TEXT_ROWS:]
+    forwards = 1 + _decode_forwards(name_rows, 20) + _decode_forwards(def_rows, 50)
+    want = VISION_DENSES + 7 * files["cfg"].layers * forwards if kernel else 0
+    tokens = sum(len(r) for r in rows)
+    row = {"phase": "text_files", "format": fmt if kernel else "int8", "bits": bits,
+           "rows": TEXT_ROWS, "llama_layers": files["cfg"].layers,
+           "checkpoint_gb": files["checkpoint_gb"], "spec_s": files["spec_s"],
+           "write_s": files["write_s"], "convert_hf_s": files["convert_hf_s"],
+           "load_s": load_s, "load_peak_memory_gib": load_peak,
+           "model_memory_gib": model_gib, "block_ms": block_ms, "tokens": tokens,
+           "tokens_per_s": tokens / block_ms * 1e3,
+           "block_peak_memory_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+           "vision_calls": stats["vision"], "llama_forwards": stats["forwards"],
+           "forwards_from_tokens": forwards, "launches": launches,
+           "launches_expected": {kernel or "4-bit": want},
+           "name_lengths": [len(r) for r in name_rows],
+           "definition_lengths": [len(r) for r in def_rows],
+           "first_name": names[0][:60]}
+    if kernel:
+        row.update(_first_logits(vlm.params, vlm.cfg, vlm.processor, images[0]))
+
+    ref = TorchVipLlava(params=files["ref_tree"], cfg=files["cfg"], processor=vlm.processor,
+                        **kw)
+    same_tree = _trees_equal(vlm.params, ref.params)
+    decoded = len(rows)
+    ref_names, ref_defs = _text_block(ref, images)
+    row.update({"tree_equal_params_route": same_tree,
+                "tokens_equal_params_route": rows[decoded:] == rows[:decoded],
+                "answers_equal_params_route": (ref_names, ref_defs) == (names, defs)})
+    ok = ((kernel is None or launches[kernel] == want) and sum(launches.values()) == want
+          and stats["vision"] == 1 and stats["forwards"] == forwards
+          and row.get("first_logits_ok", True) and same_tree
+          and row["tokens_equal_params_route"] and row["answers_equal_params_route"]
+          and len(names) == len(defs) == TEXT_ROWS)
+    del vlm, ref
+    torch.cuda.empty_cache()
+    return row, ok, launches
+
+
+def _files_images():
+    import numpy as np
+
+    rs = np.random.RandomState(2)
+    return [rs.randint(0, 256, (TEXT_FILES_IMAGE, TEXT_FILES_IMAGE, 3)).astype(np.uint8)
+            for _ in range(TEXT_ROWS)]
+
+
+def phase_text_files(state):
+    """ViP-LLaVA-7B from its files (``_text_files_dir``): ``TorchVipLlava(dir)``
+    in int4, then NF4, answers one block (``_files_block``'s checks).  Then
+    one episode of ``cli.main --vlm-path dir --vlm4bit`` without
+    --gt-class-names.  The directory stays for ``phase_text_int8``."""
+    import math
+
+    import torch
+
+    from mars_tpu_torch import cli
+    from mars_tpu_torch.models import vip_llava as vl
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from nltk_minicorpus import ensure_minicorpus
+
+    files = _text_files_dir(state)
+    llama_denses = 7 * files["cfg"].layers
+    images = _files_images()
+    failures, launches_by_fmt = [], {}
+    for fmt in ("affine", "nf4"):
+        row, ok, launches = _files_block(files, images, 4, fmt)
+        emit(row)
+        kernel = "matmul_int4" if fmt == "affine" else "matmul_nf4"
+        launches_by_fmt[kernel] = {"text_files": launches[kernel]}
+        if not ok:
+            failures.append(fmt)
+
+    nltk_root = ensure_minicorpus(os.path.join(files["tmp"], "nltk"))
+    for fn in list(cli.KERNELS.values()) + list(cli.TEXT_KERNELS.values()):
+        fn.launches = 0
+    for k in vl.STATS:
+        vl.STATS[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = cli.main(TEXT_CLI_ARGS + ["--episodes", "1", "--nltk-path", nltk_root,
+                                    "--vlm-path", files["path"], "--vlm4bit"])
+    cli_s = time.perf_counter() - t0
+    counts = res["text_counts"]
+    want = VISION_DENSES * counts["vision"] + llama_denses * counts["forwards"]
+    row = {"phase": "text_files_cli", "episodes": 1, "wall_s": cli_s,
+           "text_ms": res["text_ms"], "names": [n[:40] for n in res["names"]],
+           "definitions": res["descriptions"], "vision_calls": counts["vision"],
+           "llama_forwards": counts["forwards"],
+           "launches": {k: counts[k] for k in cli.TEXT_KERNELS},
+           "launches_expected": {"matmul_int4": want},
+           "tap_launches": res["launches"]["attention_with_tap"],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "miou": res["miou"], "masks_binary": res["masks_binary"]}
+    emit(row)
+    torch.cuda.empty_cache()
+    launches_by_fmt.setdefault("matmul_int4", {})["cli_files"] = counts["matmul_int4"]
+    if not (counts["matmul_int4"] == want and counts["matmul_nf4"] == 0 and want > 0
+            and res["launches"]["attention_with_tap"] == TAPPED_BLOCKS
+            and len(res["names"]) == 1 and res["masks_binary"]
+            and math.isfinite(res["miou"])):
+        failures.append("cli")
     state["text_files_launches"] = launches_by_fmt
     if failures:
         raise AssertionError(f"text files phase failed: {failures}")
+
+
+# the 8-bit text path: the int8 product at a LLaMA layer's three shapes and
+# rows of a decode at batch 1 and 4, a verify round of 4 x 9 and a prefill;
+# the blocks (label, weight bits, KV bits) and the CLI runs (label, flags)
+INT8_SHAPES = ("llama_qkvo", "llama_gate_up", "llama_down")
+INT8_ROWS = (1, 4, 36, 2330)
+TEXT_INT8_BLOCKS = (("int8", 8, None), ("int8_kv8", 8, 8), ("int4_kv8", 4, 8))
+TEXT_INT8_CLI = (("int8", []), ("int8_kv8", ["--vlm-kv8"]))
+# |code x scale - x| <= scale x (1/2 + KV8_ROUNDING): half a step, plus the
+# float32 roundings of 127 / amax, of x times it and of amax / 127
+KV8_ROUNDING = 4 * 127 * 2 ** -24
+
+
+def _int8_products():
+    """The 8-bit route (``quantization.quantized_dense`` on an int8 leaf) on
+    bf16 x at each INT8_SHAPES x INT8_ROWS against a float64 product of the
+    same codes, scale and x rounded to bf16.  Each product x q is exact, so
+    the limit is the two bf16 roundings and float32 summation's worst case
+    in any order: 2^-7 |ref| + 1.01 (K + 2) 2^-24 (|x| |q|) scale.  Timed
+    (CUDA events) beside its bound and bf16 operands on cuBLAS with float32
+    accumulation (the JAX package's route, exact on the same products)."""
+    import torch
+
+    from mars_tpu_torch.models import quantization as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for name in INT8_SHAPES:
+        k, n = next((i, o) for g, i, o in QUANT_SHAPES if g == name)
+        leaf = Q.quantize_kernel(torch.randn((k, n), generator=gen, device="cuda") * 0.02, 8)
+        p = {"kernel": leaf}
+        q64, s64, wbf = leaf["q"].double(), leaf["scale"].double(), leaf["q"].to(torch.bfloat16)
+        for m in INT8_ROWS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            got = Q.quantized_dense(p, x)
+            bf16_route = (torch.matmul(x, wbf).float() * leaf["scale"]).to(torch.bfloat16)
+            x64 = x.double()
+            exact = (x64 @ q64) * s64
+            ref = exact.to(torch.bfloat16).double()
+            tol = 2 ** -7 * exact.abs() + 1.01 * (k + 2) * 2 ** -24 * (x64.abs() @ q64.abs()) * s64
+            err = (got.double() - ref).abs()
+            nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+            flops = 2 * m * k * n
+            bound_ms, bound_by = _bound_ms(nbytes, flops)
+            rows.append({
+                "geometry": name, "shape": [m, k, n], "dtype": "bfloat16",
+                "max_abs_err": err.max().item(), "max_abs_ref": ref.abs().max().item(),
+                "err_over_tol": (err / tol).max().item(),
+                "bf16_operands_err_over_tol": ((bf16_route.double() - ref).abs() / tol).max().item(),
+                "ms": cuda_ms(lambda: Q.quantized_dense(p, x)),
+                "bf16_operands_ms": cuda_ms(
+                    lambda: (torch.matmul(x, wbf).float() * leaf["scale"]).to(torch.bfloat16)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_f32_cuda_core_ms": max(flops / PEAK_FLOPS["float32"],
+                                              nbytes / PEAK_BYTES) * 1e3})
+            del x, got, bf16_route, x64, exact, ref, tol, err
+        del leaf, p, q64, s64, wbf
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _kv8_checked():
+    """Hold the int8 KV cache while it is written: every code and scale
+    ``vip_llava._kv_quant`` returns against the float key or value it came
+    from, |q s - x| <= s (1/2 + KV8_ROUNDING); every write of
+    ``_llama_attention`` to an int8 cache (prefill, decode step, verify)
+    read back from its slot: codes and scales equal to what was quantized,
+    each element of the last slot, where a verify clamps a frozen row's
+    writes, one of those writes' element, every other slot unchanged; and the prefix slots of
+    each ``prefill_prefix`` cache against the keys and values the prefill
+    quantized.  Yields a dict filled on exit: the worst ratio of each (<= 1
+    holds), the codes and writes checked, the slots found wrong (0 holds),
+    and the prefix cache's bytes against bf16's at its length."""
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl
+
+    quant, prefill, attention = vl._kv_quant, vl.prefill_prefix, vl._llama_attention
+    out = {"codes_checked": 0, "prefix_codes_checked": 0, "writes_checked": 0}
+    zero = lambda dtype: torch.zeros((), dtype=dtype, device="cuda")  # noqa: E731
+    worst = {"returned": zero(torch.float64), "written": zero(torch.float64)}
+    wrong = {"slots_wrong": zero(torch.int64), "other_slots_changed": zero(torch.int64),
+             "last_slot_wrong": zero(torch.int64), "clamped_writes": zero(torch.int64)}
+    prefilling, quantized = [], []
+
+    def ratio(q, s, x):
+        s = s.double()
+        return ((q.double() * s - x.double()).abs() / (s * (0.5 + KV8_ROUNDING))).amax()
+
+    def checked_quant(x):
+        q, s = quant(x)
+        worst["returned"] = torch.maximum(worst["returned"], ratio(q, s, x))
+        out["codes_checked"] += q.numel()
+        quantized.append((q, s))
+        if prefilling:
+            prefilling[-1].append(x)
+        return q, s
+
+    def checked_attention(p, x, positions, cfg, kv_cache=None, cache_pos=None, live=None):
+        if kv_cache is None or len(kv_cache) != 4:
+            return attention(p, x, positions, cfg, kv_cache, cache_pos, live)
+        before, n = [t.clone() for t in kv_cache], len(quantized)
+        res = attention(p, x, positions, cfg, kv_cache, cache_pos, live)
+        (kq, ks), (vq, vs) = quantized[n:n + 2]
+        del quantized[n:]
+        b, l = x.shape[0], x.shape[1] if live is None else live
+        slots, steps = kv_cache[0].shape[1], torch.arange(l, device=x.device)[None]
+        cols = (cache_pos[:, None] if isinstance(cache_pos, torch.Tensor) else cache_pos) + steps
+        cols = cols.expand(b, l)
+        slot = cols.clamp(max=slots - 1)
+        last_hits = (slot == slots - 1).sum(1, keepdim=True)
+        sole = (cols < slots - 1) | (last_hits == 1)  # each such slot holds its own write
+        rows = torch.arange(b, device=x.device)[:, None]
+        written = torch.zeros((b, slots), dtype=torch.bool, device=x.device)
+        written[rows, slot] = True
+        for buf, old, new in zip(kv_cache, before, (kq, vq, ks, vs)):
+            new = new.to(buf.dtype)
+            got = buf[rows, slot]
+            wrong["slots_wrong"] += ((got != new).flatten(2).any(2) & sole).sum()
+            # after a clamped verify each element of the last slot is that
+            # element of one of the writes clamped into it (the scatter's
+            # threads race on it element by element)
+            hit = (slot == slots - 1).reshape((b, l) + (1,) * (new.dim() - 2))
+            held = ((new == buf[:, slots - 1][:, None]) & hit).any(1).flatten(1).all(1)
+            wrong["last_slot_wrong"] += ((last_hits[:, 0] > 1) & ~held).sum()
+            wrong["other_slots_changed"] += ((buf != old).flatten(2).any(2) & ~written).sum()
+        wrong["clamped_writes"] += (cols > slots - 1).sum()
+        out["writes_checked"] += b * l
+        return res
+
+    def checked_prefill(*a, **kw):
+        prefilling.append([])
+        try:
+            caches = prefill(*a, **kw)
+        finally:
+            xs = prefilling.pop()
+        lp = a[1].shape[1]
+        if len(caches[0]) == 4:
+            for i, (kq, vq, ks, vs) in enumerate(caches):
+                for q, s, x in ((kq, ks, xs[2 * i]), (vq, vs, xs[2 * i + 1])):
+                    worst["written"] = torch.maximum(worst["written"],
+                                                     ratio(q[:, :lp], s[:, :lp], x))
+                    out["prefix_codes_checked"] += x.numel()
+            out["cache_positions"] = caches[0][0].shape[1]
+            out["cache_bytes"] = sum(t.numel() * t.element_size() for c in caches for t in c)
+            out["bf16_cache_bytes"] = sum(2 * c[0].numel() * 2 for c in caches)
+        return caches
+
+    vl._kv_quant, vl.prefill_prefix = checked_quant, checked_prefill
+    vl._llama_attention = checked_attention
+    try:
+        yield out
+    finally:
+        vl._kv_quant, vl.prefill_prefix, vl._llama_attention = quant, prefill, attention
+    out["max_ratio_returned"] = worst["returned"].item()
+    out["max_ratio_written"] = worst["written"].item()
+    out.update({k: int(v.item()) for k, v in wrong.items()})
+    if "cache_bytes" in out:
+        out["cache_bytes_over_bf16"] = out["cache_bytes"] / out["bf16_cache_bytes"]
+
+
+def _kv8_clamped_write(vlm):
+    """A verify forward (K + 1 rows) over an int8 cache of TEXT_ROWS rows
+    whose last two rows start within K slots of the buffer's end, as a
+    frozen row of the batched loop may: their writes past it clamp into
+    the last slot.  Run under ``_kv8_checked``, which holds those writes."""
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl
+
+    cfg, p = vlm.cfg, vlm.params["language"]["layer0"]["attn"]
+    rows, slots = vlm.draft_tokens + 1, 64
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x0 = torch.randn((TEXT_ROWS, 48, cfg.hidden), generator=gen, device="cuda")
+    x1 = torch.randn((TEXT_ROWS, rows, cfg.hidden), generator=gen, device="cuda")
+    cache = vl._alloc_cache(TEXT_ROWS, slots, cfg, torch.bfloat16, "cuda", 8)
+    pos0 = torch.arange(48, device="cuda")[None].expand(TEXT_ROWS, 48)
+    vl._llama_attention(p, x0.to(torch.bfloat16), pos0, cfg, cache, 0)
+    cp = torch.tensor([40, 48, slots - 4, slots - 1], device="cuda")[:TEXT_ROWS]
+    pos1 = cp[:, None] + torch.arange(rows, device="cuda")[None]
+    vl._llama_attention(p, x1.to(torch.bfloat16), pos1, cfg, cache, cp)
+
+
+def _kv8_ok(kv) -> bool:
+    return (kv["max_ratio_returned"] <= 1.0 and kv["max_ratio_written"] <= 1.0
+            and kv["codes_checked"] > 0 and kv["prefix_codes_checked"] > 0
+            and kv["writes_checked"] > 0 and kv["clamped_writes"] > 0
+            and kv["slots_wrong"] == 0 and kv["other_slots_changed"] == 0
+            and kv["last_slot_wrong"] == 0)
+
+
+def _attention_limit(q, k, v, ek, ev, valid):
+    """Float64 attention of the scaled queries ``q`` (b, l, h, hd) over keys
+    and values (b, S, h, hd) → (output, the most a bf16 attention over keys
+    and values each within ``ek``, ``ev`` of these can differ from another
+    such, or from this).  Each logit moves by at most d = sum |q| e_k (1 +
+    2^-9) + 2^-9 |logit| + hd 2^-24 sum |q| (|k| + e_k) (bf16 logits,
+    float32 sums), each probability by a factor within exp(+-2 D), D = max d
+    + 2^-18 (float32 softmax), G = exp(2 D)(1 + 2^-9) - 1 of p with the bf16
+    probabilities; so the outputs differ by at most (2 G + (1 + G)(2^-8 + S
+    2^-23)) sum p (|v| + e_v) + (1 + G) sum p e_v (float32 sums over S
+    slots, bf16 outputs)."""
+    import torch
+
+    logits = torch.einsum("blhd,bmhd->bhlm", q, k)
+    qa = q.abs()
+    d = (torch.einsum("blhd,bmhd->bhlm", qa, ek) * (1 + 2 ** -9) + 2 ** -9 * logits.abs()
+         + q.shape[-1] * 2 ** -24 * torch.einsum("blhd,bmhd->bhlm", qa, k.abs() + ek))
+    big_d = d.masked_fill(~valid, 0).amax(-1) + 2 ** -18  # (b, h, l)
+    g = (torch.exp(2 * big_d) * (1 + 2 ** -9) - 1).transpose(1, 2)[..., None]  # (b, l, h, 1)
+    prob = torch.softmax(logits.masked_fill(~valid, float("-inf")), dim=-1)
+    mag = torch.einsum("bhlm,bmhd->blhd", prob, v.abs() + ev)
+    step = torch.einsum("bhlm,bmhd->blhd", prob, ev)
+    out = torch.einsum("bhlm,bmhd->blhd", prob, v)
+    limit = (2 * g + (1 + g) * (2 ** -8 + k.shape[1] * 2 ** -23)) * mag + (1 + g) * step
+    return out, limit
+
+
+def _kv8_attention_held(vlm, slots):
+    """The int8 cache's dequantizing read held: LLaMA layer 0's attention
+    (before its output projection) over a bf16 cache and an int8 cache that
+    the same prefill of ``slots - 16`` seeded hidden states filled, at a
+    decode step (1 query row) and a verify (K + 1 rows), each against a
+    limit of ``_attention_limit``: (read) against a float64 attention over
+    the int8 cache's codes times its scales, keys and values within 2^-9 of
+    those (the read's bf16 rounding); (half step) against the bf16 cache's
+    attention, each dequantized key or value within s (1/2 + KV8_ROUNDING)
+    + 2^-9 (|x| + that) of the bf16 one → the worst |difference| / limit of
+    each (<= 1 holds), the largest difference, the largest logit shift D."""
+    import torch
+
+    from mars_tpu_torch.models import layers as L, vip_llava as vl
+
+    cfg, p = vlm.cfg, vlm.params["language"]["layer0"]["attn"]
+    hd, b, ctx, rows = cfg.hidden // cfg.heads, TEXT_ROWS, slots - 16, vlm.draft_tokens + 1
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf = torch.bfloat16
+    x0 = torch.randn((b, ctx, cfg.hidden), generator=gen, device="cuda").to(bf)
+    x1 = torch.randn((b, rows, cfg.hidden), generator=gen, device="cuda").to(bf)
+    pos0 = torch.arange(ctx, device="cuda")[None].expand(b, ctx)
+    cp = torch.full((b,), ctx, dtype=torch.long, device="cuda")
+    pos1 = (ctx + torch.arange(rows, device="cuda"))[None].expand(b, rows)
+    real_reduce, seen = L.dense_reduce, []
+
+    def captured(w, o, sliced):  # the attention output before its projection
+        seen.append(o)
+        return real_reduce(w, o, sliced)
+
+    caches = {bits: vl._alloc_cache(b, slots, cfg, bf, "cuda", bits) for bits in (None, 8)}
+    for cache in caches.values():
+        vl._llama_attention(p, x0, pos0, cfg, cache, 0)
+    res = {"slots": slots, "context": ctx}
+    for label, l in (("decode", 1), ("verify", rows)):
+        outs, after = {}, {}
+        L.dense_reduce = captured
+        try:
+            for bits, cache in caches.items():  # each from the prefill's state
+                after[bits] = tuple(t.clone() for t in cache)
+                vl._llama_attention(p, x1[:, :l], pos1[:, :l], cfg, after[bits], cp)
+                outs[bits] = seen.pop().double().reshape(b, l, cfg.heads, hd)
+        finally:
+            L.dense_reduce = real_reduce
+        rep = cfg.heads // after[None][0].shape[2]
+        grow = lambda t: t.double().repeat_interleave(rep, dim=2)  # noqa: E731
+        k, v = grow(after[None][0]), grow(after[None][1])
+        kq, vq = grow(after[8][0]) * grow(after[8][2]), grow(after[8][1]) * grow(after[8][3])
+        half_k, half_v = grow(after[8][2]) * (0.5 + KV8_ROUNDING), grow(after[8][3]) * (
+            0.5 + KV8_ROUNDING)
+        q = vl._rope(L.dense(p["q"], x1[:, :l]).reshape(b, l, cfg.heads, hd), pos1[:, :l],
+                     cfg.rope_theta)
+        q = (q * hd ** -0.5).double()  # as the attention scales it, in bf16
+        valid = (torch.arange(slots, device="cuda")[None, None, None]
+                 <= pos1[:, None, :l, None])
+        row = {"query_rows": l, "max_abs_out": outs[None].abs().max().item()}
+        for check, ref_k, ref_v, ek, ev, other in (
+                ("read", kq, vq, 2 ** -9 * kq.abs(), 2 ** -9 * vq.abs(), None),
+                ("half_step", k, v, half_k + 2 ** -9 * (k.abs() + half_k),
+                 half_v + 2 ** -9 * (v.abs() + half_v), outs[None])):
+            exact, limit = _attention_limit(q, ref_k, ref_v, ek, ev, valid)
+            err = (outs[8] - (exact if other is None else other)).abs()
+            row[check] = {"err_over_limit": (err / limit).max().item(),
+                          "max_abs_err": err.max().item()}
+            del exact, limit, err
+        res[label] = row
+        del after, k, v, kq, vq, half_k, half_v
+    del caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def _replayed_equal(vlm, calls) -> bool:
+    """Rerun each recorded ``generate_batch`` call as it ran (speculating):
+    whether every row decodes as it did."""
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    same = True
+    for images, prompts, kw, spec_out in list(calls):
+        decoded = len(vlm.processor.tokenizer.rows)
+        TorchVipLlava.generate_batch(vlm, images, prompts, **kw)  # not the recorder
+        same = same and vlm.processor.tokenizer.rows[decoded:] == list(spec_out)
+    return same
+
+
+def _kv8_read_ms(vlm, positions):
+    """One LLaMA layer's attention at a decode step of TEXT_ROWS rows over
+    a cache of ``positions`` slots, bf16 cache against the int8 one (the
+    same 8-bit projections: the difference is the int8 cache's four
+    scatters and its dequantizing read)."""
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl
+
+    cfg, p = vlm.cfg, vlm.params["language"]["layer0"]["attn"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((TEXT_ROWS, 1, cfg.hidden), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.full((TEXT_ROWS,), positions - 8, dtype=torch.long, device="cuda")
+    out = {}
+    for label, bits in (("bf16_cache_ms", None), ("kv8_cache_ms", 8)):
+        cache = vl._alloc_cache(TEXT_ROWS, positions, cfg, torch.bfloat16, "cuda", bits)
+        out[label] = cuda_ms(lambda: vl._llama_attention(p, x, pos[:, None], cfg, cache, pos))
+        del cache
+    out["kv8_extra_ms_per_forward"] = cfg.layers * (out["kv8_cache_ms"] - out["bf16_cache_ms"])
+    return out
+
+
+def _int8_block(label, bits, kv_bits, images):
+    """One BlockTextStage-shaped block through ``TorchVipLlava.generate_batch``
+    at full width (seeded random weights, ``bits``-bit, the int8 KV cache
+    with ``kv_bits=8``), speculating as the CLI does, the counts set to 0
+    just before and read just after; then the same requests decoded plainly
+    (``_plain_splits``: a stream splits only under SPLIT_REL_GAP), with the
+    int8 KV cache held (``_kv8_checked``) in that rerun, its prefix filled
+    anew, and with the int8 cache in a speculative rerun too (the verify
+    rounds' writes; its rows equal to the first run's) and in a verify whose
+    writes clamp (``_kv8_clamped_write``), and its dequantizing read held
+    (``_kv8_attention_held``) → (row, ok, 4-bit launches)."""
+    import gc
+
+    import torch
+
+    from mars_tpu_torch.models import vip_llava as vl, zoo
+    from mars_tpu_torch.ops import int4_matmul as im
+    from mars_tpu_torch.text.retriever import TorchVipLlava
+
+    torch.cuda.empty_cache()
+    params, cfg = zoo.build_vip_llava(0, bits, "affine")
+    vlm = TorchVipLlava(params=params, cfg=cfg, processor=StandInProcessor(cfg), kv_bits=kv_bits)
+    del params
+    calls = _recorded_batches(vlm)
+    real_prefill, prefill_ms = vl.prefill_prefix, []
+
+    def timed_prefill(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_prefill(*a, **k)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    vl.prefill_prefix = timed_prefill
+    im.matmul_int4.launches = im.matmul_nf4.launches = 0
+    for k in vl.STATS:
+        vl.STATS[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        names, defs = _text_block(vlm, images)
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        vl.prefill_prefix = real_prefill
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"matmul_int4": im.matmul_int4.launches, "matmul_nf4": im.matmul_nf4.launches}
+    stats = dict(vl.STATS)
+    want = VISION_DENSES * stats["vision"] + LLAMA_DENSES * stats["forwards"] if bits == 4 else 0
+    rows = vlm.processor.tokenizer.rows
+    tokens = sum(len(r) for r in rows)
+    decode_ms = block_ms - sum(prefill_ms)
+    row = {"phase": "text_int8", "block": label, "weight_bits": bits, "kv_bits": kv_bits,
+           "rows": TEXT_ROWS, "draft_tokens": vlm.draft_tokens, "block_ms": block_ms,
+           "prefill_calls": len(prefill_ms), "prefill_ms": prefill_ms,
+           "llama_forwards": stats["forwards"], "vision_calls": stats["vision"],
+           "spec_rounds": stats["rounds"], "verify_rounds": stats["verify_rounds"],
+           "accepted_drafts": stats["accepted"],
+           "decode_ms_per_step": decode_ms / max(stats["forwards"] - 1, 1),
+           "tokens": tokens, "tokens_per_s": tokens / block_ms * 1e3,
+           "peak_memory_gib": peak, "launches": launches, "launches_expected": want,
+           "name_lengths": [len(r) for r in rows[:TEXT_ROWS]],
+           "definition_lengths": [len(r) for r in rows[TEXT_ROWS:2 * TEXT_ROWS]],
+           "first_name": names[0][:60]}
+    vlm._batch_prefix_cache.clear()  # the plain rerun fills its prefix anew
+    with _kv8_checked() as kv:
+        compared, splits, worst = _plain_splits(vlm, calls)
+        if kv_bits == 8:  # the verify rounds' writes held too, and clamped ones
+            vlm._batch_prefix_cache.clear()
+            kv["speculative_rerun_equal"] = _replayed_equal(vlm, calls)
+            _kv8_clamped_write(vlm)
+    row.update({"rows_compared": compared, "rows_split": splits, "max_split_rel_gap": worst,
+                "split_limit": SPLIT_REL_GAP})
+    kv_ok = True
+    if kv_bits == 8:
+        row["kv8"] = kv
+        kv["read"] = _kv8_attention_held(vlm, kv["cache_positions"])
+        kv_ok = (_kv8_ok(kv) and kv["speculative_rerun_equal"]
+                 and all(kv["read"][k][c]["err_over_limit"] <= 1.0
+                         for k in ("decode", "verify") for c in ("read", "half_step")))
+        if bits == 8:
+            kv.update(_kv8_read_ms(vlm, kv["cache_positions"]))
+    ok = (sum(launches.values()) == want and launches["matmul_int4"] == want
+          and len(prefill_ms) == 1 and stats["vision"] == 1
+          and len(names) == len(defs) == TEXT_ROWS and compared == 2 * TEXT_ROWS
+          and worst < SPLIT_REL_GAP and kv_ok)
+    del vlm, calls
+    gc.collect()  # the recorded wrapper and the model hold each other
+    torch.cuda.empty_cache()
+    return row, ok, launches
+
+
+def phase_text_int8(state):
+    """The text path's default on the card: ViP-LLaVA-7B with 8-bit weights
+    (what ``cli.main`` builds without a bit flag) and the int8 KV cache
+    (``--vlm-kv8``).  From files first: ``_text_files_dir``'s directory read
+    through ``TorchVipLlava(dir)`` at 8 bits (``_files_block``: tree and
+    tokens equal to the ``params=`` route, load seconds and peak memory),
+    then the directory goes; the int8 product held (``_int8_products``);
+    one speculative block each at 8 bits, 8 bits + kv8 and int4 + kv8
+    (``_int8_block``: 4-bit launches 0 at 8 bits, exact at int4; streams
+    against plain decodes; the int8 KV codes and the cache's bytes; one
+    layer's attention read over the int8 cache against bf16's); then
+    ``cli.main`` without --gt-class-names or a bit flag, and with
+    --vlm-kv8 (``_text_cli_run``'s checks, no 4-bit launch)."""
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from nltk_minicorpus import ensure_minicorpus
+
+    failures, launches = [], {}
+    try:
+        files = _text_files_dir(state)
+        row, ok, _ = _files_block(files, _files_images(), 8, "affine")
+        emit(row)
+        if not ok:
+            failures.append("files")
+    finally:
+        _release_text_files(state)
+
+    products = _int8_products()
+    emit({"phase": "text_int8_products", "rows": products})
+    if not all(r["err_over_tol"] <= 1.0 for r in products):
+        failures.append("products")
+
+    rs = np.random.RandomState(3)
+    images = [(rs.rand(336, 336, 3) * 255).astype(np.uint8) for _ in range(TEXT_ROWS)]
+    for label, bits, kv_bits in TEXT_INT8_BLOCKS:
+        row, ok, counts = _int8_block(label, bits, kv_bits, images)
+        emit(row)
+        if bits == 4:
+            launches[f"block_{label}"] = counts["matmul_int4"]
+        if not ok:
+            failures.append(f"block_{label}")
+
+    nltk_root = ensure_minicorpus(tempfile.mkdtemp(prefix="nltk_mini_"))
+    for label, flags in TEXT_INT8_CLI:
+        row, ok, _ = _text_cli_run(label, flags, TEXT_CLI_EPISODES, nltk_root, None)
+        emit(row)
+        if not ok:
+            failures.append(f"cli_{label}")
+    state["text_int8_launches"] = {"matmul_int4": launches}
+    if failures:
+        raise AssertionError(f"8-bit text phase failed: {failures}")
 
 
 class _Interrupted(RuntimeError):
@@ -4307,7 +4867,8 @@ def _quant_entry(state, fmt, line):
     paths = {"text_block": state.get("text_launches", {}).get(f"matmul_{fmt}", 0),
              **{path: n for path, n in state.get("text_cli_launches", {}).items()
                 if (path == "cli_nf4") == (fmt == "nf4")},
-             **state.get("text_files_launches", {}).get(f"matmul_{fmt}", {})}
+             **state.get("text_files_launches", {}).get(f"matmul_{fmt}", {}),
+             **state.get("text_int8_launches", {}).get(f"matmul_{fmt}", {})}
     verify = [r for r in rows if "faster_than_library" in r]  # the verify and boundary rows
     return {"name": f"matmul_{fmt}", "route": "cuda",
             "source": "mars_tpu_torch/csrc/int4_matmul.cu",
@@ -4347,7 +4908,7 @@ def main():
                   phase_profile, phase_profile_proposals, phase_profile_bf16,
                   phase_profile_five_shot, phase_4bit_kernels,
                   phase_text_path, phase_profile_text, phase_text_cli, phase_text_files,
-                  phase_fold_run, phase_real_files,
+                  phase_text_int8, phase_fold_run, phase_real_files,
                   phase_matcher_configs, phase_int8_towers, phase_semantic_sam,
                   phase_parallel, phase_train):
         t0 = time.perf_counter()
@@ -4357,6 +4918,7 @@ def main():
             traceback.print_exc()
             failed.append(phase.__name__)
         print(f"# {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    _release_text_files(state)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

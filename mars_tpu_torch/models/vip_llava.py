@@ -46,6 +46,24 @@ from mars_tpu_torch.ops import int4_matmul
 # among them, draft tokens accepted: counted where they run
 STATS = {"vision": 0, "forwards": 0, "rounds": 0, "verify_rounds": 0, "accepted": 0}
 
+# A cached forward of fewer rows (a decode step; a speculative verify of
+# K + 1 rows) runs at this many query rows, and a decode's KV buffer holds
+# this many slots past its last token, speculating or not.  cuBLAS and
+# torch's reductions sum a row in an order set by the shapes (a GEMM's by
+# its row count, attention's by the buffer's length), so a row then gets
+# the same bits in a plain decode step as in a verify forward, and
+# speculative decoding gives the tokens plain decoding gives, for every
+# K < VERIFY_SLACK.  Not with 4-bit weights: their kernels take a route
+# by the row count (the GEMV at a decode step's rows, the skinny GEMM at a
+# verify's), which padding would trade away, and the routes sum apart, so
+# there the streams may split where two logits are nearly tied.
+VERIFY_SLACK = 16
+
+
+def kv_slack(draft_tokens: int) -> int:
+    """KV slots a decode allocates past its last token, speculating or not."""
+    return max(VERIFY_SLACK, draft_tokens + 1)
+
 
 @dataclass(frozen=True)
 class VipLlavaConfig:
@@ -136,6 +154,18 @@ def image_features(p, pixel_values, cfg: VipLlavaConfig):
 # LLaMA decoder
 # --------------------------------------------------------------------------
 
+def _padded_rows(x, rows: int):
+    """x (B, L, ...) zero-padded to ``rows`` along L."""
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, rows - x.shape[1]))
+
+
+def _four_bit(layer) -> bool:
+    """Whether a LLaMA layer's dense kernels are 4-bit (int4 or NF4)."""
+    return any(isinstance(d["kernel"], dict) and ("q4" in d["kernel"] or "nf4" in d["kernel"])
+               for d in list(layer["attn"].values()) + list(layer["mlp"].values())
+               if isinstance(d, dict) and "kernel" in d)
+
+
 def _rms_norm(w, x, eps: float):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -160,23 +190,28 @@ def _kv_quant(x):
     return torch.round(xf * (127.0 / s)).to(torch.int8), s * (1.0 / 127.0)
 
 
-def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_pos=None):
+def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_pos=None,
+                     live: Optional[int] = None):
     """Self-attention with RoPE and GQA.  With ``kv_cache`` = (K, V), each
     (B, MAX, KVH, hd), the new keys and values are written IN PLACE at
     ``cache_pos`` (an int, or a (B,) tensor for per-row positions, which
     scatters only the written slots) and attention runs over the whole
     cache, masked beyond each query's position.  A 4-tuple (K_i8, V_i8,
     k_scale, v_scale) is the int8 cache: keys and values are quantized per
-    token and head as they are written and dequantized for the read."""
-    b, l, d = x.shape
+    token and head as they are written and dequantized for the read.
+    ``live`` < L: only the first ``live`` rows are tokens; the rest are
+    padding (``llama_forward``), which writes nothing to the cache."""
+    b, rows, d = x.shape
+    l = rows if live is None else live
     hd = d // cfg.heads
     sliced = _sliced(p, d)
     if sliced:
         x = L.model_input(x)
     heads, kv_heads = L.out_features(p["q"]) // hd, L.out_features(p["k"]) // hd
-    q = _rope(L.dense(p["q"], x).reshape(b, l, heads, hd), positions, cfg.rope_theta)
-    k = _rope(L.dense(p["k"], x).reshape(b, l, kv_heads, hd), positions, cfg.rope_theta)
-    v = L.dense(p["v"], x).reshape(b, l, kv_heads, hd)
+    q = _rope(L.dense(p["q"], x).reshape(b, rows, heads, hd), positions, cfg.rope_theta)
+    k = _rope(L.dense(p["k"], x).reshape(b, rows, kv_heads, hd), positions,
+              cfg.rope_theta)[:, :l]
+    v = L.dense(p["v"], x).reshape(b, rows, kv_heads, hd)[:, :l]
 
     if kv_cache is None:
         keys, values, kv_positions = k, v, positions
@@ -188,7 +223,7 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
         else:
             news = (k, v)
         if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
-            rows = torch.arange(b, device=x.device)[:, None]
+            brow = torch.arange(b, device=x.device)[:, None]
             cols = cache_pos[:, None] + torch.arange(l, device=x.device)[None]
             if l > 1:
                 # a frozen row of the batched speculative loop may verify
@@ -196,7 +231,7 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
                 # no live query attends (JAX drops them)
                 cols = cols.clamp(max=kv_cache[0].shape[1] - 1)
             for buf, new in zip(kv_cache, news):
-                buf[rows, cols] = new.to(buf.dtype)
+                buf[brow, cols] = new.to(buf.dtype)
         else:
             for buf, new in zip(kv_cache, news):
                 buf[:, cache_pos:cache_pos + l] = new.to(buf.dtype)
@@ -218,13 +253,15 @@ def _llama_attention(p, x, positions, cfg: VipLlavaConfig, kv_cache=None, cache_
         valid = valid & (kv_positions[:, None, None, :] <= cp + l - 1)
     logits = logits.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-    out = torch.einsum("bhlm,bmhd->blhd", probs, values).reshape(b, l, heads * hd)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, values).reshape(b, rows, heads * hd)
     return L.dense_reduce(p["o"], out, sliced), kv_cache
 
 
-def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None):
+def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None,
+                 live: Optional[int] = None):
+    live = x.shape[1] if live is None else live
     h, kv_cache = _llama_attention(p["attn"], _rms_norm(p["input_ln"], x, cfg.rms_eps),
-                                   positions, cfg, kv_cache, cache_pos)
+                                   positions, cfg, kv_cache, cache_pos, live)
     x = x + h
     h = _rms_norm(p["post_ln"], x, cfg.rms_eps)
     sliced = _sliced(p["attn"], x.shape[-1])
@@ -236,16 +273,24 @@ def _llama_layer(p, x, positions, cfg, kv_cache=None, cache_pos=None):
 
 
 def llama_forward(p, embeds, positions, cfg: VipLlavaConfig, kv_caches=None, cache_pos=None):
-    """embeds (B, L, D) → (logits (B, L, V), the caches, written in place)."""
+    """embeds (B, L, D) → (logits (B, L, V), the caches, written in place).
+    A cached forward of L < VERIFY_SLACK rows without 4-bit weights runs at
+    VERIFY_SLACK: zero rows after the L tokens, at the last one's position,
+    whose keys and values are not written and whose logits are dropped."""
     STATS["forwards"] += 1
+    live = embeds.shape[1]
     x = embeds
+    if kv_caches is not None and live < VERIFY_SLACK and not _four_bit(p["layer0"]):
+        x = _padded_rows(embeds, VERIFY_SLACK)
+        positions = torch.cat(
+            [positions, positions[:, -1:].expand(-1, VERIFY_SLACK - live)], dim=1)
     for i in range(cfg.layers):
         cache = None if kv_caches is None else kv_caches[i]
-        x, _ = _llama_layer(p[f"layer{i}"], x, positions, cfg, cache, cache_pos)
+        x, _ = _llama_layer(p[f"layer{i}"], x, positions, cfg, cache, cache_pos, live)
     x = _rms_norm(p["norm"], x, cfg.rms_eps)
     lm = p["lm_head"]
     logits = L.dense({"kernel": lm}, x) if isinstance(lm, dict) else x @ lm
-    return logits, kv_caches
+    return logits[:, :live], kv_caches
 
 
 # --------------------------------------------------------------------------
@@ -355,18 +400,19 @@ def generate_greedy(p, input_ids, pixel_values, cfg: VipLlavaConfig, max_new_tok
     else:
         embeds = embed_multimodal(p, input_ids, pixel_values, cfg)
     positions = (prefix_len + torch.arange(l0, device=dev))[None].expand(b, l0)
-    # a verify forward writes K + 1 slots past the accepted length
-    max_len = prefix_len + l0 + max_new_tokens + (draft_tokens + 1 if draft_tokens else 0)
+    end = prefix_len + l0 + max_new_tokens
     if inplace_prefix:
         if prefix_kv is None:
             raise ValueError("inplace_prefix needs prefix_kv")
-        if prefix_kv[0][0].shape[1] < max_len:
+        # a verify forward writes K + 1 slots past the accepted length
+        need = end + (draft_tokens + 1 if draft_tokens else 0)
+        if prefix_kv[0][0].shape[1] < need:
             raise ValueError(f"inplace prefix_kv length {prefix_kv[0][0].shape[1]} < required "
-                             f"{max_len} (prefill with max_len >= this)")
+                             f"{need} (prefill with max_len >= this)")
         caches = prefix_kv
     else:
         bits = (8 if len(prefix_kv[0]) == 4 else None) if prefix_kv is not None else kv_bits
-        caches = [_alloc_cache(b, max_len, cfg, embeds.dtype, dev, bits,
+        caches = [_alloc_cache(b, end + kv_slack(draft_tokens), cfg, embeds.dtype, dev, bits,
                                _kv_heads(lang[f"layer{i}"], cfg)) for i in range(cfg.layers)]
         if prefix_kv is not None:
             for cache, pcache in zip(caches, prefix_kv):

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import glob
 import os
+import warnings
 from collections import Counter, OrderedDict
 from dataclasses import dataclass
 from typing import List, Optional, Protocol, Sequence, Tuple
@@ -88,8 +89,10 @@ class TorchVipLlava:
     ``quantize_bits`` (8, or 4 with ``int4_format`` "affine" or "nf4")
     quantizes the dense kernels, as ``JaxVipLlava`` does.
     ``draft_tokens``, ``ngram``, ``draft_gate``: prompt-lookup speculative
-    decoding (exact greedy; 0 draft tokens turns it off); ``kv_bits=8``:
-    the int8 KV cache."""
+    decoding (exact greedy; 0 draft tokens turns it off; with fewer than
+    ``vl.VERIFY_SLACK`` and weights of 8 or 16 bits its tokens are bit for
+    bit plain decoding's, and more warns that they may not be);
+    ``kv_bits=8``: the int8 KV cache."""
 
     # Largest device batch per decode; longer request lists are chunked.
     MAX_DECODE_BATCH = 8
@@ -113,6 +116,11 @@ class TorchVipLlava:
                     f"TorchVipLlava: the ViP-LLaVA checkpoint and processor files are not all "
                     f"at {model_path} (missing: {', '.join(missing)}); pass params= "
                     f"(models.zoo.build_vip_llava for random weights) and processor= instead")
+        if draft_tokens >= vl.VERIFY_SLACK:
+            warnings.warn(f"draft_tokens={draft_tokens}: a verify forward of more than "
+                          f"{vl.VERIFY_SLACK} rows sums in another order than a plain decode "
+                          f"step, so speculative and plain decoding may split where two "
+                          f"logits are nearly tied")
         self.draft_tokens, self.ngram, self.draft_gate = draft_tokens, ngram, draft_gate
         self.kv_bits = kv_bits
         self.processor = processor if processor is not None else processor_lib.load(model_path)
@@ -142,8 +150,9 @@ class TorchVipLlava:
     def _inplace_buffer_len(self, prefix_len: int, bucket: int) -> int:
         """Allocation length of the full-decode-length KV buffer of the
         in-place chained flow; >= ``_inplace_need`` for every retriever
-        budget."""
-        return prefix_len + bucket + self._INPLACE_BUDGET + self._draft_slack()
+        budget, and the same whether the retriever speculates or not
+        (``vl.kv_slack``)."""
+        return prefix_len + bucket + self._INPLACE_BUDGET + vl.kv_slack(self.draft_tokens)
 
     def _inplace_need(self, prefix_len: int, bucket: int, budget: int) -> int:
         return prefix_len + bucket + budget + self._draft_slack()

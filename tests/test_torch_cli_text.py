@@ -11,6 +11,8 @@ and ``--text-block 0``.  Per episode the class names, definitions and
 merged masks must be equal (bitwise), and at the same block the VLM's
 requests (drawn images bitwise, prompts, budgets, batch shapes).
 """
+import argparse
+import dataclasses
 import os
 
 import jax
@@ -239,3 +241,58 @@ def test_cli_names_the_class_through_the_files(tiny_towers, monkeypatch, nltk_ro
     assert got["names"] == want["names"] and len(got["names"]) == 2
     assert got["descriptions"] == want["descriptions"]
     assert any(n.strip() for n in got["names"]), got["names"]
+
+
+# the tiny directory widened so that dense kernels reach quantize_params'
+# 2^14 elements (LLaMA q, o and the MLP; CLIP's MLP), input dims multiples of 64
+WIDE_CFG = dataclasses.replace(VLM_CFG, v_hidden=64, v_intermediate=256, hidden=128,
+                               intermediate=256)
+LEAF_KEYS = {(8, "affine"): {"q", "scale"}, (4, "affine"): {"q4", "scale"},
+             (4, "nf4"): {"nf4", "bscale"}}
+
+
+@pytest.fixture(scope="module")
+def wide_vlm_dir(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("vip_llava_wide"))
+    sd = random_state_dict(WIDE_CFG, seed=8, dtype=torch.float32)
+    write_vip_llava_dir(path, WIDE_CFG, sd, tokenizer_spec(640, seed=1, corpus=NAMES),
+                        shard_bytes=1 << 20)
+    return path, {zoo.vip_llava_key(k): v.numpy() for k, v in sd.items()}
+
+
+@pytest.mark.parametrize("flags", [[], ["--vlm-kv8"], ["--vlm8bit"], ["--vlm4bit", "--vlm-kv8"],
+                                   ["--vlm4bit", "--vlm4bit-nf4"]],
+                         ids=["default", "kv8", "vlm8bit", "vlm4bit-kv8", "nf4"])
+def test_build_retriever_quantizes_as_jax(monkeypatch, wide_vlm_dir, flags):
+    """``cli.build_retriever`` on the release-layout directory quantizes and
+    picks the KV cache as ``mars_tpu.cli.build_retriever`` asks
+    ``JaxVipLlava`` to (without a bit flag: 8-bit weights), and its tree
+    equals the ``params=`` route's at those settings."""
+    path, sd = wide_vlm_dir
+    asked = {}
+    monkeypatch.setattr(jret, "JaxVipLlava", lambda p, **kw: asked.update(kw, path=p))
+    parser = argparse.ArgumentParser()
+    jcli.add_eval_args(parser)
+    jcli.build_retriever(parser.parse_args(["--jax-vlm", "--vlm-path", path] + flags))
+    vlm = tcli.build_retriever(tcli.parse_args(["--vlm-path", path, "--device", "cpu"]
+                                               + flags)).vlm
+    bits, fmt = asked["quantize_bits"], asked["int4_format"]
+    assert asked["path"] == path and (vlm.kv_bits, vlm.draft_tokens) == (
+        asked["kv_bits"], asked["draft_tokens"])
+    layer = vlm.params["language"]["layer0"]
+    for leaf in (layer["attn"]["q"], layer["mlp"]["gate"], layer["mlp"]["down"],
+                 vlm.params["vision"]["layer0"]["mlp"]["fc1"]):
+        assert set(leaf["kernel"]) == LEAF_KEYS[bits, fmt]
+    ref = tret.TorchVipLlava(params=tvl.convert_hf(sd, WIDE_CFG), cfg=WIDE_CFG,
+                             processor=object(), dtype=torch.bfloat16, quantize_bits=bits,
+                             int4_format=fmt)
+    _assert_same_tree(vlm.params, ref.params)
+
+
+def _assert_same_tree(got, want):
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys()
+        for k in want:
+            _assert_same_tree(got[k], want[k])
+    else:
+        assert got.dtype == want.dtype and torch.equal(got, want)

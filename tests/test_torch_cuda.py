@@ -917,6 +917,40 @@ def test_w8a8_int_mm_equals_cpu_int32(dev):
         q.int8_product(xq[:, :1020].to(dev), w[:1020].to(dev))
 
 
+@pytest.mark.parametrize("bits,kv_bits", [(None, None), (8, None), (8, 8)])
+def test_cached_forward_rows_equal_in_any_call(dev, bits, kv_bits):
+    """A token's logits are the same bits in a plain decode step (one row a
+    sequence) and in a speculative verify forward (K + 1 = 9 rows) at a
+    LLaMA-7B layer's widths and vocabulary in bfloat16, as cuBLAS alone
+    would not give them: each forward runs at ``VERIFY_SLACK`` rows over a
+    buffer of ``VERIFY_SLACK`` slots past the decode (weights of 8 or 16
+    bits; 4-bit ones take the GEMV at a decode step and the skinny GEMM at
+    a verify, whose sums differ)."""
+    from mars_tpu_torch.models import quantization as q, vip_llava as vl
+
+    cfg = vl.VipLlavaConfig(v_hidden=64, v_intermediate=128, v_layers=1, v_heads=2,
+                            image_size=28, patch_size=14, vision_feature_layers=(-1,),
+                            hidden=4096, intermediate=11008, layers=2, heads=32, kv_heads=32)
+    p = vl.init_random_params(3, cfg, dtype=torch.bfloat16, device=dev)
+    if bits:
+        p = q.quantize_params(p, bits=bits)
+    lang, b, ctx, k = p["language"], 4, 700, 8
+    gen = torch.Generator(device=dev).manual_seed(kv_bits or 1)
+    ids = torch.randint(0, cfg.vocab, (b, ctx + k + 1), generator=gen, device=dev)
+    pos = torch.arange(ctx + k + 1, device=dev)[None].expand(b, -1)
+    caches = [vl._alloc_cache(b, ctx + k + 1 + vl.VERIFY_SLACK, cfg, torch.bfloat16, dev,
+                              kv_bits) for _ in range(cfg.layers)]
+    vl.llama_forward(lang, lang["embed_tokens"][ids[:, :ctx]], pos[:, :ctx], cfg, caches, 0)
+    clone = lambda: [tuple(t.clone() for t in c) for c in caches]  # noqa: E731
+    verify, _ = vl.llama_forward(lang, lang["embed_tokens"][ids[:, ctx:]], pos[:, ctx:], cfg,
+                                 clone(), torch.full((b,), ctx, device=dev))
+    plain = clone()
+    for j in range(k + 1):
+        step, _ = vl.llama_forward(lang, lang["embed_tokens"][ids[:, ctx + j:ctx + j + 1]],
+                                   pos[:, ctx + j:ctx + j + 1], cfg, plain, ctx + j)
+        assert torch.equal(step[:, 0], verify[:, j]), j
+
+
 def test_multicrop_launch_counts(dev, monkeypatch):
     """``generate_multicrop`` at one crop layer encodes five crops: the tiny
     fixture SAM (one global layer, two windowed) launches the windowed
